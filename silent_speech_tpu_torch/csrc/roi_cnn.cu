@@ -1,0 +1,308 @@
+// Fused TinyROICNN forward for Hopper (sm_90a).
+//
+// Replaces the TPU kernel silent_speech_tpu/ops/pallas_cnn2.py::
+// _roi_fused_kernel (served as variant 'tiled3', reached through
+// roi_cnn_fused). It computes the same function:
+//
+//   (N, 48, 96) uint8 -> /255 (f32) -> optional per-frame standardize
+//   (ddof=1, std >= 1e-6) -> conv3x3 SAME 1->8 + b, ReLU, maxpool 2
+//   -> conv 8->16, ReLU, pool 2 -> conv 16->24, ReLU -> mean over 12x24
+//   -> fc 24->emb -> (N, emb) f32.
+//
+// What bounds it on the H100: arithmetic. A frame costs about 2.65 M f32
+// multiply-adds and brings only 4,608 input bytes, so the kernel is bound
+// by the f32 FMA rate of the CUDA cores, not by device memory.
+//
+// What the design does about it:
+// - One block of 288 threads holds one frame for the whole network. The
+//   input is read once with one 16-byte load per thread; every activation
+//   stays in shared memory (about 64 KB with halos, dynamic shared memory
+//   above the 48 KB default); only (N, emb) f32 goes back to device memory.
+// - conv1 is fused with its ReLU and pool, and conv2 likewise, so only the
+//   pooled maps are stored; conv3 + ReLU is summed straight into the
+//   24-channel mean.
+// - The weights (plain OIHW f32, ~22 KB) sit in the constant bank. The
+//   loops over output and input channels and taps are unrolled, so every
+//   weight is a compile-time constant-bank operand of its FMA: the inner
+//   loops issue no load for weights, only shared-memory loads of inputs.
+//   (Passing them instead as a 25 KB __grid_constant__ launch parameter,
+//   with the same registers and no spills, ran 13% slower at 8192 frames.)
+// - The TPU kernel's h-mod-4 parity packing and packed weight matrices
+//   exist for the TPU's 128-lane layout and are not carried over.
+//
+// The constant bank is one per device, so roi_cnn_forward orders its
+// launches: under a host mutex it copies the weights into the bank on the
+// caller's stream, launches, and records an event; a launch on another
+// stream first waits for that event. Launches with different weights on
+// any streams or host threads therefore never read each other's weights;
+// K1 launches on different streams run one after another.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <mutex>
+
+namespace {
+
+constexpr int H0 = 48, W0 = 96;    // input frame
+constexpr int C1 = 8, C2 = 16, C3 = 24;
+constexpr int H1 = 24, W1 = 48;    // after pool 1
+constexpr int H2 = 12, W2 = 24;    // after pool 2
+constexpr int MAX_EMB = 64;
+constexpr int THREADS = H2 * W2;   // 288: one stage-2/3 position per thread
+constexpr int NWARPS = THREADS / 32;
+static_assert(H0 * W0 == THREADS * 16, "one 16-byte load per thread");
+static_assert((H1 * W1) % THREADS == 0, "stage-1 positions per thread");
+
+// zero-haloed shared buffers (floats)
+constexpr int XP_W = W0 + 2, XP_SIZE = (H0 + 2) * XP_W;          // input
+constexpr int P1_W = W1 + 2, P1_PLANE = (H1 + 2) * P1_W;         // pool 1
+constexpr int P1_SIZE = C1 * P1_PLANE;
+constexpr int P2_W = W2 + 2, P2_PLANE = (H2 + 2) * P2_W;         // pool 2
+constexpr int P2_SIZE = C2 * P2_PLANE;
+constexpr int U_SIZE = XP_SIZE > P2_SIZE ? XP_SIZE : P2_SIZE;    // xp / p2
+constexpr int RED_SIZE = NWARPS * C3 + C3;
+constexpr size_t SMEM_BYTES = (size_t)(P1_SIZE + U_SIZE + RED_SIZE) * 4;
+
+// weight offsets in the constant bank: OIHW convs, then fc (emb, 24), fc b
+constexpr int OFF_W1 = 0;
+constexpr int OFF_B1 = OFF_W1 + C1 * 9;
+constexpr int OFF_W2 = OFF_B1 + C1;
+constexpr int OFF_B2 = OFF_W2 + C2 * C1 * 9;
+constexpr int OFF_W3 = OFF_B2 + C2;
+constexpr int OFF_B3 = OFF_W3 + C3 * C2 * 9;
+constexpr int OFF_FC = OFF_B3 + C3;
+constexpr int MAX_WEIGHTS = OFF_FC + MAX_EMB * C3 + MAX_EMB;
+
+__constant__ float c_w[MAX_WEIGHTS];
+
+// the last launch on each device: its stream and an event recorded after it
+constexpr int MAX_DEVICES = 64;
+struct LastLaunch {
+  cudaStream_t stream = nullptr;
+  cudaEvent_t done = nullptr;
+  bool any = false;
+};
+std::mutex g_mu;
+LastLaunch g_last[MAX_DEVICES];
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Sum of v over the block, the same value returned to every thread.
+// `red` holds NWARPS + 1 floats; the sum order is fixed (deterministic).
+__device__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = warp_sum(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int w = 0; w < NWARPS; ++w) s += red[w];
+    red[NWARPS] = s;
+  }
+  __syncthreads();
+  const float s = red[NWARPS];
+  __syncthreads();  // red may be reused right after
+  return s;
+}
+
+__global__ void __launch_bounds__(THREADS)
+roi_cnn_kernel(const uint8_t* __restrict__ roi, float* __restrict__ out,
+               int emb, int standardize) {
+  extern __shared__ float smem[];
+  float* p1 = smem;                 // [C1][H1+2][W1+2]
+  float* xp = smem + P1_SIZE;       // [H0+2][W0+2], stage 1 only
+  float* p2 = xp;                   // [C2][H2+2][W2+2], reuses xp
+  float* red = xp + U_SIZE;         // [NWARPS][C3] partials, then [C3] mean
+  const int tid = threadIdx.x;
+  const size_t n = blockIdx.x;
+
+  for (int i = tid; i < P1_SIZE + XP_SIZE; i += THREADS) smem[i] = 0.f;
+
+  // ---- input: 16 consecutive pixels of one row per thread, /255 in f32
+  float v[16];
+  {
+    const uint4 q = reinterpret_cast<const uint4*>(roi + n * (H0 * W0))[tid];
+    const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      v[k] = (float)((words[k >> 2] >> (8 * (k & 3))) & 0xffu) / 255.0f;
+  }
+  if (standardize) {  // two passes, as standardize_frames: mean, then var
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) s += v[k];
+    const float mu = block_sum(s, red) / (float)(H0 * W0);
+    float ss = 0.f;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) ss += (v[k] - mu) * (v[k] - mu);
+    const float var = block_sum(ss, red) / (float)(H0 * W0 - 1);
+    const float sd = fmaxf(sqrtf(fmaxf(var, 0.f)), 1e-6f);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) v[k] = (v[k] - mu) / sd;
+  }
+  __syncthreads();  // zero fill done before the interior is written
+  {
+    const int y = (tid * 16) / W0, x0 = (tid * 16) % W0;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) xp[(y + 1) * XP_W + x0 + 1 + k] = v[k];
+  }
+  __syncthreads();
+
+  // ---- stage 1: conv1 + ReLU + pool, one pooled position per iteration.
+  // relu(max_i(s_i) + b) == max_i(relu(s_i + b)) exactly (monotone rounding)
+  for (int i = tid; i < H1 * W1; i += THREADS) {
+    const int py = i / W1, px = i % W1;
+    float a[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) a[r][c] = xp[(2 * py + r) * XP_W + 2 * px + c];
+#pragma unroll
+    for (int co = 0; co < C1; ++co) {
+      float m = -INFINITY;
+#pragma unroll
+      for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 2; ++dx) {
+          float s = 0.f;
+#pragma unroll
+          for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+            for (int kx = 0; kx < 3; ++kx)
+              s = fmaf(c_w[OFF_W1 + co * 9 + ky * 3 + kx], a[dy + ky][dx + kx], s);
+          m = fmaxf(m, s);
+        }
+      p1[co * P1_PLANE + (py + 1) * P1_W + px + 1] =
+          fmaxf(m + c_w[OFF_B1 + co], 0.f);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < P2_SIZE; i += THREADS) p2[i] = 0.f;  // xp is dead
+  __syncthreads();
+
+  const int py = tid / W2, px = tid % W2;  // stage 2 and 3 position
+
+  // ---- stage 2: conv2 + ReLU + pool; this thread's pooled position
+  {
+    float m[C2];
+#pragma unroll
+    for (int co = 0; co < C2; ++co) m[co] = -INFINITY;
+#pragma unroll 1
+    for (int d = 0; d < 4; ++d) {
+      const int y = 2 * py + (d >> 1), x = 2 * px + (d & 1);
+      float acc[C2];
+#pragma unroll
+      for (int co = 0; co < C2; ++co) acc[co] = 0.f;
+#pragma unroll
+      for (int ci = 0; ci < C1; ++ci) {
+        float a[9];
+#pragma unroll
+        for (int k = 0; k < 9; ++k)
+          a[k] = p1[ci * P1_PLANE + (y + k / 3) * P1_W + x + k % 3];
+#pragma unroll
+        for (int co = 0; co < C2; ++co)
+#pragma unroll
+          for (int k = 0; k < 9; ++k)
+            acc[co] = fmaf(c_w[OFF_W2 + (co * C1 + ci) * 9 + k], a[k], acc[co]);
+      }
+#pragma unroll
+      for (int co = 0; co < C2; ++co) m[co] = fmaxf(m[co], acc[co]);
+    }
+#pragma unroll
+    for (int co = 0; co < C2; ++co)
+      p2[co * P2_PLANE + (py + 1) * P2_W + px + 1] =
+          fmaxf(m[co] + c_w[OFF_B2 + co], 0.f);
+  }
+  __syncthreads();
+
+  // ---- stage 3: conv3 + ReLU at this thread's position, summed for the mean
+  float acc[C3];
+#pragma unroll
+  for (int co = 0; co < C3; ++co) acc[co] = 0.f;
+#pragma unroll
+  for (int ci = 0; ci < C2; ++ci) {
+    float a[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k)
+      a[k] = p2[ci * P2_PLANE + (py + k / 3) * P2_W + px + k % 3];
+#pragma unroll
+    for (int co = 0; co < C3; ++co)
+#pragma unroll
+      for (int k = 0; k < 9; ++k)
+        acc[co] = fmaf(c_w[OFF_W3 + (co * C2 + ci) * 9 + k], a[k], acc[co]);
+  }
+  const int lane = tid & 31, warp = tid >> 5;
+#pragma unroll
+  for (int co = 0; co < C3; ++co) {
+    const float s = warp_sum(fmaxf(acc[co] + c_w[OFF_B3 + co], 0.f));
+    if (lane == 0) red[warp * C3 + co] = s;
+  }
+  __syncthreads();
+  float* mean = red + NWARPS * C3;
+  if (tid < C3) {
+    float s = 0.f;
+    for (int w = 0; w < NWARPS; ++w) s += red[w * C3 + tid];
+    mean[tid] = s / (float)(H2 * W2);
+  }
+  __syncthreads();
+
+  // ---- fc 24 -> emb (torch layout: weight (emb, 24))
+  if (tid < emb) {
+    float s = 0.f;
+#pragma unroll
+    for (int c = 0; c < C3; ++c) s = fmaf(mean[c], c_w[OFF_FC + tid * C3 + c], s);
+    out[n * emb + tid] = s + c_w[OFF_FC + emb * C3 + tid];
+  }
+}
+
+}  // namespace
+
+// roi: (n, 48, 96) uint8, 16-byte aligned; weights: one f32 buffer on the
+// device holding conv1 w (8,1,3,3), b (8), conv2 w (16,8,3,3), b (16),
+// conv3 w (24,16,3,3), b (24), fc w (emb,24), fc b (emb), in that order;
+// out: (n, emb) f32. Returns the first failing cudaError_t, else that of
+// the launch.
+extern "C" int roi_cnn_forward(const void* roi, const void* weights, void* out,
+                               int n, int emb, int standardize, void* stream) {
+  if (emb < 1 || emb > MAX_EMB || n < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(g_mu);
+  LastLaunch& last = g_last[dev];
+  if (last.done == nullptr) {
+    e = cudaEventCreateWithFlags(&last.done, cudaEventDisableTiming);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (last.any && last.stream != s) {  // that launch may still read c_w
+    e = cudaStreamWaitEvent(s, last.done, 0);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const size_t nw = (size_t)OFF_FC + (size_t)emb * C3 + emb;
+  e = cudaMemcpyToSymbolAsync(c_w, weights, nw * sizeof(float), 0,
+                              cudaMemcpyDeviceToDevice, s);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(roi_cnn_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)SMEM_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  roi_cnn_kernel<<<n, THREADS, SMEM_BYTES, s>>>(
+      static_cast<const uint8_t*>(roi), static_cast<float*>(out), emb,
+      standardize);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  e = cudaEventRecord(last.done, s);
+  if (e != cudaSuccess) return (int)e;
+  last.stream = s;
+  last.any = true;
+  return 0;
+}

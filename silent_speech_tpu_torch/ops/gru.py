@@ -1,0 +1,103 @@
+"""Masked GRU scan (port of the JAX ops/gru.py) — the plain PyTorch version
+of the GRU sequence kernel (ops/cuda_gru.py, csrc/gru_seq.cu).
+
+Semantics, all as in the JAX package and PyTorch's
+``pack_padded_sequence(..., enforce_sorted=False)``:
+
+- gate order r, z, n::
+
+      r = sigmoid(x W_ir + b_ir + h W_hr + b_hr)
+      z = sigmoid(x W_iz + b_iz + h W_hz + b_hz)
+      n = tanh(x W_in + b_in + r * (h W_hn + b_hn))
+      h' = (1 - z) * n + z * h
+
+- the carry is frozen at t >= length and outputs are zero there;
+- the reverse direction flips each sequence within its valid length, runs
+  the same forward scan and flips back.
+
+Weights keep the JAX layout: wi (D, 3H), wh (H, 3H), bi / bh (3H,).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def flip_padded(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Reverse each sequence within its valid length, leaving padding in
+    place. x: (B, T, ...); lengths: (B,)."""
+    T = x.shape[1]
+    j = torch.arange(T, device=x.device)[None, :]
+    L = lengths.to(device=x.device, dtype=j.dtype)[:, None]
+    idx = torch.where(j < L, L - 1 - j, j)
+    idx = idx.reshape(idx.shape + (1,) * (x.ndim - 2)).expand_as(x)
+    return torch.gather(x, 1, idx)
+
+
+def gru_cell_step(h: torch.Tensor, xp_t: torch.Tensor, wh: torch.Tensor,
+                  bh: torch.Tensor) -> torch.Tensor:
+    """One GRU step given the input projection ``xp_t = x W_i + b_i``.
+
+    h: (B, H); xp_t: (B, 3H); wh: (H, 3H); bh: (3H,). Returns the new h."""
+    hp = h @ wh + bh
+    xr, xz, xn = xp_t.chunk(3, dim=-1)
+    hr, hz, hn = hp.chunk(3, dim=-1)
+    r = torch.sigmoid(xr + hr)
+    z = torch.sigmoid(xz + hz)
+    n = torch.tanh(xn + r * hn)
+    return (1.0 - z) * n + z * h
+
+
+def gru_layer_single_direction(
+    x: torch.Tensor,
+    lengths: torch.Tensor,
+    params: dict,
+    *,
+    reverse: bool = False,
+    h0: Optional[torch.Tensor] = None,
+):
+    """Run one GRU direction over a padded batch.
+
+    x: (B, T, D); lengths: (B,); params: {'wi', 'wh', 'bi', 'bh'}.
+    Returns (outputs (B, T, H) zero past each length, h_last (B, H))."""
+    if reverse:
+        x = flip_padded(x, lengths)
+    B, T, _ = x.shape
+    H = params["wh"].shape[0]
+    xp = x @ params["wi"] + params["bi"]  # (B, T, 3H), hoisted out of the loop
+    h = x.new_zeros((B, H)) if h0 is None else h0
+    L = lengths.to(x.device)
+    ys = []
+    for t in range(T):
+        h_new = gru_cell_step(h, xp[:, t], params["wh"], params["bh"])
+        valid = (L > t)[:, None]
+        h = torch.where(valid, h_new, h)  # freeze the carry past the end
+        ys.append(torch.where(valid, h, torch.zeros_like(h)))
+    y = torch.stack(ys, dim=1)
+    if reverse:
+        y = flip_padded(y, lengths)
+    return y, h
+
+
+def bigru(x: torch.Tensor, lengths: torch.Tensor, layers: list[dict], *,
+          bidirectional: bool = True):
+    """Stacked (bi)directional GRU over a padded batch (inference: no
+    inter-layer dropout).
+
+    ``layers``: per-layer dicts {'fwd': {...}, 'bwd': {...}}.
+    Returns (outputs (B, T, H * dirs), h_last (B, layers * dirs * H))."""
+    out = x
+    finals = []
+    for lp in layers:
+        y_f, h_f = gru_layer_single_direction(out, lengths, lp["fwd"])
+        if bidirectional:
+            y_b, h_b = gru_layer_single_direction(out, lengths, lp["bwd"],
+                                                  reverse=True)
+            out = torch.cat([y_f, y_b], dim=-1)
+            finals.extend([h_f, h_b])
+        else:
+            out = y_f
+            finals.append(h_f)
+    return out, torch.cat(finals, dim=-1)

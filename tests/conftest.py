@@ -36,6 +36,7 @@ import pytest  # noqa: E402
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "tpu: requires the real TPU backend")
+    config.addinivalue_line("markers", "cuda: requires a CUDA device")
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,97 @@
+"""Import and routing hygiene of the port (silent_speech_tpu_torch).
+
+- Importing every module leaves jax out of sys.modules and needs neither
+  nvcc nor a CUDA device (checked in a fresh subprocess).
+- impl='kernel' on a CPU tensor raises; so do the JAX package's serving
+  knob values the port does not have.
+- A kernel build without nvcc raises instead of falling back.
+"""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from silent_speech_tpu_torch.infer.predictor import Predictor
+from silent_speech_tpu_torch.models.bigru import (BiGRUClassifier,
+                                                  BiGRUConfig, init_params)
+from silent_speech_tpu_torch.ops import _kernels, cuda_cnn, cuda_gru
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHECK = r"""
+import importlib, pkgutil, sys
+import silent_speech_tpu_torch as pkg
+mods = [pkg.__name__] + [m.name for m in pkgutil.walk_packages(
+    pkg.__path__, prefix=pkg.__name__ + ".")]
+for name in mods:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+assert not bad, bad
+assert not any(m.startswith("silent_speech_tpu.") and m.split(".")[1] in
+               ("ops", "models", "infer", "train", "data", "parallel")
+               for m in sys.modules), sorted(sys.modules)
+print("port-hygiene ok: %d modules" % len(mods))
+"""
+
+
+def test_port_imports_no_jax_and_needs_no_cuda():
+    env = dict(os.environ, PATH="/usr/bin:/bin", CUDA_VISIBLE_DEVICES="")
+    env.pop("CUDA_HOME", None)
+    proc = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "port-hygiene ok" in proc.stdout
+
+
+def test_kernel_impl_on_cpu_tensor_raises():
+    g = torch.Generator().manual_seed(0)
+    roi = torch.zeros((2, 48, 96), dtype=torch.uint8)
+    params = init_params(BiGRUConfig(x_dim=4, hidden=8, head_hidden=4), g)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_cnn.roi_cnn_fused(roi, params["roi_cnn"], impl="kernel")
+    x = torch.zeros((2, 3, 36))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_gru.bigru_kernel(x, torch.tensor([3, 1]), params["gru"],
+                              impl="kernel")
+    with pytest.raises(ValueError, match="unknown impl"):
+        cuda_gru.gru_layer(x, torch.tensor([3, 1]), params["gru"][0]["fwd"],
+                           impl="pallas")
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("roi_impl", "grouped"), ("roi_impl", "pallas"), ("roi_impl", "fused"),
+    ("roi_impl", "xla"), ("gru_impl", "scan"), ("gru_impl", "pallas"),
+    ("roi_variant", "tiled3_q8"), ("roi_variant", "wide"),
+    ("compute_dtype", "bfloat16"), ("matmul_precision", {"head": "highest"}),
+    ("matmul_precision", "high"),
+])
+def test_jax_only_knob_values_raise(knob, value):
+    cfg = BiGRUConfig(x_dim=4, hidden=8, head_hidden=4)
+    model = BiGRUClassifier.from_jax_params(
+        init_params(cfg, torch.Generator().manual_seed(0)), cfg)
+    with pytest.raises(ValueError, match=knob):
+        Predictor(model=model, id_to_label=dict(enumerate("abcdefghij")),
+                  device="cpu", **{knob: value})
+
+
+def test_cuda_device_without_gpu_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = BiGRUConfig(x_dim=4, hidden=8, head_hidden=4)
+    model = BiGRUClassifier.from_jax_params(
+        init_params(cfg, torch.Generator().manual_seed(0)), cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Predictor(model=model, id_to_label={}, device="cuda")
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(_kernels, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(os, "access", lambda *a, **k: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _kernels.build()
+    assert not (tmp_path / "build").exists()
