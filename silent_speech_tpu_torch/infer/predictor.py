@@ -16,8 +16,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from silent_speech_tpu.core.schema import Clip, pad_trim_time
-
+from ..core.schema import Clip, pad_trim_time
 from ..models.bigru import BiGRUClassifier, BiGRUConfig
 from ..ops._kernels import IMPLS
 from ..train.checkpoint import load_checkpoint
@@ -130,11 +129,18 @@ class Predictor:
         """Load an npz checkpoint written by either package."""
         params, meta, _ = _loaded if _loaded is not None else \
             load_checkpoint(path)
+        # the widths the metadata does not carry come from the parameters'
+        # shapes, as the JAX Predictor's forward takes them
+        use_roi = bool(meta["use_roi"])
         cfg = BiGRUConfig(
             x_dim=int(meta["x_dim"]),
             num_classes=len(meta["labels"]),
-            use_roi=bool(meta["use_roi"]),
+            use_roi=use_roi,
             gru_layers=int(meta.get("gru_layers", 2)),
+            hidden=int(params["gru"][0]["fwd"]["wh"].shape[0]),
+            head_hidden=int(params["head"]["fc1"]["w"].shape[1]),
+            roi_emb=(int(params["roi_cnn"]["fc"]["w"].shape[1]) if use_roi
+                     else BiGRUConfig.roi_emb),
             roi_h=int(meta.get("roi_h", 48)),
             roi_w=int(meta.get("roi_w", 96)),
         )

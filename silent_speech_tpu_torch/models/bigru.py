@@ -6,9 +6,11 @@ does (``roi_cnn.net.{0,3,6}``, ``roi_cnn.fc``, ``gru.weight_ih_l{k}[_reverse]``,
 ``pool.score``, ``head.{0,1,4}``), so a reference ``.pt`` loads with
 ``load_state_dict``. The forward runs on the JAX-layout parameter tree
 (``params_tree()``: views, no copies) through the port's ops, so each step
-has a JAX counterpart the tests hold it against; on a CUDA device the
-kernels take the same weights in their own layouts, built once
-(``kernel_weights()``).
+has a JAX counterpart the tests hold it against. On a CUDA device inference
+runs the kernels on weights built once in their own layouts
+(``kernel_weights()``); the differentiable forward (training) runs the ROI
+CNN's forward and weight-gradient kernels on a flat weight buffer built
+from the parameters each call, and the plain GRU scan.
 
 The reference's dual forward is kept: ``forward(..., roi_standardize=True)``
 is the training-path normalization (/255 then per-frame standardize), and
@@ -19,17 +21,17 @@ different logits on the two.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from silent_speech_tpu.core.torch_export import export_bigru_classifier
-
+from ..core.torch_export import export_bigru_classifier
 from ..ops import cuda_cnn, cuda_gru
+from ..ops import gru as gru_ops
 from ..ops.cuda_cnn import preprocess_roi, standardize_frames  # noqa: F401
-from ..ops.nn import (conv_init, dense, gru_dir_init, layer_norm,
+from ..ops.nn import (conv_init, dense, dropout, gru_dir_init, layer_norm,
                       layer_norm_init, linear_init)
 from ..ops.pooling import attn_pool
 
@@ -85,22 +87,74 @@ def init_params(cfg: BiGRUConfig, generator: torch.Generator) -> dict:
 
 def roi_embedding(p_roi: dict, roi: torch.Tensor, *, standardize: bool,
                   roi_impl: str = "auto",
-                  flat: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  flat: Optional[torch.Tensor] = None,
+                  differentiable: bool = False) -> torch.Tensor:
     """TinyROICNN embedding: (B, T, H, W) uint8 -> (B, T, emb) f32, through
     the fused CNN kernel or its plain version (``roi_impl``). ``flat``: the
-    kernel's weight buffer (``cuda_cnn.flat_weights(p_roi)``)."""
+    kernel's weight buffer (``cuda_cnn.flat_weights(p_roi)``), for
+    inference. ``differentiable``: the training CNN
+    (``cuda_cnn.roi_cnn_fused_train``), whose gradient reaches ``p_roi``."""
     if roi.dtype != torch.uint8:
         raise ValueError(f"the ROI embedding takes raw uint8 frames, got "
                          f"{roi.dtype}")
     B, T = roi.shape[:2]
-    emb = cuda_cnn.roi_cnn_fused(roi.reshape(B * T, *roi.shape[2:]), p_roi,
-                                 standardize=standardize, impl=roi_impl,
-                                 flat=flat)
+    frames = roi.reshape(B * T, *roi.shape[2:])
+    if differentiable:
+        emb = cuda_cnn.roi_cnn_fused_train(frames, p_roi,
+                                           standardize=standardize,
+                                           impl=roi_impl)
+    else:
+        emb = cuda_cnn.roi_cnn_fused(frames, p_roi, standardize=standardize,
+                                     impl=roi_impl, flat=flat)
     return emb.reshape(B, T, -1)
 
 
-def _linear_tree(m: nn.Linear) -> dict:
-    return {"w": m.weight.t(), "b": m.bias}
+def roi_cnn_tree(named: Mapping[str, torch.Tensor], prefix: str) -> dict:
+    """The TinyROICNN part of :func:`jax_tree` (HWIO convs, (in, out) fc),
+    from tensors named ``prefix + 'net.{0,3,6}.weight'`` ..."""
+    tree = {f"conv{i}": {"w": named[f"{prefix}net.{k}.weight"].permute(
+        2, 3, 1, 0), "b": named[f"{prefix}net.{k}.bias"]}
+        for i, k in enumerate(("0", "3", "6"))}
+    tree["fc"] = {"w": named[f"{prefix}fc.weight"].t(),
+                  "b": named[f"{prefix}fc.bias"]}
+    return tree
+
+
+def jax_tree(named: Mapping[str, torch.Tensor], cfg: BiGRUConfig) -> dict:
+    """The JAX package's parameter tree built from tensors under the
+    reference ``state_dict`` names, as views (HWIO convs, (in, out) dense
+    weights): the model's parameters, or any per-parameter state such as
+    Adam's moments."""
+    lin = lambda pfx: {"w": named[pfx + ".weight"].t(),
+                       "b": named[pfx + ".bias"]}
+
+    def direction(sfx):
+        return {"wi": named[f"gru.weight_ih_{sfx}"].t(),
+                "wh": named[f"gru.weight_hh_{sfx}"].t(),
+                "bi": named[f"gru.bias_ih_{sfx}"],
+                "bh": named[f"gru.bias_hh_{sfx}"]}
+
+    tree = {
+        "gru": [{"fwd": direction(f"l{k}"), "bwd": direction(f"l{k}_reverse")}
+                for k in range(cfg.gru_layers)],
+        "pool": {"score": lin("pool.score")},
+        "head": {"ln": {"scale": named["head.0.weight"],
+                        "bias": named["head.0.bias"]},
+                 "fc1": lin("head.1"), "fc2": lin("head.4")},
+    }
+    if cfg.use_roi:
+        tree["roi_cnn"] = roi_cnn_tree(named, "roi_cnn.")
+    return tree
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a parameter tree in ``jax.tree.leaves`` order: dict
+    keys sorted, lists in order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
 
 
 class TinyROICNN(nn.Module):
@@ -119,16 +173,13 @@ class TinyROICNN(nn.Module):
 
     def params_tree(self) -> dict:
         """JAX layout (HWIO convs, (in, out) fc) as views of the parameters."""
-        tree = {f"conv{i}": {"w": self.net[k].weight.permute(2, 3, 1, 0),
-                             "b": self.net[k].bias}
-                for i, k in enumerate(("0", "3", "6"))}
-        tree["fc"] = _linear_tree(self.fc)
-        return tree
+        return roi_cnn_tree(dict(self.named_parameters()), "")
 
 
 class BiGRUWeights(nn.Module):
     """The parameters of a bidirectional ``nn.GRU`` under its names
-    (``weight_ih_l{k}[_reverse]`` ...); the scan runs in ops.cuda_gru."""
+    (``weight_ih_l{k}[_reverse]`` ...); the scan runs in ops.gru and
+    ops.cuda_gru on :func:`jax_tree`'s views of them."""
 
     def __init__(self, in_dim: int, hidden: int, num_layers: int):
         super().__init__()
@@ -143,15 +194,6 @@ class BiGRUWeights(nn.Module):
                     self.register_parameter(
                         name, nn.Parameter(torch.empty(shape)))
             d = 2 * hidden
-
-    def params_tree(self) -> list[dict]:
-        def direction(sfx):
-            return {"wi": getattr(self, f"weight_ih_{sfx}").t(),
-                    "wh": getattr(self, f"weight_hh_{sfx}").t(),
-                    "bi": getattr(self, f"bias_ih_{sfx}"),
-                    "bh": getattr(self, f"bias_hh_{sfx}")}
-        return [{"fwd": direction(f"l{k}"), "bwd": direction(f"l{k}_reverse")}
-                for k in range(self.num_layers)]
 
 
 class AttnPool(nn.Module):
@@ -198,17 +240,7 @@ class BiGRUClassifier(nn.Module):
 
     def params_tree(self) -> dict:
         """The JAX package's parameter pytree, as views of the parameters."""
-        tree = {
-            "gru": self.gru.params_tree(),
-            "pool": {"score": _linear_tree(self.pool.score)},
-            "head": {"ln": {"scale": self.head[0].weight,
-                            "bias": self.head[0].bias},
-                     "fc1": _linear_tree(self.head[1]),
-                     "fc2": _linear_tree(self.head[4])},
-        }
-        if self.cfg.use_roi:
-            tree["roi_cnn"] = self.roi_cnn.params_tree()
-        return tree
+        return jax_tree(dict(self.named_parameters()), self.cfg)
 
     def kernel_weights(self) -> dict:
         """The kernels' weight layouts: ``'gru'``, the layers' (D, 3H) /
@@ -231,33 +263,54 @@ class BiGRUClassifier(nn.Module):
     def forward(self, X: torch.Tensor, lengths: torch.Tensor,
                 roi: Optional[torch.Tensor] = None, *,
                 roi_standardize: bool = True, train: bool = False,
+                generator: Optional[torch.Generator] = None,
                 roi_impl: str = "auto", gru_impl: str = "auto"
                 ) -> torch.Tensor:
         """X: (B, T, D) f32; lengths: (B,); roi: (B, T, H, W) uint8 or None.
         Returns logits (B, num_classes) f32. ``roi_impl`` / ``gru_impl``:
-        'auto' | 'kernel' | 'plain' (ops._kernels)."""
-        if train:
-            raise NotImplementedError(
-                "the training forward (dropout, the fused CNN backward) is "
-                "not ported yet; see ROADMAP.md")
+        'auto' | 'kernel' | 'plain' (ops._kernels).
+
+        ``train``: GRU inter-layer and head dropout, drawn from
+        ``generator`` (on X's device). The forward is differentiable when
+        ``train`` is set or autograd records it (grad mode on and a
+        parameter requires grad): the ROI CNN then runs
+        ``roi_cnn_fused_train`` and the GRU the plain scan, since the GRU
+        kernel has no backward (``gru_impl='kernel'`` raises there).
+        Otherwise it is the inference forward on ``kernel_weights()``."""
+        if train and generator is None:
+            raise ValueError("generator is required for the training "
+                             "forward (GRU and head dropout)")
+        differentiable = train or (torch.is_grad_enabled() and any(
+            p.requires_grad for p in self.parameters()))
+        if differentiable and gru_impl == "kernel":
+            raise ValueError("gru_impl='kernel': the GRU kernel has no "
+                             "backward; the differentiable forward runs "
+                             "the plain scan ('auto' or 'plain')")
         p = self.params_tree()
         X = X.to(torch.float32)
         lengths = lengths.to(X.device)
-        kw = self.kernel_weights() if X.is_cuda else \
-            {"gru": p["gru"], "roi_cnn": None}
+        kw = self.kernel_weights() if X.is_cuda and not differentiable \
+            else {"gru": p["gru"], "roi_cnn": None}
         if self.cfg.use_roi:
             if roi is None:
                 raise ValueError("model was built with use_roi=True but got "
                                  "roi=None")
             roi_e = roi_embedding(p["roi_cnn"], roi, standardize=roi_standardize,
-                                  roi_impl=roi_impl, flat=kw["roi_cnn"])
+                                  roi_impl=roi_impl, flat=kw["roi_cnn"],
+                                  differentiable=differentiable)
             Z = torch.cat([X, roi_e], dim=-1)
         else:
             Z = X
-        out = cuda_gru.bigru_kernel(Z, lengths, kw["gru"], impl=gru_impl)
+        if differentiable:
+            rate = self.cfg.gru_dropout if self.cfg.gru_layers > 1 else 0.0
+            out = gru_ops.bigru(Z, lengths, p["gru"], dropout_rate=rate,
+                                train=train, generator=generator)[0]
+        else:
+            out = cuda_gru.bigru_kernel(Z, lengths, kw["gru"], impl=gru_impl)
         pooled = attn_pool(out, lengths, p["pool"])
         h = layer_norm(pooled, p["head"]["ln"])
         h = torch.relu(dense(h, p["head"]["fc1"]))
+        h = dropout(h, self.cfg.head_dropout, generator, train)
         return dense(h, p["head"]["fc2"])
 
     def live_forward(self, X, lengths, roi=None, *, roi_impl: str = "auto",
@@ -268,10 +321,12 @@ class BiGRUClassifier(nn.Module):
                             roi_impl=roi_impl, gru_impl=gru_impl)
 
     def train_forward(self, X, lengths, roi=None, *, train: bool = True,
+                      generator: Optional[torch.Generator] = None,
                       roi_impl: str = "auto", gru_impl: str = "auto"
                       ) -> torch.Tensor:
-        """The training-path forward (per-frame ROI standardization).
-        ``train=True`` (dropout) raises until the training slice."""
+        """The training-path forward (per-frame ROI standardization,
+        train_model_official.py:279-310); ``train`` adds dropout drawn from
+        ``generator``."""
         return self.forward(X, lengths, roi, roi_standardize=True,
-                            train=train, roi_impl=roi_impl,
-                            gru_impl=gru_impl)
+                            train=train, generator=generator,
+                            roi_impl=roi_impl, gru_impl=gru_impl)

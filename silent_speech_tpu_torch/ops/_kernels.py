@@ -7,8 +7,9 @@ Takes over the role of the JAX package's ``ops/pallas_gru.default_interpret``.
   tensor; ``'kernel'`` on a CPU tensor raises; ``'plain'`` runs the plain
   version on any device. For a CUDA tensor a wrapper launches the kernel or
   raises: nothing falls back.
-- **Build.** ``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into one
-  shared library with a plain C interface, at first use, under
+- **Build.** ``csrc/*.cu`` compile with ``nvcc`` for ``sm_90a``, one nvcc
+  process per source, all started together, and link into one shared
+  library with a plain C interface, at first use, under
   ``build/torch_kernels/<hash of sources and flags>/``, and load with
   ``ctypes``. Importing this module builds nothing and needs no CUDA.
 - **Counting.** Each :class:`Kernel` counts its successful launches in a
@@ -34,10 +35,9 @@ IMPLS = ("auto", "kernel", "plain")
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + (
+    "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _LIB_NAME = "libsst_kernels.so"
 
@@ -102,7 +102,8 @@ class BuildInfo(NamedTuple):
 
 def build() -> BuildInfo:
     """Compile csrc/*.cu into one shared library, unless a build of the same
-    sources and flags exists. Raises with nvcc's output if it fails."""
+    sources and flags exists: every source in its own nvcc process, all at
+    once, then one link. Raises with nvcc's output if it fails."""
     srcs = _sources()
     out_dir = BUILD_ROOT / _source_hash(srcs)
     lib = out_dir / _LIB_NAME
@@ -112,20 +113,31 @@ def build() -> BuildInfo:
         return BuildInfo(lib, False, 0.0, log)
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
+    work = Path(tempfile.mkdtemp(dir=out_dir))
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
-    log_path.write_text(log)
-    os.replace(tmp, lib)
-    return BuildInfo(lib, True, seconds, log)
+    try:
+        objs = [work / (src.stem + ".o") for src in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(srcs, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        bad = [src.name for src, p in zip(srcs, procs) if p.returncode]
+        if bad:
+            raise RuntimeError(f"nvcc failed on {bad}:\n{log}")
+        tmp = work / _LIB_NAME
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{log}")
+        log_path.write_text(log)
+        os.replace(tmp, lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return BuildInfo(lib, True, time.perf_counter() - t0, log)
 
 
 _lib: Optional[ctypes.CDLL] = None

@@ -7,6 +7,11 @@ the TPU tiling knobs, plus ``impl`` (see ``ops._kernels``). The plain
 version is the masked scan of ``ops/gru.py``. The kernel runs the reverse
 direction in-kernel (no flip_padded gathers) and both directions of a
 bidirectional layer in one launch.
+
+The kernel has no backward (nor has the JAX package's: ``gru_impl='pallas'``
+is inference-only). A launch on tensors that autograd would differentiate
+raises instead of returning an output without a gradient; training runs the
+plain scan.
 """
 
 from __future__ import annotations
@@ -41,6 +46,12 @@ def _launch(x: torch.Tensor, lengths: torch.Tensor,
                          f"{'' if x.is_contiguous() else ' (strided)'}")
     if lengths.shape != (B,):
         raise ValueError(f"lengths must be ({B},), got {tuple(lengths.shape)}")
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            w.requires_grad for p, _ in dirs for w in p.values())):
+        raise RuntimeError(
+            "the GRU kernel has no backward: run it under torch.no_grad() / "
+            "torch.inference_mode(), or use impl='plain' (the "
+            "differentiable scan) for training")
     H = dirs[0][0]["wh"].shape[0]
     if not 1 <= H <= MAX_HIDDEN:
         raise ValueError(f"hidden size must be in [1, {MAX_HIDDEN}], got {H}")

@@ -24,6 +24,8 @@ from typing import Optional
 
 import torch
 
+from .nn import dropout
+
 
 def flip_padded(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """Reverse each sequence within its valid length, leaving padding in
@@ -82,15 +84,19 @@ def gru_layer_single_direction(
 
 
 def bigru(x: torch.Tensor, lengths: torch.Tensor, layers: list[dict], *,
-          bidirectional: bool = True):
-    """Stacked (bi)directional GRU over a padded batch (inference: no
-    inter-layer dropout).
+          bidirectional: bool = True, dropout_rate: float = 0.0,
+          train: bool = False,
+          generator: Optional[torch.Generator] = None):
+    """Stacked (bi)directional GRU over a padded batch. In train mode,
+    inverted dropout follows every layer but the last, as in
+    ``nn.GRU(dropout=...)`` (train_model_official.py:261-267), with masks
+    drawn from ``generator``.
 
     ``layers``: per-layer dicts {'fwd': {...}, 'bwd': {...}}.
     Returns (outputs (B, T, H * dirs), h_last (B, layers * dirs * H))."""
     out = x
     finals = []
-    for lp in layers:
+    for li, lp in enumerate(layers):
         y_f, h_f = gru_layer_single_direction(out, lengths, lp["fwd"])
         if bidirectional:
             y_b, h_b = gru_layer_single_direction(out, lengths, lp["bwd"],
@@ -100,4 +106,6 @@ def bigru(x: torch.Tensor, lengths: torch.Tensor, layers: list[dict], *,
         else:
             out = y_f
             finals.append(h_f)
+        if li < len(layers) - 1:
+            out = dropout(out, dropout_rate, generator, train)
     return out, torch.cat(finals, dim=-1)

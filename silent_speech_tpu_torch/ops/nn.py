@@ -12,6 +12,7 @@ draw from an explicit ``torch.Generator``.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -83,3 +84,18 @@ def conv2d_nhwc(x: torch.Tensor, p: dict) -> torch.Tensor:
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     """2x2/stride-2 max pool on NHWC, floor mode like nn.MaxPool2d(2)."""
     return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator], train: bool
+            ) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 - rate and
+    scale the kept ones by 1 / (1 - rate). The mask is drawn from
+    ``generator`` on ``x``'s device."""
+    if not train or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in train mode needs a generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 
@@ -72,11 +72,16 @@ def _json_default(o):
     raise TypeError(f"not JSON serializable: {type(o)}")
 
 
-def save_checkpoint(path: str, params: Any, meta: dict) -> str:
+def save_checkpoint(path: str, params: Any, meta: dict,
+                    opt_state_arrays: Optional[Any] = None) -> str:
     """Write params (numpy arrays or tensors, any nesting of dicts and
-    lists) and metadata as one npz file, replacing ``path`` atomically.
-    (Optimizer state waits for the training slice.)"""
+    lists), optional optimizer-state leaves (the JAX package's list,
+    ``train.step.Optimizer.state_arrays()``) and metadata as one npz file,
+    replacing ``path`` atomically."""
     payload = {f"p/{k}": v for k, v in _flatten(params).items()}
+    if opt_state_arrays is not None:
+        payload.update({f"{_OPT_PREFIX}{k}": v
+                        for k, v in _flatten(opt_state_arrays).items()})
     payload[_META_KEY] = np.frombuffer(
         json.dumps(meta, default=_json_default).encode(), dtype=np.uint8)
     tmp = path + ".tmp"

@@ -2,8 +2,10 @@
 
 Edge shapes the smoke run (chip_smoke.py) does not reach: single frames and
 rows, ragged batch tiles, zero lengths, constant frames under
-standardization, odd widths. Every test needs a CUDA device and skips
-without one. On the GPU machine (which has no jax, and tests/conftest.py
+standardization, odd widths; the ROI CNN backward (K3) on tie frames, its
+determinism and the inputs it refuses; the GRU kernel refusing autograd;
+a train step through the kernels against the plain path. Every test needs
+a CUDA device and skips without one. On the GPU machine (which has no jax, and tests/conftest.py
 imports jax) run them with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -12,8 +14,14 @@ imports jax) run them with
 import pytest
 import torch
 
+import numpy as np
+
 from silent_speech_tpu_torch.infer.predictor import full_f32
-from silent_speech_tpu_torch.models.bigru import init_roi_cnn
+from silent_speech_tpu_torch.models.bigru import (BiGRUClassifier,
+                                                  BiGRUConfig, init_params,
+                                                  init_roi_cnn)
+from silent_speech_tpu_torch.train.step import (make_optimizer,
+                                                smoothed_cross_entropy)
 from silent_speech_tpu_torch.ops import _kernels, cuda_cnn, cuda_gru
 from silent_speech_tpu_torch.ops import gru as gru_ops
 from silent_speech_tpu_torch.ops.nn import gru_dir_init
@@ -133,3 +141,149 @@ def test_bigru_kernel_one_launch_per_layer(dev):
     assert _kernels.launch_counts()["gru_seq"] == 2
     ref = gru_ops.bigru(x, lengths, layers)[0]
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+
+
+# --------------------------------------------------------------------- K3
+
+
+def _plain_weight_grads(roi, dE, p, standardize):
+    leaves = {k: {n: t.detach().clone().requires_grad_(True)
+                  for n, t in v.items()} for k, v in p.items()}
+    out = cuda_cnn.roi_cnn_train_plain(roi, leaves, standardize)
+    flat = [t for v in leaves.values() for t in v.values()]
+    grads = iter(torch.autograd.grad(out, flat, dE))
+    return cuda_cnn.flat_weights({k: {n: next(grads) for n in v}
+                                  for k, v in leaves.items()})
+
+
+def _assert_rel(got, ref, emb, bar=5e-5):
+    """max |d| / max |ref| < bar for each parameter tensor of the flat
+    layout (tests/test_fused_train.py's bar)."""
+    o = 0
+    for n in (72, 8, 1152, 16, 3456, 24, 24 * emb, emb):
+        a, b = got[o:o + n].double(), ref[o:o + n].double()
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        assert rel < bar, f"entries {o}:{o + n}: rel err {rel:.2e}"
+        o += n
+
+
+def _const_frames(levels):
+    return torch.tensor(levels, dtype=torch.uint8)[:, None, None].expand(
+        len(levels), 48, 96).contiguous()
+
+
+@pytest.mark.parametrize("N,standardize,levels,emb", [
+    (1, False, (), 32), (10, False, (0, 37, 128, 255), 32),
+    (10, True, (0, 255), 32), (133, True, (), 8), (300, False, (), 32)])
+def test_roi_cnn_bwd_matches_plain(dev, N, standardize, levels, emb):
+    """Random frames plus constant tie frames (every 2x2 window a tie);
+    under the standardization only 0 and 255 standardize exactly. N=133
+    gives some blocks two frames."""
+    g = torch.Generator().manual_seed(N)
+    roi = torch.cat([torch.randint(0, 256, (N, 48, 96), generator=g,
+                                   dtype=torch.uint8), _const_frames(levels)])
+    roi, p = roi.to(dev), _cnn_params(dev, N, emb)
+    dE = torch.randn(roi.shape[0], emb, generator=g).to(dev)
+    flat = cuda_cnn.flat_weights(p)
+    before = cuda_cnn.BWD_KERNEL.launches
+    got = cuda_cnn.roi_cnn_weight_grads(roi, dE, flat,
+                                        standardize=standardize)
+    again = cuda_cnn.roi_cnn_weight_grads(roi, dE, flat,
+                                          standardize=standardize)
+    torch.cuda.synchronize()
+    assert cuda_cnn.BWD_KERNEL.launches == before + 2
+    assert torch.equal(got, again)  # a fixed summation order
+    _assert_rel(got, _plain_weight_grads(roi, dE, p, standardize), emb)
+
+
+def test_roi_cnn_fused_train_autograd_reaches_the_parameters(dev):
+    """Through the kernels (forward K1, backward K3) autograd gives the
+    module's OIHW and (out, in) parameters the plain version's gradients."""
+    cfg = BiGRUConfig(x_dim=4, hidden=8, head_hidden=4, roi_emb=16)
+    model = BiGRUClassifier.from_jax_params(
+        init_params(cfg, torch.Generator().manual_seed(3)), cfg).to(dev)
+    roi = torch.randint(0, 256, (40, 48, 96), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(4)).to(dev)
+    grads = []
+    for impl in ("kernel", "plain"):
+        model.zero_grad()
+        out = cuda_cnn.roi_cnn_fused_train(
+            roi, model.roi_cnn.params_tree(), impl=impl)
+        torch.tanh(out).sum().backward()
+        grads.append([p.grad.clone() for p in model.roi_cnn.parameters()])
+    for a, b in zip(*grads):
+        assert ((a - b).abs().max() / b.abs().max()).item() < 5e-5
+
+
+def test_roi_cnn_bwd_rejects_what_it_does_not_take(dev):
+    p = _cnn_params(dev, 3)
+    flat = cuda_cnn.flat_weights(p)
+    roi = torch.zeros((4, 48, 96), dtype=torch.uint8, device=dev)
+    dE = torch.zeros((4, 32), device=dev)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_cnn.roi_cnn_weight_grads(roi.cpu(), dE, flat, standardize=True)
+    with pytest.raises(ValueError, match="dE"):
+        cuda_cnn.roi_cnn_weight_grads(roi, dE[:3], flat, standardize=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_cnn.roi_cnn_weight_grads(roi[::2], dE[:2], flat,
+                                      standardize=True)
+    with pytest.raises(ValueError, match="flat_weights"):
+        cuda_cnn.roi_cnn_weight_grads(roi, dE, flat[:-1], standardize=True)
+    zero = cuda_cnn.roi_cnn_weight_grads(roi[:0], dE[:0], flat,
+                                         standardize=True)
+    torch.cuda.synchronize()
+    assert zero.shape == flat.shape and not zero.any()
+
+
+def test_gru_kernel_refuses_autograd(dev):
+    g = torch.Generator().manual_seed(6)
+    p = {k: v.to(dev) for k, v in gru_dir_init(8, 16, g).items()}
+    x = torch.randn(3, 5, 8, generator=g).to(dev)
+    lengths = torch.tensor([5, 3, 1])
+    cuda_gru.gru_layer(x, lengths, p, impl="kernel")  # nothing requires grad
+    for grad_x, grad_w in ((True, False), (False, True)):
+        xx = x.clone().requires_grad_(grad_x)
+        pp = {k: v.clone().requires_grad_(grad_w) for k, v in p.items()}
+        with pytest.raises(RuntimeError, match="no backward"):
+            cuda_gru.gru_layer(xx, lengths, pp, impl="kernel")
+        with torch.no_grad():
+            cuda_gru.gru_layer(xx, lengths, pp, impl="kernel")
+
+
+def test_train_step_kernels_match_plain(dev):
+    """One step (forward, loss, backward, clip, Adam) through K1 and K3
+    against the plain path; the bars of tests/test_fused_train.py:180-189
+    and tests/test_train.py:101,113."""
+    cfg = BiGRUConfig(x_dim=12, num_classes=4, hidden=16, roi_emb=8,
+                      head_hidden=8, gru_dropout=0.0, head_dropout=0.0)
+    params = init_params(cfg, torch.Generator().manual_seed(7))
+    rng = np.random.default_rng(7)
+    B, T = 4, 16
+    X = torch.from_numpy(rng.standard_normal((B, T, 12)).astype(np.float32))
+    L = torch.tensor([16, 9, 5, 12])
+    R = torch.from_numpy(rng.integers(0, 256, (B, T, 48, 96),
+                                      dtype=np.uint8))
+    y = torch.tensor([0, 3, 1, 2])
+    batch = [t.to(dev) for t in (X, L, R, y)]
+    res = []
+    for impl in ("kernel", "plain"):
+        model = BiGRUClassifier.from_jax_params(params, cfg).to(dev)
+        opt = make_optimizer(model, 3e-4)
+        _kernels.reset_launch_counts()
+        logits = model.train_forward(*batch[:3], roi_impl=impl,
+                                     generator=torch.Generator(device=dev))
+        loss = smoothed_cross_entropy(logits, batch[3], 4, 0.05)
+        loss.backward()
+        grads = [p.grad.clone() for p in model.parameters()]
+        opt.step()
+        counts = _kernels.launch_counts()
+        want = 1 if impl == "kernel" else 0
+        assert counts["roi_cnn"] == counts["roi_cnn_bwd"] == want
+        assert counts["gru_seq"] == 0  # the training GRU is the plain scan
+        assert all(g.abs().max() > 0 for g in grads)
+        res.append((loss.item(), grads,
+                    [p.detach().clone() for p in model.parameters()]))
+    (lk, gk, pk), (lp, gp, pp) = res
+    assert abs(lk - lp) < 1e-5
+    assert max((a - b).abs().max().item() for a, b in zip(gk, gp)) <= 1e-4
+    assert max((a - b).abs().max().item() for a, b in zip(pk, pp)) <= 3e-4

@@ -1,12 +1,16 @@
 """Import and routing hygiene of the port (silent_speech_tpu_torch).
 
-- Importing every module leaves jax out of sys.modules and needs neither
-  nvcc nor a CUDA device (checked in a fresh subprocess).
+- Importing every module leaves jax and every module of the JAX package
+  out of sys.modules and needs neither nvcc nor a CUDA device (checked in a
+  fresh subprocess); no source of the port, nor chip_smoke.py, names the
+  JAX package or jax in an import statement (checked on the syntax tree).
 - impl='kernel' on a CPU tensor raises; so do the JAX package's serving
   knob values the port does not have.
 - A kernel build without nvcc raises instead of falling back.
 """
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -28,11 +32,9 @@ mods = [pkg.__name__] + [m.name for m in pkgutil.walk_packages(
     pkg.__path__, prefix=pkg.__name__ + ".")]
 for name in mods:
     importlib.import_module(name)
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in
+             ("jax", "silent_speech_tpu"))
 assert not bad, bad
-assert not any(m.startswith("silent_speech_tpu.") and m.split(".")[1] in
-               ("ops", "models", "infer", "train", "data", "parallel")
-               for m in sys.modules), sorted(sys.modules)
 print("port-hygiene ok: %d modules" % len(mods))
 """
 
@@ -44,6 +46,40 @@ def test_port_imports_no_jax_and_needs_no_cuda():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "port-hygiene ok" in proc.stdout
+
+
+def _imported_roots(path: str) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+_PORT_SOURCES = sorted(glob.glob(os.path.join(
+    REPO, "silent_speech_tpu_torch", "**", "*.py"), recursive=True)) + [
+    os.path.join(REPO, "chip_smoke.py")]
+
+
+@pytest.mark.parametrize("path", _PORT_SOURCES,
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_source_imports_nothing_of_jax(path):
+    assert not _imported_roots(path) & {"jax", "jaxlib", "silent_speech_tpu"}
+
+
+def test_import_scan_sees_the_jax_package(tmp_path):
+    """The scan catches every spelling of an import of the JAX package."""
+    for line in ("import silent_speech_tpu", "import silent_speech_tpu.ops",
+                 "from silent_speech_tpu.core import schema",
+                 "from silent_speech_tpu import core",
+                 "def f():\n    import jax.numpy as jnp"):
+        f = tmp_path / "m.py"
+        f.write_text(line + "\n")
+        assert _imported_roots(str(f)) & {"jax", "silent_speech_tpu"}, line
+    f.write_text("import silent_speech_tpu_torch\nfrom . import x\n")
+    assert not _imported_roots(str(f)) & {"jax", "silent_speech_tpu"}
 
 
 def test_kernel_impl_on_cpu_tensor_raises():

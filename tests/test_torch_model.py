@@ -107,11 +107,17 @@ def test_params_tree_round_trips_and_dual_forward_differs(rng):
 
 
 def test_training_forward_is_not_ported(rng):
+    """What the training forward does not take: dropout without a
+    generator, the GRU kernel (it has no backward), float frames."""
     _, _, model = _pair(5, **NARROW)
     X, lengths, roi = _inputs(rng, 1, 5, NARROW["x_dim"], True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="generator"):
         model.train_forward(torch.from_numpy(X), torch.from_numpy(lengths),
                             torch.from_numpy(roi))
+    with pytest.raises(ValueError, match="no backward"):
+        model.train_forward(torch.from_numpy(X), torch.from_numpy(lengths),
+                            torch.from_numpy(roi),
+                            generator=torch.Generator(), gru_impl="kernel")
     with pytest.raises(ValueError, match="uint8"):
         model.live_forward(torch.from_numpy(X), torch.from_numpy(lengths),
                            torch.from_numpy(roi).float())

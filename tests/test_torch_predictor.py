@@ -105,7 +105,7 @@ def test_load_predictor_warmup_and_cli(ckpt, tmp_path, rng, capsys):
                      "device=cpu", "k=3"]) == 0
     out = capsys.readouterr().out.strip()
     assert out == f"{cpath}: {want}"
-    assert cli.main(["train", "clip_dir=x"]) == 2
+    assert cli.main(["train-ctc", "clip_dir=x"]) == 2
     assert "not yet ported" in capsys.readouterr().out
     assert cli.main(["predict", f"ckpt_path={path}"]) == 2
 
