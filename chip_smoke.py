@@ -11,23 +11,33 @@ prints no result line):
 3. each kernel against its plain PyTorch version on the card, at the
    serving and training shapes, TF32 off for the plain version; the ROI CNN
    backward (K3) also against the plain version evaluated in float64, and
-   twice on the same inputs (bitwise-equal);
+   twice on the same inputs (bitwise-equal); the serving modes' ROI CNN
+   kernels (K1-bf16, K4 int8, K5 im2col) at N=8192, a ragged N=33, N=1 and
+   on all-0 and all-255 frames, and K4 on sub-batches (bitwise-equal rows);
 4. the serving path at full width (random weights from a seed): the
    ``predict`` CLI on clips of 5..90 frames, and ``Predictor.predict_batch``
    at B=256, T=32 against the plain path on the card and on the CPU, with
    the kernels' launch counts over that run;
-5. the training path at full width: the ``train`` CLI for 2 epochs at
-   batch 16 on a synthetic corpus (10 words x 8 clips of 20..90 frames),
-   with the kernels' launch counts over that run, then ``predict`` on its
-   checkpoint; and one train step (B=16, T=90, no dropout or augmentation)
-   through the kernels against the plain path;
+5. the training path at full width: the ``train`` CLI for 10 epochs at
+   batch 16, lr 1e-3, on a synthetic corpus (10 words x 8 clips of 20..90
+   frames), with the kernels' launch counts over that run, then ``predict``
+   on its checkpoint; and one train step (B=16, T=90, no dropout or
+   augmentation) through the kernels against the plain path;
+5b. the serving modes: the ``eval-dataset`` CLI with that checkpoint over a
+   second synthetic corpus (10 words x 32 clips of 20..90 frames, batch 64)
+   in four modes: f32 kernels, bf16, int8 (tiled3_q8) and im2col, with
+   each run's launch counts, accuracy, average confidence and clips/s; each
+   mode's logits on the whole corpus against the f32 kernels mode (argmax
+   equal for every clip, drift under tests/test_bf16_parity.py's 0.15);
 6. timings with CUDA events: each kernel, its plain version and, where one
    exists, the PyTorch library call for the same function; each kernel's
-   bound; serving clips/s at B=256 and B=1024 (T=32), p50 latency at B=1;
-   train steps at B=16, T=90 and B=256, T=32;
+   bound; the serving modes' kernels at the sweep's shape (64 x 90 = 5,760
+   frames) and at N=8192, and their forward at B=64, T=90; serving clips/s
+   at B=256 and B=1024 (T=32), p50 latency at B=1; train steps at B=16,
+   T=90 and B=256, T=32;
 7. a torch.profiler pass over ``predict_batch`` at B=1, 256 and 1024
-   (T=32) and over the B=256 train step: device time by kernel and copy,
-   and the device's idle share.
+   (T=32), over each serving mode at B=64, T=90, and over the B=256 train
+   step: device time by kernel and copy, and the device's idle share.
 
 Then one JSON line with the kernels' results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA device;
@@ -66,11 +76,30 @@ BAR_K3, BAR_LOSS, BAR_GRAD, BAR_PARAM = 5e-5, 1e-5, 1e-4, 3e-4
 # pool windows to different inputs; the f32 plain version itself lies up to
 # 2.4e-4 from its float64 evaluation there (PERF.md, section 6)
 BAR_K3_ROUTING = 5e-4
+# the serving modes' ROI CNN kernels against their plain versions: bf16
+# differs where an f32 sum, taken in another order, crosses a bf16 rounding
+# boundary (one bf16 step of one activation, about 1e-6 of the output); on
+# a constant frame every interior position computes the same sum, so one
+# crossing moves a whole map by one bf16 step (2^-8 of it: up to about 1e-3
+# of the output), hence the second bar, for constant frames only; int8 is
+# bitwise its plain version up to the last ReLU, so only the mean and the
+# fc reassociate (a requantization level moved by one f32 bit would show as
+# about 1e-4); im2col computes K1's function (K1's bars)
+BAR_BF16, BAR_BF16_CONST, BAR_Q8 = 1e-4, 2e-3, 1e-6
+LOGIT_TOL = 0.15  # the serving modes vs f32 (tests/test_bf16_parity.py)
 B_SERVE, T_SERVE = 256, 32
 B_TRAIN, T_TRAIN = 16, 90  # the reference protocol (core/config.py)
+TRAIN_EPOCHS, TRAIN_LR = 10, 1e-3
+B_SWEEP = 64  # eval-dataset's batch; clips pad to the checkpoint's max_t 90
+# the serving modes: Predictor knobs and the ROI CNN kernel each runs
+MODES = {"f32": ({}, "roi_cnn"),
+         "bf16": ({"compute_dtype": "bfloat16"}, "roi_cnn_bf16"),
+         "q8": ({"roi_variant": "tiled3_q8"}, "roi_cnn_q8"),
+         "im2col": ({"roi_variant": "im2col"}, "roi_cnn_im2col")}
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit): f32 on
-# the CUDA cores and HBM bandwidth
+# the CUDA cores, bf16 and int8 on the tensor cores, and HBM bandwidth
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
+PEAK_BF16_FLOPS, PEAK_INT8_OPS = 989e12, 1979e12
 # multiply-adds per frame: the ROI CNN forward (convs + fc at emb=32) and
 # what K3 adds to recompute it (fc and d feat, conv3 weight grads and
 # transposed conv, conv2 and conv1 grads over the routed cells only)
@@ -96,10 +125,12 @@ def check_close(name: str, got: torch.Tensor, ref: torch.Tensor,
     return err
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    """The least time for the work on the card: the larger of the f32
-    operations over the f32 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS
+             ) -> tuple[float, str]:
+    """The least time for the work on the card: the larger of the
+    operations over the peak rate for their type (f32 unless given) and the
+    bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -168,6 +199,12 @@ def device_breakdown(fn, calls: int = 3) -> dict:
             cat = "memcpy " + name.split()[1]
         elif "roi_cnn_bwd" in name:
             cat = "K3 roi_cnn_bwd"
+        elif "roi_cnn_q8" in name:
+            cat = "K4 roi_cnn_q8"
+        elif "roi_cnn_im2col" in name:
+            cat = "K5 roi_cnn_im2col"
+        elif "roi_cnn_kernel" in name and "bfloat16" in name:
+            cat = "K1-bf16 roi_cnn_bf16"
         elif "roi_cnn_kernel" in name:
             cat = "K1 roi_cnn"
         elif "gru_seq_kernel" in name:
@@ -267,15 +304,97 @@ def check_k3(p_cnn, flat, gen, dev) -> tuple[float, float]:
     return max_abs, max_rel
 
 
-def write_train_corpus(out_dir: Path, words: list[str], per_word: int
-                       ) -> None:
+def check_bf16(name: str, got: torch.Tensor, ref: torch.Tensor,
+               roi: torch.Tensor) -> float:
+    """check_close of the bf16 kernel: BAR_BF16 on the frames that vary,
+    BAR_BF16_CONST on the constant ones."""
+    flat = roi.reshape(roi.shape[0], -1)
+    const = flat.amin(1) == flat.amax(1)
+    err = 0.0
+    for sel, what, bar in ((~const, "", BAR_BF16),
+                           (const, " (constant frames)", BAR_BF16_CONST)):
+        if sel.any():
+            err = max(err, check_close(name + what, got[sel], ref[sel], bar))
+    return err
+
+
+def mode_packs(p_cnn: dict) -> dict:
+    """The serving modes' ROI CNN weights in their kernels' layouts, by
+    kernel name."""
+    from silent_speech_tpu_torch.models.bigru import ROI_PACKS
+
+    return {name: ROI_PACKS[name](p_cnn)
+            for name in ("roi_cnn_bf16", "roi_cnn_q8", "roi_cnn_im2col")}
+
+
+def check_serving_kernels(p_cnn, packs, gen, dev) -> dict:
+    """K1-bf16, K4 and K5 against their plain versions (TF32 off) at
+    N=8192, on a ragged N=33 with frames of 0 and 255, at N=1 and on
+    constant frames only; with and without the standardization, except K4
+    (serving only). Then K4 on sub-batches of 33 frames: each row bitwise
+    the row of the whole batch. Returns each kernel's largest error; raises
+    on a failure."""
+    from silent_speech_tpu_torch.infer.predictor import full_f32
+    from silent_speech_tpu_torch.ops import (cuda_cnn, cuda_cnn_im2col,
+                                             cuda_cnn_q8)
+
+    rand = lambda n: torch.randint(0, 256, (n, 48, 96), generator=gen,
+                                   dtype=torch.uint8)
+    const = lambda vals: torch.tensor(vals, dtype=torch.uint8)[
+        :, None, None].expand(len(vals), 48, 96)
+    cases = [("N=8192", rand(B_SERVE * T_SERVE)),
+             ("N=33 (frames 0, 255 at the end)",
+              torch.cat([rand(31), const([0, 255])])),
+             ("N=1", rand(1)), ("N=4 constant 0, 0, 255, 255",
+                                const([0, 0, 255, 255]))]
+    errs = {"roi_cnn_bf16": 0.0, "roi_cnn_q8": 0.0, "roi_cnn_im2col": 0.0}
+    for label, roi in cases:
+        roi = roi.contiguous().to(dev)
+        for std in (False, True):
+            got = cuda_cnn.roi_cnn_bf16(roi, p_cnn, standardize=std,
+                                        impl="kernel",
+                                        flat=packs["roi_cnn_bf16"])
+            with full_f32():
+                ref = cuda_cnn.roi_cnn_bf16_plain(roi, p_cnn, std)
+            errs["roi_cnn_bf16"] = max(errs["roi_cnn_bf16"], check_bf16(
+                f"roi_cnn_bf16 {label} standardize={std}", got, ref, roi))
+            got = cuda_cnn_im2col.roi_cnn_im2col(
+                roi, p_cnn, standardize=std, impl="kernel",
+                packed=packs["roi_cnn_im2col"])
+            with full_f32():
+                ref = cuda_cnn.roi_cnn_plain(roi, p_cnn, std)
+            errs["roi_cnn_im2col"] = max(errs["roi_cnn_im2col"], check_close(
+                f"roi_cnn_im2col {label} standardize={std}", got, ref,
+                BAR_CNN_STD if std else BAR_CNN_LIVE))
+        got = cuda_cnn_q8.roi_cnn_q8(roi, p_cnn, impl="kernel",
+                                     packed=packs["roi_cnn_q8"])
+        ref = cuda_cnn_q8.roi_cnn_q8_plain(roi, packs["roi_cnn_q8"])
+        errs["roi_cnn_q8"] = max(errs["roi_cnn_q8"], check_close(
+            f"roi_cnn_q8 {label}", got, ref, BAR_Q8))
+    roi = torch.cat([rand(31), const([0, 255])]).to(dev)
+    whole = cuda_cnn_q8.roi_cnn_q8(roi, p_cnn, impl="kernel",
+                                   packed=packs["roi_cnn_q8"])
+    for lo, hi in ((0, 1), (5, 6), (3, 17), (20, 33), (31, 33)):
+        part = cuda_cnn_q8.roi_cnn_q8(roi[lo:hi].contiguous(), p_cnn,
+                                      impl="kernel",
+                                      packed=packs["roi_cnn_q8"])
+        if not torch.equal(part, whole[lo:hi]):
+            fail(f"roi_cnn_q8: frames {lo}:{hi} alone differ from the same "
+                 "frames in a batch of 33")
+    print("  roi_cnn_q8: frames 0:1, 5:6, 3:17, 20:33, 31:33 alone are "
+          "bitwise the same frames in a batch of 33")
+    return errs
+
+
+def write_train_corpus(out_dir: Path, words: list[str], per_word: int,
+                       seed: int = SEED) -> None:
     """Synthetic clips of 20..90 frames through the port's data/synthetic.py,
     in the reference clip format."""
     from silent_speech_tpu_torch.core.schema import (Clip, clip_filename,
                                                      save_clip)
     from silent_speech_tpu_torch.data.synthetic import synthetic_clip
 
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     out_dir.mkdir(parents=True)
     for wi, word in enumerate(words):
         for j in range(per_word):
@@ -467,6 +586,9 @@ def main() -> int:
 
     k3_abs, k3_rel = check_k3(p_cnn, flat,
                               torch.Generator().manual_seed(SEED + 3), dev)
+    packs = mode_packs(p_cnn)
+    mode_errs = check_serving_kernels(
+        p_cnn, packs, torch.Generator().manual_seed(SEED + 4), dev)
 
     # ---- 4. the serving path, full width, random weights from the seed
     work = ROOT / "build" / "chip_smoke"
@@ -550,20 +672,21 @@ def main() -> int:
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = cli.main(["train", f"clip_dir={corpus}", f"out_path={tr_ckpt}",
-                       "epochs=2", f"batch_size={B_TRAIN}", "device=cuda"])
+                       f"epochs={TRAIN_EPOCHS}", f"lr={TRAIN_LR}",
+                       f"batch_size={B_TRAIN}", "device=cuda"])
     train_counts = _kernels.launch_counts()
     print(out.getvalue(), end="")
     if rc != 0:
         fail(f"train CLI exited {rc}")
     text = out.getvalue()
-    for ep in (1, 2):
+    for ep in range(1, TRAIN_EPOCHS + 1):
         m = re.search(rf"^ep {ep:02d} \| train loss (\S+) acc \S+ \| val "
                       rf"loss (\S+) acc ", text, re.M)
         if m is None or not all(math.isfinite(float(v)) for v in m.groups()):
             fail(f"train CLI printed no 'ep {ep:02d} |' line with finite "
                  "losses")
     n_train = int(re.search(r"^Train clips: (\d+)", text, re.M).group(1))
-    steps = 2 * -(-n_train // B_TRAIN)
+    steps = TRAIN_EPOCHS * -(-n_train // B_TRAIN)
     print(f"  {n_clips} clips, {n_train} for training: {steps} train steps; "
           f"launches over the train run: {train_counts}")
     if train_counts["roi_cnn_bwd"] != steps or train_counts["roi_cnn"] < steps:
@@ -596,6 +719,72 @@ def main() -> int:
                 ast.literal_eval(line[len(path) + 2:])[0][0] != want[0][0]:
             fail(f"predict on the trained checkpoint: {line!r} vs plain "
                  f"{want}")
+
+    # ---- 5b. the serving modes: eval-dataset with the trained checkpoint
+    sweep_dir = work / "sweep_clips"
+    write_train_corpus(sweep_dir, labels, 32, seed=SEED + 5)
+    sweep_files = scan_corpus(str(sweep_dir), verbose=False).files
+    n_sweep = len(sweep_files)
+    print(f"serving modes: the eval-dataset CLI over {n_sweep} clips, batch "
+          f"{B_SWEEP}, checkpoint trained {TRAIN_EPOCHS} epochs {card}:")
+    sweep = {}
+    for mode, (knobs, kname) in MODES.items():
+        args = ["eval-dataset", f"ckpt_path={tr_ckpt}",
+                f"clip_dir={sweep_dir}", f"batch_size={B_SWEEP}",
+                "device=cuda"] + [f"{k}={v}" for k, v in knobs.items()]
+        _kernels.reset_launch_counts()
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mode_counts = _kernels.launch_counts()
+        text = out.getvalue()
+        if rc != 0:
+            fail(f"eval-dataset {mode} exited {rc}:\n{text}")
+        acc = float(re.search(r"^dataset acc: (\S+)", text, re.M).group(1))
+        conf = float(re.search(r"^avg conf: (\S+)", text, re.M).group(1))
+        launched = {k: v for k, v in mode_counts.items() if v}
+        print(f"  {mode} ({' '.join(args[4:-1]) or 'defaults'}): acc "
+              f"{acc:.4f}, avg conf {conf:.4f}, {n_sweep / wall:.1f} clips/s "
+              f"({wall:.3f} s, npz loading included), launches {launched}")
+        others = [k for _, k in MODES.values() if k != kname]
+        if mode_counts[kname] <= 0 or mode_counts["gru_seq"] <= 0 or \
+                any(mode_counts[k] for k in others):
+            fail(f"eval-dataset {mode}: launches {launched}, expected "
+                 f"{kname} and gru_seq only")
+        sweep[mode] = {"acc": acc, "conf": conf, "clips_s": n_sweep / wall,
+                       "launches": mode_counts[kname]}
+    if not sweep["f32"]["acc"] >= 0.5:
+        fail(f"the checkpoint scores {sweep['f32']['acc']} on the sweep: "
+             "too little trained for an argmax gate to mean anything")
+    from silent_speech_tpu_torch.data.loader import load_corpus_arrays
+    tr_cfg = tr_plain.cfg
+    Xs_, Rs_, Ls_, _ = load_corpus_arrays(sweep_files, 90, tr_cfg.x_dim,
+                                          True)
+    mode_pred, mode_logits = {}, {}
+    for mode, (knobs, _) in MODES.items():
+        mode_pred[mode] = Predictor.from_checkpoint(tr_ckpt, device="cuda",
+                                                    **knobs)
+        mode_logits[mode] = np.concatenate([
+            mode_pred[mode].predict_batch(Xs_[i:i + B_SWEEP],
+                                          Ls_[i:i + B_SWEEP],
+                                          Rs_[i:i + B_SWEEP])
+            for i in range(0, n_sweep, B_SWEEP)])
+    ref = mode_logits["f32"]
+    top2 = np.sort(ref, -1)
+    print(f"  logits vs the f32 kernels mode over the {n_sweep} clips "
+          f"(smallest top-2 logit margin there {(top2[:, -1] - top2[:, -2]).min():.4f}):")
+    for mode in ("bf16", "q8", "im2col"):
+        drift = float(np.abs(mode_logits[mode] - ref).max())
+        same = int((mode_logits[mode].argmax(-1) == ref.argmax(-1)).sum())
+        sweep[mode]["drift"] = drift
+        print(f"    {mode}: argmax equal on {same}/{n_sweep} clips, max "
+              f"|d logit| {drift:.3e} (bar {LOGIT_TOL:g})")
+        if same != n_sweep or not drift < LOGIT_TOL:
+            fail(f"{mode}: argmax equal on {same}/{n_sweep} clips, drift "
+                 f"{drift:.3e}")
 
     print("one train step, kernels vs plain (TF32 off, no dropout or "
           "augmentation):")
@@ -631,6 +820,43 @@ def main() -> int:
           f"plain (autograd through cuDNN, forward included) "
           f"{k3_plain_ms:.4f} ms, bound {k3_bound:.4f} ms ({k3_by}); no "
           f"single PyTorch call computes it {card}")
+    from silent_speech_tpu_torch.ops import cuda_cnn_im2col, cuda_cnn_q8
+    mode_fns = {  # kernel, plain version, peak rate of the kernel's type
+        "roi_cnn_bf16": (
+            lambda r: cuda_cnn.roi_cnn_bf16(r, p_cnn, impl="kernel",
+                                            flat=packs["roi_cnn_bf16"]),
+            lambda r: cuda_cnn.roi_cnn_bf16_plain(r, p_cnn),
+            PEAK_BF16_FLOPS, 4 * packs["roi_cnn_bf16"].numel()),
+        "roi_cnn_q8": (
+            lambda r: cuda_cnn_q8.roi_cnn_q8(r, p_cnn, impl="kernel",
+                                             packed=packs["roi_cnn_q8"]),
+            lambda r: cuda_cnn_q8.roi_cnn_q8_plain(r, packs["roi_cnn_q8"]),
+            PEAK_INT8_OPS, 4 * (packs["roi_cnn_q8"]["qi"].numel()
+                                + packs["roi_cnn_q8"]["qf"].numel())),
+        "roi_cnn_im2col": (
+            lambda r: cuda_cnn_im2col.roi_cnn_im2col(
+                r, p_cnn, impl="kernel", packed=packs["roi_cnn_im2col"]),
+            lambda r: cuda_cnn.roi_cnn_plain(r, p_cnn),
+            PEAK_F32_FLOPS, 4 * packs["roi_cnn_im2col"].numel())}
+    mode_ms = {}
+    for kname, (kfn, pfn, peak, wbytes) in mode_fns.items():
+        for Nm in (B_SWEEP * 90, N):
+            r = roi[:Nm]
+            k_ms = cuda_ms(lambda: kfn(r), 10)
+            with full_f32():
+                p_ms = cuda_ms(lambda: pfn(r), 3, warmup=1)
+            b_ms, b_by = bound_ms(2 * Nm * (CNN_FWD_MACS + 24 * 32),
+                                  Nm * (48 * 96 + 4 * 32) + wbytes, peak)
+            mode_ms[kname, Nm] = (k_ms, p_ms, b_ms, b_by)
+            print(f"  {kname} N={Nm}: kernel {k_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no single "
+                  f"PyTorch call computes it {card}")
+    Xf, Lf, Rf = Xs_[:B_SWEEP], Ls_[:B_SWEEP], Rs_[:B_SWEEP]
+    for mode, pr in mode_pred.items():
+        ms = cuda_ms(lambda: pr.predict_batch(Xf, Lf, Rf), 10)
+        print(f"  predict_batch {mode} B={B_SWEEP} T=90 (the sweep's "
+              f"batches, host arrays in and out): {ms:.4f} ms, "
+              f"{B_SWEEP / ms * 1e3:.1f} clips/s {card}")
     x = torch.randn(B_SERVE, T_SERVE, 212, generator=gen).to(dev)
     layer = [{"fwd": gru_p[212], "bwd": gru_p[212]}]
     Ld = lengths.to(dev)
@@ -700,6 +926,20 @@ def main() -> int:
               f"{bd['busy_ms']:.4f} ms, idle share {bd['idle_share']:.4f}; "
               f"{cats}")
 
+    print(f"device breakdown, predict_batch per serving mode, B={B_SWEEP} "
+          f"T=90 (the sweep's batches), ms per call {card}:")
+    for mode, pr in mode_pred.items():
+        bd = device_breakdown(lambda: pr.predict_batch(Xf, Lf, Rf))
+        if bd["busy_ms"] is None:
+            print(f"  {mode}: wall {bd['wall_ms']:.4f} ms; device time not "
+                  "measured")
+            continue
+        cats = ", ".join(f"{k} {v:.4f}" for k, v in
+                         sorted(bd["device_ms"].items(), key=lambda kv: -kv[1]))
+        print(f"  {mode}: wall {bd['wall_ms']:.4f} ms, device busy "
+              f"{bd['busy_ms']:.4f} ms, idle share {bd['idle_share']:.4f}; "
+              f"{cats}")
+
     print(f"device breakdown, train step (kernels) B={B_SERVE} "
           f"T={T_SERVE}, ms per step, mean of 3 profiled steps {card}:")
     bd = device_breakdown(train_step_fn(
@@ -734,6 +974,22 @@ def main() -> int:
          "max_rel_err": k3_rel, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
     ]}
+    for kname, mode, replaces in (
+            ("roi_cnn_bf16", "bf16", "silent_speech_tpu/ops/pallas_cnn2.py:1018"),
+            ("roi_cnn_q8", "q8", "silent_speech_tpu/ops/pallas_cnn2.py:937"),
+            ("roi_cnn_im2col", "im2col", "silent_speech_tpu/ops/pallas_cnn.py:328")):
+        k_ms, p_ms, b_ms, b_by = mode_ms[kname, N]
+        k_sweep, p_sweep, b_sweep, _ = mode_ms[kname, B_SWEEP * 90]
+        source = "roi_cnn.cu" if kname == "roi_cnn_bf16" else f"{kname}.cu"
+        result["kernels"].append({
+            "name": kname, "route": "cuda",
+            "source": f"silent_speech_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": sweep[mode]["launches"],
+            "max_abs_err": mode_errs[kname], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "ms_sweep_shape": k_sweep, "plain_ms_sweep_shape": p_sweep,
+            "bound_ms_sweep_shape": b_sweep,
+            "eval_dataset_clips_s": sweep[mode]["clips_s"]})
     print(json.dumps(result))
     print(smi)
     print(json.dumps({"ok": True, "device": {

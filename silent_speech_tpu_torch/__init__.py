@@ -2,28 +2,33 @@
 
 The JAX package beside it stays the reference: every module here has a
 counterpart of the same path there, and the tests hold each one against it.
-This package imports ``torch`` and numpy and never ``jax``; of the JAX
-package it reuses only the jax-free ``core.schema`` (the ``.npz`` clip
-format) and ``core.torch_export`` (the reference ``state_dict`` layout).
+This package imports ``torch`` and numpy and never ``jax``, nor anything of
+the JAX package: the jax-free modules it needs are copied under ``core/``.
 
-Ported (the live serving path of the official model):
+Ported (the official model's serving, training and offline evaluation):
 
 ops/_kernels     routing (auto / kernel / plain), nvcc build, launch counts
 ops/nn           dense, layer_norm, conv2d_nhwc, max_pool_2x2, inits
 ops/pooling      length_mask, attn_pool
 ops/gru          masked GRU scan (the plain version of the GRU kernel)
-ops/cuda_cnn     fused TinyROICNN kernel (csrc/roi_cnn.cu) + plain version
+ops/cuda_cnn     fused TinyROICNN forward, f32 and bf16 (csrc/roi_cnn.cu),
+                 its weight gradients (csrc/roi_cnn_bwd.cu), plain versions
+ops/cuda_cnn_q8  the int8 TinyROICNN (csrc/roi_cnn_q8.cu) + plain version
+ops/cuda_cnn_im2col  the TinyROICNN as im2col GEMMs (csrc/roi_cnn_im2col.cu)
 ops/cuda_gru     GRU sequence kernel (csrc/gru_seq.cu) + plain version
-models/bigru     BiGRUConfig, TinyROICNN, BiGRUClassifier (dual forward)
-train/checkpoint npz checkpoints and the reference metadata
+models/bigru     BiGRUConfig, TinyROICNN, BiGRUClassifier (dual forward,
+                 serving modes)
+data             synthetic corpus, corpus preflight, dataset, loader,
+                 augmentation
+train            step, loop, checkpoint (npz), metrics
 infer/predictor  Predictor, load_predictor (official family)
-apps/cli         ``python -m silent_speech_tpu_torch predict``
+infer/evaluator  evaluate_dataset (the corpus sweep)
+apps/cli         ``python -m silent_speech_tpu_torch train | eval-dataset |
+                 predict``
 
-Not ported yet (ROADMAP.md lists the order): features and ROI crop, the
-dataset evaluator, training (and its fused CNN backward kernel), CTC, the
-model variants and legacy trainers, streaming and the camera apps, the
-parallel (multi-GPU) layer, the int8 and bf16 CNN modes, and the im2col
-CNN kernel.
+Not ported yet (ROADMAP.md lists the order): features and ROI crop, CTC,
+the model variants and legacy trainers, streaming and the camera apps, and
+the parallel (multi-GPU) layer.
 """
 
 __version__ = "0.1.0"

@@ -3,23 +3,32 @@
     python -m silent_speech_tpu_torch train clip_dir=<dir> out_path=<ckpt> \\
         [<TrainConfig field>=...] [device=cuda] [resume_from=<ckpt>] \\
         [metrics_path=<jsonl>]
+    python -m silent_speech_tpu_torch eval-dataset ckpt_path=<ckpt> \\
+        clip_dir=<dir> [<EvalConfig field>=...] [device=cuda]
     python -m silent_speech_tpu_torch predict ckpt_path=<ckpt> \\
         clip=<clip.npz|glob> [k=3] [device=cuda] [roi_impl=auto] \\
-        [gru_impl=auto] [matmul_precision=parity]
+        [gru_impl=auto] [roi_variant=tiled3] [compute_dtype=float32] \\
+        [matmul_precision=parity]
 
 ``train`` is the official trainer (train_model_official.py) with the JAX
 CLI's ``TrainConfig`` overrides; ``device`` defaults to 'cuda' (the CPU
 must be asked for with ``device=cpu``), and the options the port does not
 implement raise (train/loop.py).
 
+``eval-dataset`` is the offline corpus sweep (inactive/dataset_eval.py):
+accuracy, average confidence and top confusions over every clip of
+``clip_dir``, in batches of ``batch_size``, with the JAX CLI's
+``EvalConfig`` fields; ``device`` defaults to 'cuda'.
+
 ``predict`` is the offline single-clip prediction of the official family:
 the live predict block (live_infer_official.py:338-359) on recorded
-``.npz`` clips, through ``load_predictor``. ``device`` defaults to 'cuda';
-``roi_impl`` / ``gru_impl`` take 'auto', 'kernel' or 'plain';
-``matmul_precision`` takes 'parity', 'highest' or 'none'; the JAX CLI's
-``roi_variant`` / ``compute_dtype`` are accepted and raise on any value the
-port does not serve. Every other command of the JAX CLI prints "not yet
-ported" and exits 2.
+``.npz`` clips, through ``load_predictor``. ``device`` defaults to 'cuda'.
+
+The serving knobs of both: ``roi_impl`` / ``gru_impl`` take 'auto',
+'kernel' or 'plain'; ``roi_variant`` 'tiled3', 'tiled3_q8' (int8) or
+'im2col'; ``compute_dtype`` 'float32' or 'bfloat16'; ``matmul_precision``
+'parity', 'highest' or 'none'. Other values raise. Every other command of
+the JAX CLI prints "not yet ported" and exits 2.
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ from typing import Optional, Sequence
 _NOT_PORTED = (
     "record", "record-timed", "train-ctc", "train-reduced",
     "train-unigru", "train-mlp", "infer-live", "infer-gated", "infer-stream",
-    "eval-dataset", "eval-ctc", "landmarks-view", "important-landmarks",
+    "eval-ctc", "landmarks-view", "important-landmarks",
     "infer-ctc", "debug-npz", "export-torch", "status", "doctor", "bench",
 )
 _KNOBS = ("roi_impl", "gru_impl", "roi_variant", "compute_dtype")
@@ -43,9 +52,14 @@ _TRAIN_USAGE = ("usage: python -m silent_speech_tpu_torch train "
                 "clip_dir=<dir> out_path=<ckpt> [<TrainConfig field>=...] "
                 "[device=cuda|cpu] [resume_from=<ckpt>] "
                 "[metrics_path=<jsonl>]")
+_EVAL_USAGE = ("usage: python -m silent_speech_tpu_torch eval-dataset "
+               "ckpt_path=<ckpt> clip_dir=<dir> [<EvalConfig field>=...] "
+               "[device=cuda|cpu]")
 _USAGE = ("usage: python -m silent_speech_tpu_torch predict "
           "ckpt_path=<path> clip=<clip.npz|glob> [k=3] [device=cuda] "
           "[roi_impl=auto|kernel|plain] [gru_impl=auto|kernel|plain] "
+          "[roi_variant=tiled3|tiled3_q8|im2col] "
+          "[compute_dtype=float32|bfloat16] "
           "[matmul_precision=parity|highest|none]")
 
 
@@ -89,6 +103,28 @@ def _train(rest: list[str]) -> int:
     return 0
 
 
+def _eval_dataset(rest: list[str]) -> int:
+    import dataclasses
+
+    from ..core.config import EvalConfig, apply_overrides, serving_kwargs
+    from ..infer.evaluator import evaluate_dataset
+    from ..infer.predictor import load_predictor
+
+    fields = {f.name for f in dataclasses.fields(EvalConfig)}
+    bad = [a for a in rest if "=" not in a or a.partition("=")[0] not in
+           fields | {"device"}]
+    if bad:
+        print(f"unknown arguments {bad}\n{_EVAL_USAGE}")
+        return 2
+    kv = dict(a.split("=", 1) for a in rest)
+    device = kv.pop("device", "cuda")
+    cfg = apply_overrides(EvalConfig(), [f"{k}={v}" for k, v in kv.items()])
+    pred = load_predictor(cfg.ckpt_path, device=device, **serving_kwargs(cfg))
+    evaluate_dataset(pred, cfg.clip_dir, batch_size=cfg.batch_size,
+                     top_confusions=cfg.top_confusions)
+    return 0
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = list(sys.argv[1:] if argv is None else argv)
     if not args or args[0] in ("-h", "--help"):
@@ -101,8 +137,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 2
     if cmd == "train":
         return _train(rest)
+    if cmd == "eval-dataset":
+        return _eval_dataset(rest)
     if cmd != "predict":
-        print(f"unknown command {cmd!r}\n{_TRAIN_USAGE}\n{_USAGE}")
+        print(f"unknown command {cmd!r}\n{_TRAIN_USAGE}\n{_EVAL_USAGE}\n"
+              f"{_USAGE}")
         return 2
     bad = [a for a in rest if "=" not in a
            or a.partition("=")[0] not in _PREDICT_KEYS]

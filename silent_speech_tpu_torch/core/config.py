@@ -1,5 +1,6 @@
-"""The official trainer's settings and the CLI's ``key=value`` overrides
-(copy of ``TrainConfig`` and ``apply_overrides`` from the JAX package's
+"""The official trainer's and the dataset evaluator's settings and the
+CLI's ``key=value`` overrides (copy of ``TrainConfig``, ``EvalConfig``,
+``serving_kwargs`` and ``apply_overrides`` from the JAX package's
 core/config.py, which the port does not import).
 
 Field names and defaults are the reference's CONSTANTS block
@@ -59,6 +60,52 @@ class TrainConfig:
     host_data: bool = False
     checkpoint_format: str = "npz"
     async_checkpoint: bool = False
+
+
+@dataclasses.dataclass
+class EvalConfig:
+    """Offline dataset evaluation (inactive/dataset_eval.py): the
+    ``eval-dataset`` command."""
+
+    clip_dir: str = "clips_npz"
+    ckpt_path: str = "word_model_points_roi.ckpt"
+    batch_size: int = 64
+    top_confusions: int = 10
+    # serving knobs (no reference counterpart); the port's values
+    # (infer/predictor.py): compute_dtype float32 | bfloat16, roi_impl and
+    # gru_impl auto | kernel | plain, roi_variant tiled3 | tiled3_q8 | im2col
+    compute_dtype: str = "float32"
+    roi_impl: str = "auto"
+    roi_variant: str = "tiled3"
+    gru_impl: str = "auto"
+    # "" = the Predictor default ("parity"); "default" / "none" = the
+    # caller's matmul settings; "highest" = full f32, as "parity"
+    matmul_precision: str = ""
+    # data-parallel sweep over a device mesh: not ported (ROADMAP slice 7)
+    mesh_shape: Optional[dict] = None
+
+
+def serving_kwargs(cfg) -> dict:
+    """Predictor serving kwargs from an EvalConfig.
+
+    ``matmul_precision``: empty string defers to the Predictor default
+    ('parity'); 'default'/'none' leave the caller's matmul settings;
+    anything else passes through. ``mesh_shape`` raises: the multi-device
+    sweep is not ported (ROADMAP.md, queue 1 slice 7)."""
+    if getattr(cfg, "mesh_shape", None):
+        raise NotImplementedError(
+            f"mesh_shape={cfg.mesh_shape!r}: the data-parallel sweep over a "
+            "device mesh is not ported to silent_speech_tpu_torch (ROADMAP.md "
+            "queue 1, slice 7: multi-GPU)")
+    kw = dict(compute_dtype=cfg.compute_dtype, roi_impl=cfg.roi_impl,
+              roi_variant=getattr(cfg, "roi_variant", "tiled3"),
+              gru_impl=cfg.gru_impl)
+    if cfg.matmul_precision:
+        kw["matmul_precision"] = (
+            None if cfg.matmul_precision in ("default", "none")
+            else cfg.matmul_precision
+        )
+    return kw
 
 
 def parse_bool(key: str, raw: str) -> bool:

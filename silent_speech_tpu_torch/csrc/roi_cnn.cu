@@ -30,13 +30,27 @@
 // - The TPU kernel's h-mod-4 parity packing and packed weight matrices
 //   exist for the TPU's 128-lane layout and are not carried over.
 //
-// The constant bank is one per device, so roi_cnn_forward orders its
-// launches: under a host mutex it copies the weights into the bank on the
-// caller's stream, launches, and records an event; a launch on another
-// stream first waits for that event. Launches with different weights on
-// any streams or host threads therefore never read each other's weights;
-// K1 launches on different streams run one after another.
+// The bf16 build (roi_cnn_bf16_forward) replaces the same TPU kernel with
+// compute_dtype=bfloat16. It is the same code instantiated with bf16
+// activations in shared memory (33 KB instead of 64 KB) and bf16-valued
+// conv weights in the bank, rounded on the host. A bf16 x bf16 product is
+// exact in f32, so f32 FMAs over bf16 values compute what the TPU's bf16
+// dot with f32 accumulation computes; the kernel rounds where the Pallas
+// kernel does (pallas_cnn2.py:436, :492-501, :557, :573): the scaled input
+// (x * (1/255), standardized when asked); the pooled conv1 sum, then that
+// plus bf16(b1) (pre-rounded in the bank) in bf16 before the ReLU; conv2's
+// pooled sum + b2 after the ReLU. conv3, its bias, ReLU, the mean and the
+// fc stay f32. Its bound is the bf16 tensor-core rate: these CUDA-core FMAs
+// are the simple first version.
+//
+// The constant bank is one per device, so both builds order their
+// launches: under a host mutex the launch copies the weights into the bank
+// on the caller's stream, launches, and records an event; a launch on
+// another stream first waits for that event. Launches with different
+// weights on any streams or host threads therefore never read each other's
+// weights; K1 launches on different streams run one after another.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -55,15 +69,34 @@ constexpr int NWARPS = THREADS / 32;
 static_assert(H0 * W0 == THREADS * 16, "one 16-byte load per thread");
 static_assert((H1 * W1) % THREADS == 0, "stage-1 positions per thread");
 
-// zero-haloed shared buffers (floats)
+// zero-haloed shared buffers (activation elements, f32 or bf16)
 constexpr int XP_W = W0 + 2, XP_SIZE = (H0 + 2) * XP_W;          // input
 constexpr int P1_W = W1 + 2, P1_PLANE = (H1 + 2) * P1_W;         // pool 1
 constexpr int P1_SIZE = C1 * P1_PLANE;
 constexpr int P2_W = W2 + 2, P2_PLANE = (H2 + 2) * P2_W;         // pool 2
 constexpr int P2_SIZE = C2 * P2_PLANE;
 constexpr int U_SIZE = XP_SIZE > P2_SIZE ? XP_SIZE : P2_SIZE;    // xp / p2
-constexpr int RED_SIZE = NWARPS * C3 + C3;
-constexpr size_t SMEM_BYTES = (size_t)(P1_SIZE + U_SIZE + RED_SIZE) * 4;
+constexpr int RED_SIZE = NWARPS * C3 + C3;  // floats
+static_assert((P1_SIZE + U_SIZE) % 2 == 0, "red stays 4-byte aligned");
+template <typename T>
+constexpr size_t smem_bytes() {
+  return (size_t)(P1_SIZE + U_SIZE) * sizeof(T) + (size_t)RED_SIZE * 4;
+}
+
+// activation storage: f32, or bf16 rounded to nearest even
+template <typename T> struct Act;
+template <> struct Act<float> {
+  static __device__ __forceinline__ float st(float v) { return v; }
+  static __device__ __forceinline__ float ld(float v) { return v; }
+};
+template <> struct Act<__nv_bfloat16> {
+  static __device__ __forceinline__ __nv_bfloat16 st(float v) {
+    return __float2bfloat16_rn(v);
+  }
+  static __device__ __forceinline__ float ld(__nv_bfloat16 v) {
+    return __bfloat162float(v);
+  }
+};
 
 // weight offsets in the constant bank: OIHW convs, then fc (emb, 24), fc b
 constexpr int OFF_W1 = 0;
@@ -111,27 +144,34 @@ __device__ float block_sum(float v, float* red) {
   return s;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
 roi_cnn_kernel(const uint8_t* __restrict__ roi, float* __restrict__ out,
                int emb, int standardize) {
-  extern __shared__ float smem[];
-  float* p1 = smem;                 // [C1][H1+2][W1+2]
-  float* xp = smem + P1_SIZE;       // [H0+2][W0+2], stage 1 only
-  float* p2 = xp;                   // [C2][H2+2][W2+2], reuses xp
-  float* red = xp + U_SIZE;         // [NWARPS][C3] partials, then [C3] mean
+  constexpr bool BF16 = sizeof(T) == 2;
+  using A = Act<T>;
+  extern __shared__ float4 smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  T* p1 = smem;                     // [C1][H1+2][W1+2]
+  T* xp = smem + P1_SIZE;           // [H0+2][W0+2], stage 1 only
+  T* p2 = xp;                       // [C2][H2+2][W2+2], reuses xp
+  float* red = reinterpret_cast<float*>(xp + U_SIZE);  // [NWARPS][C3], [C3]
   const int tid = threadIdx.x;
   const size_t n = blockIdx.x;
 
-  for (int i = tid; i < P1_SIZE + XP_SIZE; i += THREADS) smem[i] = 0.f;
+  for (int i = tid; i < P1_SIZE + XP_SIZE; i += THREADS) smem[i] = A::st(0.f);
 
-  // ---- input: 16 consecutive pixels of one row per thread, /255 in f32
+  // ---- input: 16 consecutive pixels of one row per thread, scaled in f32
+  // (the bf16 build multiplies by the rounded 1/255, as the Pallas kernel)
   float v[16];
   {
     const uint4 q = reinterpret_cast<const uint4*>(roi + n * (H0 * W0))[tid];
     const uint32_t words[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
-    for (int k = 0; k < 16; ++k)
-      v[k] = (float)((words[k >> 2] >> (8 * (k & 3))) & 0xffu) / 255.0f;
+    for (int k = 0; k < 16; ++k) {
+      const float b = (float)((words[k >> 2] >> (8 * (k & 3))) & 0xffu);
+      v[k] = BF16 ? b * (1.0f / 255.0f) : b / 255.0f;
+    }
   }
   if (standardize) {  // two passes, as standardize_frames: mean, then var
     float s = 0.f;
@@ -150,7 +190,7 @@ roi_cnn_kernel(const uint8_t* __restrict__ roi, float* __restrict__ out,
   {
     const int y = (tid * 16) / W0, x0 = (tid * 16) % W0;
 #pragma unroll
-    for (int k = 0; k < 16; ++k) xp[(y + 1) * XP_W + x0 + 1 + k] = v[k];
+    for (int k = 0; k < 16; ++k) xp[(y + 1) * XP_W + x0 + 1 + k] = A::st(v[k]);
   }
   __syncthreads();
 
@@ -162,7 +202,8 @@ roi_cnn_kernel(const uint8_t* __restrict__ roi, float* __restrict__ out,
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) a[r][c] = xp[(2 * py + r) * XP_W + 2 * px + c];
+      for (int c = 0; c < 4; ++c)
+        a[r][c] = A::ld(xp[(2 * py + r) * XP_W + 2 * px + c]);
 #pragma unroll
     for (int co = 0; co < C1; ++co) {
       float m = -INFINITY;
@@ -178,12 +219,16 @@ roi_cnn_kernel(const uint8_t* __restrict__ roi, float* __restrict__ out,
               s = fmaf(c_w[OFF_W1 + co * 9 + ky * 3 + kx], a[dy + ky][dx + kx], s);
           m = fmaxf(m, s);
         }
-      p1[co * P1_PLANE + (py + 1) * P1_W + px + 1] =
-          fmaxf(m + c_w[OFF_B1 + co], 0.f);
+      float c;
+      if constexpr (BF16)  // round the pooled sum, add bf16(b1) in bf16
+        c = A::ld(A::st(A::ld(A::st(m)) + c_w[OFF_B1 + co]));
+      else
+        c = m + c_w[OFF_B1 + co];
+      p1[co * P1_PLANE + (py + 1) * P1_W + px + 1] = A::st(fmaxf(c, 0.f));
     }
   }
   __syncthreads();
-  for (int i = tid; i < P2_SIZE; i += THREADS) p2[i] = 0.f;  // xp is dead
+  for (int i = tid; i < P2_SIZE; i += THREADS) p2[i] = A::st(0.f);  // xp dead
   __syncthreads();
 
   const int py = tid / W2, px = tid % W2;  // stage 2 and 3 position
@@ -204,7 +249,7 @@ roi_cnn_kernel(const uint8_t* __restrict__ roi, float* __restrict__ out,
         float a[9];
 #pragma unroll
         for (int k = 0; k < 9; ++k)
-          a[k] = p1[ci * P1_PLANE + (y + k / 3) * P1_W + x + k % 3];
+          a[k] = A::ld(p1[ci * P1_PLANE + (y + k / 3) * P1_W + x + k % 3]);
 #pragma unroll
         for (int co = 0; co < C2; ++co)
 #pragma unroll
@@ -217,7 +262,7 @@ roi_cnn_kernel(const uint8_t* __restrict__ roi, float* __restrict__ out,
 #pragma unroll
     for (int co = 0; co < C2; ++co)
       p2[co * P2_PLANE + (py + 1) * P2_W + px + 1] =
-          fmaxf(m[co] + c_w[OFF_B2 + co], 0.f);
+          A::st(fmaxf(m[co] + c_w[OFF_B2 + co], 0.f));
   }
   __syncthreads();
 
@@ -230,7 +275,7 @@ roi_cnn_kernel(const uint8_t* __restrict__ roi, float* __restrict__ out,
     float a[9];
 #pragma unroll
     for (int k = 0; k < 9; ++k)
-      a[k] = p2[ci * P2_PLANE + (py + k / 3) * P2_W + px + k % 3];
+      a[k] = A::ld(p2[ci * P2_PLANE + (py + k / 3) * P2_W + px + k % 3]);
 #pragma unroll
     for (int co = 0; co < C3; ++co)
 #pragma unroll
@@ -261,15 +306,12 @@ roi_cnn_kernel(const uint8_t* __restrict__ roi, float* __restrict__ out,
   }
 }
 
-}  // namespace
-
-// roi: (n, 48, 96) uint8, 16-byte aligned; weights: one f32 buffer on the
-// device holding conv1 w (8,1,3,3), b (8), conv2 w (16,8,3,3), b (16),
-// conv3 w (24,16,3,3), b (24), fc w (emb,24), fc b (emb), in that order;
-// out: (n, emb) f32. Returns the first failing cudaError_t, else that of
-// the launch.
-extern "C" int roi_cnn_forward(const void* roi, const void* weights, void* out,
-                               int n, int emb, int standardize, void* stream) {
+// Launch roi_cnn_kernel<T> on stream s after copying the weights into the
+// constant bank, ordered against the last launch of either build (see the
+// note at the top). Returns the first failing cudaError_t.
+template <typename T>
+int launch(const void* roi, const void* weights, void* out, int n, int emb,
+           int standardize, void* stream) {
   if (emb < 1 || emb > MAX_EMB || n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
@@ -291,11 +333,12 @@ extern "C" int roi_cnn_forward(const void* roi, const void* weights, void* out,
   e = cudaMemcpyToSymbolAsync(c_w, weights, nw * sizeof(float), 0,
                               cudaMemcpyDeviceToDevice, s);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(roi_cnn_kernel,
+  constexpr size_t smem = smem_bytes<T>();
+  e = cudaFuncSetAttribute(roi_cnn_kernel<T>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)SMEM_BYTES);
+                           (int)smem);
   if (e != cudaSuccess) return (int)e;
-  roi_cnn_kernel<<<n, THREADS, SMEM_BYTES, s>>>(
+  roi_cnn_kernel<T><<<n, THREADS, smem, s>>>(
       static_cast<const uint8_t*>(roi), static_cast<float*>(out), emb,
       standardize);
   e = cudaGetLastError();
@@ -305,4 +348,25 @@ extern "C" int roi_cnn_forward(const void* roi, const void* weights, void* out,
   last.stream = s;
   last.any = true;
   return 0;
+}
+
+}  // namespace
+
+// roi: (n, 48, 96) uint8, 16-byte aligned; weights: one f32 buffer on the
+// device holding conv1 w (8,1,3,3), b (8), conv2 w (16,8,3,3), b (16),
+// conv3 w (24,16,3,3), b (24), fc w (emb,24), fc b (emb), in that order;
+// out: (n, emb) f32. Returns the first failing cudaError_t, else that of
+// the launch.
+extern "C" int roi_cnn_forward(const void* roi, const void* weights, void* out,
+                               int n, int emb, int standardize, void* stream) {
+  return launch<float>(roi, weights, out, n, emb, standardize, stream);
+}
+
+// The bf16 build: the same arguments, with the three convs' weights and b1
+// already rounded to bf16 in the f32 buffer (cuda_cnn.flat_weights_bf16).
+extern "C" int roi_cnn_bf16_forward(const void* roi, const void* weights,
+                                    void* out, int n, int emb,
+                                    int standardize, void* stream) {
+  return launch<__nv_bfloat16>(roi, weights, out, n, emb, standardize,
+                               stream);
 }

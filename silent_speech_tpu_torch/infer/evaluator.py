@@ -1,0 +1,107 @@
+"""Offline dataset evaluation (port of the JAX infer/evaluator.py
+``evaluate_dataset``): the ``eval-dataset`` sweep.
+
+The reference sweeps every clip through the model one at a time
+(inactive/dataset_eval.py:44-73), printing the dataset accuracy, the
+average confidence and the top-10 confusion pairs, with labels parsed from
+the filenames. Here the sweep is batched and streamed: clips load in
+bounded chunks (data/loader.py), so host memory stays O(chunk_size) whatever
+the corpus size, and each batch goes through the Predictor in its serving
+mode.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+
+import numpy as np
+
+from ..core.schema import parse_filename_label, sanitize_field
+from ..data.corpus import scan_corpus
+from ..data.loader import load_corpus_arrays
+from .predictor import Predictor
+
+_ROADMAP = ("is not ported to silent_speech_tpu_torch yet (ROADMAP.md queue "
+            "1: {})")
+
+
+def _softmax(x: np.ndarray, axis=-1) -> np.ndarray:
+    x = x - x.max(axis=axis, keepdims=True)
+    e = np.exp(x)
+    return e / e.sum(axis=axis, keepdims=True)
+
+
+def _npz_label(path: str) -> str:
+    """Read only the label entry of a clip, falling back to the filename
+    label when the npz has none (core.schema.load_clip's tolerance)."""
+    with np.load(path, allow_pickle=False) as z:
+        if "label" in z.files:
+            return str(z["label"])
+    return parse_filename_label(path)
+
+
+def evaluate_dataset(predictor: Predictor, clip_dir: str, *,
+                     batch_size: int = 64, chunk_size: int = 256,
+                     label_from_filename: bool = True, verbose: bool = True,
+                     top_confusions: int = 10) -> dict:
+    """Sweep ``clip_dir`` with the official model's live forward.
+
+    Returns {accuracy, avg_conf, confusions, n}, as the reference report:
+    dataset accuracy, average confidence, the top (true, pred) pairs. At
+    most ``chunk_size`` padded clips are in host memory at a time."""
+    index = scan_corpus(clip_dir, verbose=False)
+    cfg = predictor.cfg
+    chunk_size = max(chunk_size, batch_size)
+
+    correct, total, conf_sum = 0, 0, 0.0
+    cm: Counter = Counter()
+    for cs in range(0, len(index.files), chunk_size):
+        files = index.files[cs:cs + chunk_size]
+        X, R, L, _ = load_corpus_arrays(files, predictor.max_t, cfg.x_dim,
+                                        cfg.use_roi,
+                                        roi_hw=(cfg.roi_h, cfg.roi_w))
+        true_labels = [parse_filename_label(f) if label_from_filename
+                       else _npz_label(f) for f in files]
+        for s in range(0, len(X), batch_size):
+            e = s + batch_size
+            logits = predictor.predict_batch(
+                X[s:e], L[s:e], None if R is None else R[s:e])
+            probs = _softmax(logits)
+            for i, pid in enumerate(probs.argmax(-1)):
+                pred_word = predictor.id_to_label.get(int(pid), str(int(pid)))
+                if label_from_filename:
+                    # filenames hold the sanitized ('_' -> '-') form
+                    pred_word = sanitize_field(pred_word)
+                true_word = true_labels[s + i]
+                cm[(true_word, pred_word)] += 1
+                correct += int(pred_word == true_word)
+                conf_sum += float(probs[i, pid])
+                total += 1
+
+    acc = correct / total if total else 0.0
+    avg_conf = conf_sum / total if total else 0.0
+    confusions = list(cm.most_common(top_confusions))
+    if verbose:
+        print("dataset acc:", acc)
+        print("avg conf:", avg_conf)
+        print("top confusions:", confusions)
+    return dict(accuracy=acc, avg_conf=avg_conf, confusions=confusions,
+                n=total)
+
+
+def evaluate_variant_dataset(*args, **kwargs):
+    """The feature-only model families' sweep: not ported yet."""
+    raise NotImplementedError("evaluate_variant_dataset " + _ROADMAP.format(
+        "slice 5, variants and legacy"))
+
+
+def evaluate_temporal_cnn(*args, **kwargs):
+    """The legacy TemporalCNN sweep: not ported yet."""
+    raise NotImplementedError("evaluate_temporal_cnn " + _ROADMAP.format(
+        "slice 5, variants and legacy"))
+
+
+def evaluate_ctc_dataset(*args, **kwargs):
+    """The CTC family's dictionary-scored sweep: not ported yet."""
+    raise NotImplementedError("evaluate_ctc_dataset " + _ROADMAP.format(
+        "slice 4, CTC"))

@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from ..core.schema import Clip, pad_trim_time
-from ..models.bigru import BiGRUClassifier, BiGRUConfig
+from ..models.bigru import (COMPUTE_DTYPES, ROI_VARIANTS, BiGRUClassifier,
+                            BiGRUConfig)
 from ..ops._kernels import IMPLS
 from ..train.checkpoint import load_checkpoint
 
@@ -61,24 +62,34 @@ def full_f32():
         torch.backends.cudnn.allow_tf32 = cudnn_tf32
 
 
+# the JAX package's knob values and the port's value for each
+_JAX_ROI_IMPLS = {
+    "fused": "roi_impl='auto' or 'kernel' (the fused CNN kernel; "
+             "roi_variant picks 'tiled3' or 'tiled3_q8')",
+    "pallas": "roi_variant='im2col' (the im2col CNN kernel) with "
+              "roi_impl='auto' or 'kernel'",
+    "xla": "roi_impl='plain'", "grouped": "roi_impl='plain'"}
+_JAX_GRU_IMPLS = {"pallas": "gru_impl='auto' or 'kernel'",
+                  "scan": "gru_impl='plain'"}
+
+
 def _check_knobs(roi_impl, gru_impl, roi_variant, compute_dtype,
                  matmul_precision) -> None:
-    for name, value, jax_only in (
-            ("roi_impl", roi_impl, "'xla', 'grouped', 'pallas', 'fused'"),
-            ("gru_impl", gru_impl, "'scan', 'pallas'")):
+    for name, value, jax_names in (("roi_impl", roi_impl, _JAX_ROI_IMPLS),
+                                   ("gru_impl", gru_impl, _JAX_GRU_IMPLS)):
         if value not in IMPLS:
-            raise ValueError(
-                f"{name}={value!r} is not a value of the port; it takes one "
-                f"of {IMPLS} (the JAX package's {jax_only} do not apply)")
-    if roi_variant != "tiled3":
+            hint = (f"; for the JAX package's {value!r} use "
+                    f"{jax_names[value]}" if value in jax_names else "")
+            raise ValueError(f"{name}={value!r} is not a value of the port; "
+                             f"it takes one of {IMPLS}{hint}")
+    if roi_variant not in ROI_VARIANTS:
         raise ValueError(
-            f"roi_variant={roi_variant!r}: the port's ROI CNN kernel "
-            "implements 'tiled3' only (the int8 'tiled3_q8' mode is not "
-            "ported yet)")
-    if compute_dtype != "float32":
-        raise ValueError(
-            f"compute_dtype={compute_dtype!r}: the port serves 'float32' "
-            "only (the bf16 mode is not ported yet)")
+            f"roi_variant={roi_variant!r}: the port serves {ROI_VARIANTS} "
+            "(the JAX layout variants 'wide', 'tiled', 'stacked' and "
+            "'stacked1' compute 'tiled3''s function)")
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype={compute_dtype!r}: the port serves "
+                         f"{COMPUTE_DTYPES}")
     if isinstance(matmul_precision, dict):
         raise ValueError(
             "per-site matmul_precision dicts are not ported: they wait for "
@@ -97,7 +108,9 @@ class Predictor:
 
     ``device`` is required; 'cuda' without a GPU raises. ``roi_impl`` and
     ``gru_impl``: 'auto' (the kernel on a CUDA device, the plain version on
-    the CPU), 'kernel' or 'plain'."""
+    the CPU), 'kernel' or 'plain'. The serving modes: ``roi_variant``
+    'tiled3' (the fused CNN), 'tiled3_q8' (int8) or 'im2col';
+    ``compute_dtype`` 'float32' or 'bfloat16' (models/bigru.py)."""
 
     model: BiGRUClassifier
     id_to_label: dict[int, str]
@@ -177,8 +190,10 @@ class Predictor:
             L = torch.as_tensor(np.asarray(lengths), device=self.device)
             R = None if roi is None else torch.as_tensor(
                 np.asarray(roi, np.uint8), device=self.device)
-            return self.model.live_forward(X, L, R, roi_impl=self.roi_impl,
-                                           gru_impl=self.gru_impl)
+            return self.model.live_forward(
+                X, L, R, roi_impl=self.roi_impl, gru_impl=self.gru_impl,
+                roi_variant=self.roi_variant,
+                compute_dtype=self.compute_dtype)
 
     def warmup(self, batch_sizes: Sequence[int] = (1,)) -> "Predictor":
         """Run every (bucket, batch) shape once, so the first real clip

@@ -12,6 +12,16 @@ runs the kernels on weights built once in their own layouts
 CNN's forward and weight-gradient kernels on a flat weight buffer built
 from the parameters each call, and the plain GRU scan.
 
+Inference serves the JAX Predictor's modes. ``roi_variant`` picks the ROI
+CNN: 'tiled3' (``cuda_cnn``, K1), 'tiled3_q8' (``cuda_cnn_q8``, int8) or
+'im2col' (``cuda_cnn_im2col``, the counterpart of the JAX
+``roi_impl='pallas'``). ``compute_dtype='bfloat16'`` is the JAX package's
+bf16 serving mode with its GRU kernel (``gru_impl='pallas'``): X and the
+ROI embedding rounded to bf16 (models/bigru.py:249,351 there), the 'tiled3'
+CNN in its bf16 build, the GRU and the head in f32 on the rounded values.
+The JAX package's bf16 *scan* (``gru_impl='scan'``) is another function,
+with bf16 matmuls in the recurrence, and the port does not serve it.
+
 The reference's dual forward is kept: ``forward(..., roi_standardize=True)``
 is the training-path normalization (/255 then per-frame standardize), and
 ``live_forward`` the live-inference path (/255 only). The same weights give
@@ -28,12 +38,30 @@ import torch
 from torch import nn
 
 from ..core.torch_export import export_bigru_classifier
-from ..ops import cuda_cnn, cuda_gru
+from ..ops import cuda_cnn, cuda_cnn_im2col, cuda_cnn_q8, cuda_gru
 from ..ops import gru as gru_ops
 from ..ops.cuda_cnn import preprocess_roi, standardize_frames  # noqa: F401
 from ..ops.nn import (conv_init, dense, dropout, gru_dir_init, layer_norm,
                       layer_norm_init, linear_init)
 from ..ops.pooling import attn_pool
+
+
+ROI_VARIANTS = ("tiled3", "tiled3_q8", "im2col")
+COMPUTE_DTYPES = ("float32", "bfloat16")
+# the weight layout of each ROI CNN kernel (BiGRUClassifier.kernel_weights),
+# under the kernel's name
+ROI_PACKS = {"roi_cnn": cuda_cnn.flat_weights,
+             "roi_cnn_bf16": cuda_cnn.flat_weights_bf16,
+             "roi_cnn_q8": cuda_cnn_q8.quantize_roi_cnn,
+             "roi_cnn_im2col": cuda_cnn_im2col.pack_im2col}
+
+
+def roi_pack_name(roi_variant: str, compute_dtype: str) -> str:
+    """The ROI CNN kernel (and ROI_PACKS entry) a serving mode runs."""
+    if roi_variant == "tiled3":
+        return "roi_cnn_bf16" if compute_dtype == "bfloat16" else "roi_cnn"
+    return {"tiled3_q8": "roi_cnn_q8", "im2col": "roi_cnn_im2col"}[
+        roi_variant]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,14 +114,15 @@ def init_params(cfg: BiGRUConfig, generator: torch.Generator) -> dict:
 
 
 def roi_embedding(p_roi: dict, roi: torch.Tensor, *, standardize: bool,
-                  roi_impl: str = "auto",
-                  flat: Optional[torch.Tensor] = None,
-                  differentiable: bool = False) -> torch.Tensor:
+                  roi_impl: str = "auto", roi_pack: str = "roi_cnn",
+                  packed=None, differentiable: bool = False) -> torch.Tensor:
     """TinyROICNN embedding: (B, T, H, W) uint8 -> (B, T, emb) f32, through
-    the fused CNN kernel or its plain version (``roi_impl``). ``flat``: the
-    kernel's weight buffer (``cuda_cnn.flat_weights(p_roi)``), for
+    the ROI CNN kernel ``roi_pack`` (a ROI_PACKS name, ``roi_pack_name`` of
+    the serving mode) or its plain version (``roi_impl``). ``packed``: the
+    kernel's weights in its layout (``ROI_PACKS[roi_pack](p_roi)``), for
     inference. ``differentiable``: the training CNN
-    (``cuda_cnn.roi_cnn_fused_train``), whose gradient reaches ``p_roi``."""
+    (``cuda_cnn.roi_cnn_fused_train``, the f32 'roi_cnn' only), whose
+    gradient reaches ``p_roi``."""
     if roi.dtype != torch.uint8:
         raise ValueError(f"the ROI embedding takes raw uint8 frames, got "
                          f"{roi.dtype}")
@@ -103,9 +132,19 @@ def roi_embedding(p_roi: dict, roi: torch.Tensor, *, standardize: bool,
         emb = cuda_cnn.roi_cnn_fused_train(frames, p_roi,
                                            standardize=standardize,
                                            impl=roi_impl)
-    else:
+    elif roi_pack == "roi_cnn":
         emb = cuda_cnn.roi_cnn_fused(frames, p_roi, standardize=standardize,
-                                     impl=roi_impl, flat=flat)
+                                     impl=roi_impl, flat=packed)
+    elif roi_pack == "roi_cnn_bf16":
+        emb = cuda_cnn.roi_cnn_bf16(frames, p_roi, standardize=standardize,
+                                    impl=roi_impl, flat=packed)
+    elif roi_pack == "roi_cnn_q8":
+        emb = cuda_cnn_q8.roi_cnn_q8(frames, p_roi, standardize=standardize,
+                                     impl=roi_impl, packed=packed)
+    else:
+        emb = cuda_cnn_im2col.roi_cnn_im2col(frames, p_roi,
+                                             standardize=standardize,
+                                             impl=roi_impl, packed=packed)
     return emb.reshape(B, T, -1)
 
 
@@ -242,33 +281,40 @@ class BiGRUClassifier(nn.Module):
         """The JAX package's parameter pytree, as views of the parameters."""
         return jax_tree(dict(self.named_parameters()), self.cfg)
 
-    def kernel_weights(self) -> dict:
-        """The kernels' weight layouts: ``'gru'``, the layers' (D, 3H) /
-        (H, 3H) matrices made contiguous, and ``'roi_cnn'``, the CNN
-        kernel's flat weight buffer, on the parameters' device. Built at the
-        first call and kept until a parameter moves or changes in place."""
+    def kernel_weights(self, roi_pack: str = "roi_cnn") -> dict:
+        """The kernels' weight layouts on the parameters' device: ``'gru'``,
+        the layers' (D, 3H) / (H, 3H) matrices made contiguous, and the ROI
+        CNN kernel ``roi_pack``'s (ROI_PACKS), under its name, with those of
+        the other ROI CNN kernels asked for before. Built at the first call
+        that needs them and kept until a parameter moves or changes in
+        place."""
         key = tuple((p.device, p.data_ptr(), p._version)
                     for p in self.parameters())
         if key != self._kernel_weights_key:
             with torch.no_grad():
-                p = self.params_tree()
-                self._kernel_weights = {
-                    "gru": [{d: {k: v.contiguous() for k, v in lp[d].items()}
-                             for d in lp} for lp in p["gru"]],
-                    "roi_cnn": (cuda_cnn.flat_weights(p["roi_cnn"])
-                                if self.cfg.use_roi else None)}
+                self._kernel_weights = {"gru": [
+                    {d: {k: v.contiguous() for k, v in lp[d].items()}
+                     for d in lp} for lp in self.params_tree()["gru"]]}
             self._kernel_weights_key = key
-        return self._kernel_weights
+        kw = self._kernel_weights
+        if roi_pack not in kw:
+            with torch.no_grad():
+                kw[roi_pack] = (ROI_PACKS[roi_pack](self.params_tree()[
+                    "roi_cnn"]) if self.cfg.use_roi else None)
+        return kw
 
     def forward(self, X: torch.Tensor, lengths: torch.Tensor,
                 roi: Optional[torch.Tensor] = None, *,
                 roi_standardize: bool = True, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                roi_impl: str = "auto", gru_impl: str = "auto"
+                roi_impl: str = "auto", gru_impl: str = "auto",
+                roi_variant: str = "tiled3", compute_dtype: str = "float32"
                 ) -> torch.Tensor:
         """X: (B, T, D) f32; lengths: (B,); roi: (B, T, H, W) uint8 or None.
         Returns logits (B, num_classes) f32. ``roi_impl`` / ``gru_impl``:
-        'auto' | 'kernel' | 'plain' (ops._kernels).
+        'auto' | 'kernel' | 'plain' (ops._kernels). ``roi_variant`` and
+        ``compute_dtype``: the serving modes (module docstring); the
+        differentiable forward takes only 'tiled3' and 'float32'.
 
         ``train``: GRU inter-layer and head dropout, drawn from
         ``generator`` (on X's device). The forward is differentiable when
@@ -286,18 +332,36 @@ class BiGRUClassifier(nn.Module):
             raise ValueError("gru_impl='kernel': the GRU kernel has no "
                              "backward; the differentiable forward runs "
                              "the plain scan ('auto' or 'plain')")
+        if compute_dtype not in COMPUTE_DTYPES or \
+                roi_variant not in ROI_VARIANTS:
+            raise ValueError(f"roi_variant={roi_variant!r}, compute_dtype="
+                             f"{compute_dtype!r}: the port serves "
+                             f"roi_variant in {ROI_VARIANTS}, compute_dtype "
+                             f"in {COMPUTE_DTYPES}")
+        pack = roi_pack_name(roi_variant, compute_dtype)
+        if differentiable and pack != "roi_cnn":
+            raise ValueError(
+                f"roi_variant={roi_variant!r}, compute_dtype="
+                f"{compute_dtype!r} is a serving-only mode: the "
+                "differentiable forward takes 'tiled3' and 'float32'")
+        bf16 = compute_dtype == "bfloat16"
         p = self.params_tree()
         X = X.to(torch.float32)
+        if bf16:
+            X = cuda_cnn.round_bf16(X)
         lengths = lengths.to(X.device)
-        kw = self.kernel_weights() if X.is_cuda and not differentiable \
-            else {"gru": p["gru"], "roi_cnn": None}
+        kw = self.kernel_weights(pack) if X.is_cuda and not differentiable \
+            else {"gru": p["gru"]}
         if self.cfg.use_roi:
             if roi is None:
                 raise ValueError("model was built with use_roi=True but got "
                                  "roi=None")
             roi_e = roi_embedding(p["roi_cnn"], roi, standardize=roi_standardize,
-                                  roi_impl=roi_impl, flat=kw["roi_cnn"],
+                                  roi_impl=roi_impl, roi_pack=pack,
+                                  packed=kw.get(pack),
                                   differentiable=differentiable)
+            if bf16:
+                roi_e = cuda_cnn.round_bf16(roi_e)
             Z = torch.cat([X, roi_e], dim=-1)
         else:
             Z = X
@@ -314,11 +378,15 @@ class BiGRUClassifier(nn.Module):
         return dense(h, p["head"]["fc2"])
 
     def live_forward(self, X, lengths, roi=None, *, roi_impl: str = "auto",
-                     gru_impl: str = "auto") -> torch.Tensor:
+                     gru_impl: str = "auto", roi_variant: str = "tiled3",
+                     compute_dtype: str = "float32") -> torch.Tensor:
         """The live-inference forward (no ROI standardization, no dropout):
-        the parity target against live_infer_official.py:124-138."""
+        the parity target against live_infer_official.py:124-138, in any
+        serving mode."""
         return self.forward(X, lengths, roi, roi_standardize=False,
-                            roi_impl=roi_impl, gru_impl=gru_impl)
+                            roi_impl=roi_impl, gru_impl=gru_impl,
+                            roi_variant=roi_variant,
+                            compute_dtype=compute_dtype)
 
     def train_forward(self, X, lengths, roi=None, *, train: bool = True,
                       generator: Optional[torch.Generator] = None,

@@ -1,7 +1,8 @@
-"""Fused TinyROICNN: the CUDA kernels (csrc/roi_cnn.cu, the forward;
-csrc/roi_cnn_bwd.cu, its weight gradients) and their plain PyTorch versions
-(port of the JAX ops/pallas_cnn2.py ``roi_cnn_fused`` and
-ops/pallas_cnn2_grad.py ``roi_cnn_fused_train``).
+"""Fused TinyROICNN: the CUDA kernels (csrc/roi_cnn.cu, the forward in f32
+and its bf16 build; csrc/roi_cnn_bwd.cu, the weight gradients) and their
+plain PyTorch versions (port of the JAX ops/pallas_cnn2.py ``roi_cnn_fused``,
+``compute_dtype`` float32 and bfloat16, and ops/pallas_cnn2_grad.py
+``roi_cnn_fused_train``).
 
 Both compute, per frame, (48, 96) uint8 -> /255 -> optional per-frame
 standardize (ddof=1, std >= 1e-6; the training-path normalization of
@@ -17,6 +18,10 @@ weights and pass it as ``flat``, as ``BiGRUClassifier.kernel_weights()``
 does; in training :func:`roi_cnn_fused_train` builds it each step from the
 parameters, differentiably, so that the backward kernel's flat gradient
 reaches the module's parameters through autograd.
+
+The bf16 mode (:func:`roi_cnn_bf16`, serving only) stores the activations
+and the three convs' weights in bf16 and accumulates in f32, rounding where
+the Pallas kernel rounds; :func:`roi_cnn_bf16_plain` lists the points.
 """
 
 from __future__ import annotations
@@ -39,6 +44,9 @@ KERNEL = _kernels.Kernel(
     [_P, _P, _P,      # roi, flat, out
      _I, _I, _I,      # n, emb, standardize
      _P])             # stream
+BF16_KERNEL = _kernels.Kernel(
+    "roi_cnn_bf16", "roi_cnn_bf16_forward",
+    [_P, _P, _P, _I, _I, _I, _P])  # as KERNEL
 BWD_KERNEL = _kernels.Kernel(
     "roi_cnn_bwd", "roi_cnn_backward",
     [_P, _P, _P,      # roi, dE, flat
@@ -78,6 +86,36 @@ def roi_cnn_plain(roi_u8: torch.Tensor, params: dict,
     return dense(x.mean(dim=(1, 2)), params["fc"])
 
 
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (nearest even) and held in f32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def roi_cnn_bf16_plain(roi_u8: torch.Tensor, params: dict,
+                       standardize: bool = False) -> torch.Tensor:
+    """Plain version of the bf16 mode: (N, H, W) uint8 -> (N, emb) f32.
+
+    bf16 values held in f32, every sum in f32 (a bf16 x bf16 product is
+    exact in f32), rounded to bf16 where the Pallas kernel rounds
+    (ops/pallas_cnn2.py:436, :492-501, :557, :573, :969-1036): the input
+    x * (1/255) (standardized when asked) and the three convs' weights;
+    conv1's pooled sum, then that plus bf16(b1), before the ReLU; conv2's
+    pooled sum + b2 after the ReLU. conv3 + b3, ReLU, the mean and the fc
+    stay f32."""
+    f32 = torch.float32
+    x = roi_u8.to(f32) * torch.tensor(1.0 / 255.0, dtype=f32)
+    if standardize:
+        x = standardize_frames(x)
+    x = round_bf16(x).unsqueeze(-1)  # (N, H, W, 1)
+    conv = lambda x, k: conv2d_nhwc(x, {"w": round_bf16(params[k]["w"])})
+    y = round_bf16(max_pool_2x2(conv(x, "conv0")))
+    y = torch.relu(round_bf16(y + round_bf16(params["conv0"]["b"])))
+    y = max_pool_2x2(conv(y, "conv1"))
+    y = round_bf16(torch.relu(y + params["conv1"]["b"]))
+    y = torch.relu(conv(y, "conv2") + params["conv2"]["b"])
+    return dense(y.mean(dim=(1, 2)), params["fc"])
+
+
 def roi_cnn_train_plain(roi_u8: torch.Tensor, params: dict,
                         standardize: bool = True) -> torch.Tensor:
     """Plain version of the training CNN: :func:`roi_cnn_plain`, which
@@ -114,6 +152,21 @@ def flat_weights(params: dict) -> torch.Tensor:
     return torch.cat(parts).to(torch.float32)
 
 
+def flat_weights_bf16(params: dict) -> torch.Tensor:
+    """The bf16 build's weight buffer: :func:`flat_weights` with the three
+    convs' weights and conv1's bias rounded to bf16 (the values the Pallas
+    kernel casts, ops/pallas_cnn2.py:477,1036-1037); b2, b3 and the fc
+    stay f32."""
+    flat = flat_weights(params)
+    n1 = 9 * CHANNELS[0] + CHANNELS[0]          # conv1 w, b
+    n2 = 9 * CHANNELS[0] * CHANNELS[1]          # conv2 w
+    n3 = 9 * CHANNELS[1] * CHANNELS[2]          # conv3 w
+    o2, o3 = n1, n1 + n2 + CHANNELS[1]
+    for lo, hi in ((0, n1), (o2, o2 + n2), (o3, o3 + n3)):
+        flat[lo:hi] = round_bf16(flat[lo:hi])
+    return flat
+
+
 def _check_frames(roi_u8: torch.Tensor) -> None:
     if roi_u8.dtype != torch.uint8 or roi_u8.ndim != 3:
         raise ValueError(f"roi_u8 must be (N, H, W) uint8, got "
@@ -138,12 +191,13 @@ def _check_kernel_inputs(roi_u8: torch.Tensor, flat: torch.Tensor,
 
 
 def _forward_kernel(roi_u8: torch.Tensor, flat: torch.Tensor, emb: int,
-                    standardize: bool) -> torch.Tensor:
+                    standardize: bool, kernel: _kernels.Kernel = KERNEL
+                    ) -> torch.Tensor:
     _check_kernel_inputs(roi_u8, flat, emb)
     N = roi_u8.shape[0]
     out = torch.empty((N, emb), dtype=torch.float32, device=roi_u8.device)
     if N:
-        KERNEL.launch(_kernels.ptr(roi_u8), _kernels.ptr(flat),
+        kernel.launch(_kernels.ptr(roi_u8), _kernels.ptr(flat),
                       _kernels.ptr(out), N, emb, int(standardize),
                       _kernels.stream_ptr(roi_u8.device))
     return out
@@ -175,6 +229,23 @@ def roi_cnn_fused(roi_u8: torch.Tensor, params: dict, *,
         with torch.no_grad():
             flat = flat_weights(params)
     return _forward_kernel(roi_u8, flat, emb, standardize)
+
+
+def roi_cnn_bf16(roi_u8: torch.Tensor, params: dict, *,
+                 standardize: bool = False, impl: str = "auto",
+                 flat: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The bf16 mode: roi_u8 (N, 48, 96) uint8 -> (N, emb) f32, through the
+    bf16 build of the forward kernel ('auto' on a CUDA tensor, or
+    'kernel') or :func:`roi_cnn_bf16_plain`. ``flat`` is
+    :func:`flat_weights_bf16` of ``params``, built once by the caller."""
+    _check_frames(roi_u8)
+    if not _kernels.use_kernel(impl, roi_u8):
+        return roi_cnn_bf16_plain(roi_u8, params, standardize)
+    emb = _check_params(roi_u8, params)
+    if flat is None:
+        with torch.no_grad():
+            flat = flat_weights_bf16(params)
+    return _forward_kernel(roi_u8, flat, emb, standardize, BF16_KERNEL)
 
 
 def roi_cnn_weight_grads(roi_u8: torch.Tensor, dE: torch.Tensor,

@@ -74,10 +74,11 @@ def layer_norm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
 
 
 def conv2d_nhwc(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """3x3-style SAME conv, stride 1. x: (N, H, W, C); kernel HWIO."""
+    """3x3-style SAME conv, stride 1. x: (N, H, W, C); kernel HWIO; no bias
+    where ``p`` has no 'b'."""
     kh, kw = p["w"].shape[:2]
-    y = F.conv2d(x.permute(0, 3, 1, 2), p["w"].permute(3, 2, 0, 1), p["b"],
-                 padding=(kh // 2, kw // 2))
+    y = F.conv2d(x.permute(0, 3, 1, 2), p["w"].permute(3, 2, 0, 1),
+                 p.get("b"), padding=(kh // 2, kw // 2))
     return y.permute(0, 2, 3, 1)
 
 

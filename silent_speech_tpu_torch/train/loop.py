@@ -46,8 +46,8 @@ def _check_config(cfg: TrainConfig) -> None:
          and cfg.checkpoint_format, "the orbax checkpoint backend"),
         ("async_checkpoint", cfg.async_checkpoint, "async (orbax) saves"),
         ("compute_dtype", cfg.compute_dtype != "float32"
-         and cfg.compute_dtype, "bf16 training (waits for the bf16 ROI CNN "
-         "kernel)"),
+         and cfg.compute_dtype, "bf16 training (the bf16 ROI CNN kernel "
+         "serves inference only)"),
         ("roi_remat", cfg.roi_remat, "ROI-CNN rematerialization (the "
          "kernel's backward recomputes the activations already)"),
     ]

@@ -4,7 +4,10 @@ Edge shapes the smoke run (chip_smoke.py) does not reach: single frames and
 rows, ragged batch tiles, zero lengths, constant frames under
 standardization, odd widths; the ROI CNN backward (K3) on tie frames, its
 determinism and the inputs it refuses; the GRU kernel refusing autograd;
-a train step through the kernels against the plain path. Every test needs
+a train step through the kernels against the plain path; the serving
+modes' CNN kernels (K1-bf16, K4 int8, K5 im2col) on ragged and single
+frames, narrow embeddings, the inputs they refuse, and the Predictor in
+each mode against its plain path. Every test needs
 a CUDA device and skips without one. On the GPU machine (which has no jax, and tests/conftest.py
 imports jax) run them with
 
@@ -16,13 +19,14 @@ import torch
 
 import numpy as np
 
-from silent_speech_tpu_torch.infer.predictor import full_f32
+from silent_speech_tpu_torch.infer.predictor import Predictor, full_f32
 from silent_speech_tpu_torch.models.bigru import (BiGRUClassifier,
                                                   BiGRUConfig, init_params,
                                                   init_roi_cnn)
 from silent_speech_tpu_torch.train.step import (make_optimizer,
                                                 smoothed_cross_entropy)
-from silent_speech_tpu_torch.ops import _kernels, cuda_cnn, cuda_gru
+from silent_speech_tpu_torch.ops import (_kernels, cuda_cnn, cuda_cnn_im2col,
+                                         cuda_cnn_q8, cuda_gru)
 from silent_speech_tpu_torch.ops import gru as gru_ops
 from silent_speech_tpu_torch.ops.nn import gru_dir_init
 
@@ -287,3 +291,126 @@ def test_train_step_kernels_match_plain(dev):
     assert abs(lk - lp) < 1e-5
     assert max((a - b).abs().max().item() for a, b in zip(gk, gp)) <= 1e-4
     assert max((a - b).abs().max().item() for a, b in zip(pk, pp)) <= 3e-4
+
+
+# ----------------------------------------------------- K1-bf16, K4 and K5
+
+# chip_smoke.py's bars (live, standardized): bf16 crossings of rounding
+# boundaries after f32 reassociation; int8 bitwise up to the last ReLU;
+# im2col as K1. On a constant frame one bf16 crossing moves a whole map:
+# chip_smoke.py's BAR_BF16_CONST there.
+_MODE_BARS = {"bf16": (1e-4, 1e-4), "q8": (1e-6, None),
+              "im2col": (2e-4, 2e-3)}
+_BF16_CONST_BAR = 2e-3
+
+
+def _mode_call(mode, roi, p, standardize, impl="kernel", packed=None):
+    if mode == "bf16":
+        return cuda_cnn.roi_cnn_bf16(roi, p, standardize=standardize,
+                                     impl=impl, flat=packed)
+    if mode == "q8":
+        return cuda_cnn_q8.roi_cnn_q8(roi, p, standardize=standardize,
+                                      impl=impl, packed=packed)
+    return cuda_cnn_im2col.roi_cnn_im2col(roi, p, standardize=standardize,
+                                          impl=impl, packed=packed)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "q8", "im2col"])
+@pytest.mark.parametrize("N,emb", [(1, 32), (33, 32), (300, 8), (7, 64)])
+def test_serving_mode_kernel_matches_plain(dev, mode, N, emb):
+    g = torch.Generator().manual_seed(N)
+    roi = torch.randint(0, 256, (N, 48, 96), generator=g, dtype=torch.uint8)
+    roi[-1] = 255
+    if N > 2:
+        roi[0] = 0
+    roi, p = roi.to(dev), _cnn_params(dev, N, emb)
+    for std, bar in zip((False, True), _MODE_BARS[mode]):
+        if bar is None:
+            continue
+        before = _kernels.launch_counts()
+        got = _mode_call(mode, roi, p, std)
+        torch.cuda.synchronize()
+        after = _kernels.launch_counts()
+        assert [k for k in after if after[k] != before[k]] == \
+            [{"bf16": "roi_cnn_bf16", "q8": "roi_cnn_q8",
+              "im2col": "roi_cnn_im2col"}[mode]]
+        ref = _mode_call(mode, roi, p, std, impl="plain")
+        assert got.shape == (N, emb) and torch.isfinite(got).all()
+        const = roi.reshape(N, -1).amin(1) == roi.reshape(N, -1).amax(1)
+        if mode == "bf16":
+            torch.testing.assert_close(got[const], ref[const],
+                                       atol=_BF16_CONST_BAR, rtol=0)
+            got, ref = got[~const], ref[~const]
+        torch.testing.assert_close(got, ref, atol=bar, rtol=0)
+
+
+def test_q8_kernel_rows_do_not_depend_on_the_batch(dev):
+    roi = torch.randint(0, 256, (65, 48, 96), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(8)).to(dev)
+    p = _cnn_params(dev, 8)
+    q = cuda_cnn_q8.quantize_roi_cnn(p)
+    whole = cuda_cnn_q8.roi_cnn_q8(roi, p, packed=q)
+    for lo, hi in ((0, 1), (64, 65), (10, 43)):
+        part = cuda_cnn_q8.roi_cnn_q8(roi[lo:hi].contiguous(), p, packed=q)
+        assert torch.equal(part, whole[lo:hi])
+
+
+@pytest.mark.parametrize("mode", ["bf16", "q8", "im2col"])
+def test_serving_mode_kernel_rejects_what_it_does_not_take(dev, mode):
+    p = _cnn_params(dev, 3)
+    roi = torch.zeros((4, 48, 96), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="uint8"):
+        _mode_call(mode, roi.float(), p, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        _mode_call(mode, roi[::2], p, False)
+    if mode != "im2col":  # one 16-byte load per thread
+        off = torch.zeros(4 * 48 * 96 + 1, dtype=torch.uint8, device=dev)
+        with pytest.raises(ValueError, match="aligned"):
+            _mode_call(mode, off[1:].view(4, 48, 96), p, False)
+    with pytest.raises(ValueError, match="48x96"):
+        _mode_call(mode, torch.zeros((2, 40, 96), dtype=torch.uint8,
+                                     device=dev), p, False)
+    with pytest.raises(ValueError, match="f32"):
+        _mode_call(mode, roi, _cnn_params("cpu", 3), False)
+    bad = {"bf16": cuda_cnn.flat_weights_bf16(p)[:-1],
+           "q8": {"qi": cuda_cnn_q8.quantize_roi_cnn(p)["qi"][:-1],
+                  "qf": cuda_cnn_q8.quantize_roi_cnn(p)["qf"]},
+           "im2col": cuda_cnn_im2col.pack_im2col(p).double()}[mode]
+    with pytest.raises(ValueError):
+        _mode_call(mode, roi, p, False, packed=bad)
+    if mode == "q8":
+        with pytest.raises(ValueError, match="serving-only"):
+            _mode_call(mode, roi, p, True)
+    assert _mode_call(mode, roi[:0], p, False).shape == (0, 32)
+
+
+@pytest.mark.parametrize("knobs,kernel", [
+    ({"compute_dtype": "bfloat16"}, "roi_cnn_bf16"),
+    ({"roi_variant": "tiled3_q8"}, "roi_cnn_q8"),
+    ({"roi_variant": "im2col"}, "roi_cnn_im2col"),
+    ({"roi_variant": "tiled3_q8", "compute_dtype": "bfloat16"}, "roi_cnn_q8"),
+])
+def test_predictor_serving_mode_kernels_match_plain(dev, knobs, kernel):
+    """Each mode's Predictor through its kernels against the same mode's
+    plain path on the card (the GRU kernel's 1e-4 and the CNN's bars carry
+    through a narrow model to well under 1e-3 on the logits)."""
+    cfg = BiGRUConfig(x_dim=12, num_classes=5, hidden=16, roi_emb=8,
+                      head_hidden=8)
+    model = BiGRUClassifier.from_jax_params(
+        init_params(cfg, torch.Generator().manual_seed(9)), cfg)
+    rng = np.random.default_rng(9)
+    X = rng.standard_normal((6, 20, 12)).astype(np.float32)
+    L = np.array([20, 5, 11, 20, 1, 17], np.int32)
+    R = rng.integers(0, 256, (6, 20, 48, 96), dtype=np.uint8)
+    labels = dict(enumerate("abcde"))
+    _kernels.reset_launch_counts()
+    got = Predictor(model=model, id_to_label=labels, device="cuda",
+                    **knobs).predict_batch(X, L, R)
+    counts = _kernels.launch_counts()
+    assert counts[kernel] == 1 and counts["gru_seq"] == 2
+    assert sum(counts.values()) == 3
+    ref = Predictor(model=model, id_to_label=labels, device="cuda",
+                    roi_impl="plain", gru_impl="plain",
+                    **knobs).predict_batch(X, L, R)
+    np.testing.assert_allclose(got, ref, atol=1e-3, rtol=0)
+    assert (got.argmax(-1) == ref.argmax(-1)).all()

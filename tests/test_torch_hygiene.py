@@ -100,8 +100,8 @@ def test_kernel_impl_on_cpu_tensor_raises():
 @pytest.mark.parametrize("knob,value", [
     ("roi_impl", "grouped"), ("roi_impl", "pallas"), ("roi_impl", "fused"),
     ("roi_impl", "xla"), ("gru_impl", "scan"), ("gru_impl", "pallas"),
-    ("roi_variant", "tiled3_q8"), ("roi_variant", "wide"),
-    ("compute_dtype", "bfloat16"), ("matmul_precision", {"head": "highest"}),
+    ("roi_variant", "stacked"), ("roi_variant", "wide"),
+    ("compute_dtype", "float16"), ("matmul_precision", {"head": "highest"}),
     ("matmul_precision", "high"),
 ])
 def test_jax_only_knob_values_raise(knob, value):
@@ -111,6 +111,19 @@ def test_jax_only_knob_values_raise(knob, value):
     with pytest.raises(ValueError, match=knob):
         Predictor(model=model, id_to_label=dict(enumerate("abcdefghij")),
                   device="cpu", **{knob: value})
+
+
+def test_jax_roi_impl_pallas_names_the_im2col_variant():
+    cfg = BiGRUConfig(x_dim=4, hidden=8, head_hidden=4)
+    model = BiGRUClassifier.from_jax_params(
+        init_params(cfg, torch.Generator().manual_seed(0)), cfg)
+    with pytest.raises(ValueError, match="roi_variant='im2col'"):
+        Predictor(model=model, id_to_label={}, device="cpu",
+                  roi_impl="pallas")
+    for variant in ("tiled3", "tiled3_q8", "im2col"):
+        for dtype in ("float32", "bfloat16"):
+            Predictor(model=model, id_to_label={}, device="cpu",
+                      roi_variant=variant, compute_dtype=dtype)
 
 
 def test_cuda_device_without_gpu_raises():
@@ -131,3 +144,24 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _kernels.build()
     assert not (tmp_path / "build").exists()
+
+
+@pytest.mark.parametrize("knobs", [{"roi_variant": "tiled3_q8"},
+                                   {"roi_variant": "im2col"},
+                                   {"compute_dtype": "bfloat16"}])
+def test_serving_modes_refuse_training_and_q8_refuses_standardize(knobs):
+    cfg = BiGRUConfig(x_dim=4, hidden=8, head_hidden=4, roi_emb=4)
+    model = BiGRUClassifier.from_jax_params(
+        init_params(cfg, torch.Generator().manual_seed(0)), cfg)
+    X, L = torch.zeros((2, 3, 4)), torch.tensor([3, 2])
+    R = torch.zeros((2, 3, 48, 96), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="serving-only"):
+        model.forward(X, L, R, train=True, generator=torch.Generator(),
+                      **knobs)
+    with torch.no_grad():
+        model.live_forward(X, L, R, **knobs)
+        if knobs.get("roi_variant") == "tiled3_q8":
+            with pytest.raises(ValueError, match="serving-only"):
+                model.forward(X, L, R, roi_standardize=True, **knobs)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        model.live_forward(X, L, R, compute_dtype="float16")
