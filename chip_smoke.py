@@ -37,7 +37,14 @@ prints no result line):
    T=90 and B=256, T=32;
 7. a torch.profiler pass over ``predict_batch`` at B=1, 256 and 1024
    (T=32), over each serving mode at B=64, T=90, and over the B=256 train
-   step: device time by kernel and copy, and the device's idle share.
+   step: device time by kernel and copy, and the device's idle share;
+8. the GRU probes (silent_speech_tpu_torch/scripts): the recurrence kernel
+   with one and two weight sets, K2's one-direction launch and the
+   dual-chain kernel against their plain versions at B=1, 33 and 512, T=32,
+   D=180 and 384, f32 and bf16_mm; their times, bounds and cuDNN's layer
+   at B=512 and B=1; and the main() of bench_gru, proto_gru2, proto_gru3
+   and proto_gru4 at B=512 and B=1 (5 timed calls a variant), with the
+   launch counts over each script's runs.
 
 Then one JSON line with the kernels' results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA device;
@@ -106,6 +113,37 @@ PEAK_BF16_FLOPS, PEAK_INT8_OPS = 989e12, 1979e12
 CNN_FWD_MACS = 48 * 96 * 8 * 9 + 24 * 48 * 16 * 8 * 9 + 12 * 24 * 24 * 16 * 9
 CNN_BWD_MACS = (2 * 24 * 16 * 9 * 288 + 2 * 16 * 8 * 9 * 288
                 + 8 * 9 * 24 * 48)
+# the GRU probes (silent_speech_tpu_torch/scripts): the JAX scripts' width
+PROBE_H, PROBE_T, PROBE_D, PROBE_B = 192, 32, (180, 384), (1, 33, 512)
+PROBE_SCRIPTS = ("bench_gru", "proto_gru2", "proto_gru3", "proto_gru4")
+PROBE_ITERS = 5
+# kernel: (source, the TPU kernel's pallas_call, the script that drives
+# it, the launch count it adds to); proto_gru3's kernel is K2's launch
+PROBE_KERNELS = {
+    "gru_kstep": ("gru_proto.cu", "scripts/proto_gru2.py:100", "proto_gru2",
+                  "gru_kstep"),
+    "gru_kstep_2w": ("gru_proto.cu", "scripts/proto_gru2.py:229",
+                     "proto_gru2", "gru_kstep_2w"),
+    "gru_fusedproj": ("gru_seq.cu", "scripts/proto_gru3.py:120",
+                      "proto_gru3", "gru_seq"),
+    "gru_dual": ("gru_proto.cu", "scripts/proto_gru4.py:143", "proto_gru4",
+                 "gru_dual"),
+}
+# the recurrence kernel's (batch_tile, k_steps): the defaults in f32; with
+# bf16_mm it keeps Wh (221,184 bytes at H=192) in shared memory, beside
+# which a 2-row, 1-step stage fits
+REC_KNOBS = {False: {}, True: {"batch_tile": 2, "k_steps": 1}}
+# bf16_mm, kernel vs plain: both round the same operands, but sum the f32
+# products in another order, so an h within one f32 rounding of a bf16
+# rounding boundary rounds one bf16 step (2^-8 |h|, |h| < 1) apart in the
+# two; that moves each term w h of the next step's product by at most
+# max|Wh| * 2^-8 (about 3e-4 for U(+-1/sqrt(192)) weights) and the gates
+# pass at most that on to h'; a few such flips in one row stay under 2e-3
+BAR_GRU_BF16 = 2e-3
+# a bf16 row of the scripts against the f32 scan over 2 layers: bf16
+# rounding of every operand (the JAX scripts' own gap is 1.65e-4 / 9.0e-4
+# at B=3, H=16); a sanity bar on values of |h| < 1
+BAR_PROBE_BF16_ROW = 5e-2
 
 
 def fail(msg: str):
@@ -488,15 +526,16 @@ def train_step_fn(params, cfg, batch, dev, impl):
 
 
 def gru_library_ms(p: dict, x: torch.Tensor, lengths: torch.Tensor,
-                   iters: int) -> float:
-    """torch.nn.GRU (cuDNN), one bidirectional layer with the weights of
-    both directions set to ``p``, on the packed sequence."""
+                   iters: int, bidirectional: bool = True) -> float:
+    """torch.nn.GRU (cuDNN), one bidirectional (or forward) layer with the
+    weights of each direction set to ``p``, on the packed sequence."""
     from torch.nn.utils.rnn import pack_padded_sequence
 
     D, H = x.shape[-1], p["wh"].shape[0]
-    gru = torch.nn.GRU(D, H, batch_first=True, bidirectional=True).to(x.device)
+    gru = torch.nn.GRU(D, H, batch_first=True,
+                       bidirectional=bidirectional).to(x.device)
     with torch.no_grad():
-        for sfx in ("l0", "l0_reverse"):
+        for sfx in ("l0", "l0_reverse")[:1 + bidirectional]:
             getattr(gru, f"weight_ih_{sfx}").copy_(p["wi"].t())
             getattr(gru, f"weight_hh_{sfx}").copy_(p["wh"].t())
             getattr(gru, f"bias_ih_{sfx}").copy_(p["bi"])
@@ -508,6 +547,190 @@ def gru_library_ms(p: dict, x: torch.Tensor, lengths: torch.Tensor,
             gru(pack_padded_sequence(x, lens, batch_first=True,
                                      enforce_sorted=False))
     return cuda_ms(run, iters)
+
+
+def check_gru_probes(gen, dev) -> dict:
+    """The GRU probes' kernels against their plain versions (TF32 off): the
+    recurrence kernel with one weight set (P2a) and two (P2b), K2's
+    one-direction launch as proto_gru3's route (P3, f32: K2 has no bf16
+    build) and the dual-chain kernel (P4), at B in PROBE_B, T=32, lengths
+    that include T and 1, D in PROBE_D, with and without bf16_mm. Returns
+    each kernel's largest error; raises on a failure."""
+    from silent_speech_tpu_torch.infer.predictor import full_f32
+    from silent_speech_tpu_torch.ops import cuda_gru_proto as gp
+    from silent_speech_tpu_torch.ops import gru as gru_ops
+    from silent_speech_tpu_torch.ops.nn import gru_dir_init
+    from silent_speech_tpu_torch.scripts import proto_gru3
+
+    T, H = PROBE_T, PROBE_H
+    errs = dict.fromkeys(PROBE_KERNELS, 0.0)
+
+    def check(name, label, got, ref, bar):
+        errs[name] = max(errs[name], check_close(f"{name} {label}", got, ref,
+                                                 bar))
+
+    for D in PROBE_D:
+        pf, pb = [{k: v.to(dev) for k, v in gru_dir_init(D, H, gen).items()}
+                  for _ in range(2)]
+        wh2, bh2 = (torch.stack([pf[k], pb[k]]) for k in ("wh", "bh"))
+        for B in PROBE_B:
+            x = torch.randn(B, T, D, generator=gen).to(dev)
+            L = torch.randint(1, T + 1, (B,), generator=gen)
+            L[0] = T
+            if B > 1:
+                L[-1] = 1
+            L = L.to(dev)
+            with full_f32():
+                x_flip = gru_ops.flip_padded(x, L)
+                xp_f = x @ pf["wi"] + pf["bi"]
+                xp_b = x_flip @ pb["wi"] + pb["bi"]
+                got = proto_gru3.gru_sequence_fusedproj(
+                    x, L, pf["wi"], pf["bi"], pf["wh"], pf["bh"],
+                    impl="kernel")
+                ref = gru_ops.gru_layer_single_direction(x, L, pf)[0]
+                check("gru_fusedproj", f"B={B} D={D}", got, ref, BAR_GRU)
+                for bf16 in (False, True):
+                    label = f"B={B} D={D} bf16_mm={bf16}"
+                    bar = BAR_GRU_BF16 if bf16 else BAR_GRU
+                    knobs = REC_KNOBS[bf16]
+                    ref_f = gp.gru_recurrence_plain(xp_f, L, pf["wh"],
+                                                    pf["bh"], bf16)
+                    ref_b = gp.gru_recurrence_plain(xp_b, L, pb["wh"],
+                                                    pb["bh"], bf16)
+                    got = gp.gru_sequence_kstep(xp_f, L, pf["wh"], pf["bh"],
+                                                bf16_mm=bf16, impl="kernel",
+                                                **knobs)
+                    check("gru_kstep", label, got, ref_f, bar)
+                    got = gp.gru_sequence_kstep_2w(
+                        torch.cat([xp_f, xp_b]), L.repeat(2), wh2, bh2,
+                        bf16_mm=bf16, impl="kernel", **knobs)
+                    check("gru_kstep_2w", label, got,
+                          torch.cat([ref_f, ref_b]), bar)
+                    got = gp.gru_layer_dual(x, x_flip, L, pf, pb,
+                                            bf16_mm=bf16, impl="kernel")
+                    ref = gp.gru_layer_dual_plain(x, x_flip, L, pf, pb, bf16)
+                    for half, g, r in zip(("y_f", "y_b"), got, ref):
+                        check("gru_dual", f"{label} {half}", g, r, bar)
+    return errs
+
+
+def time_gru_probes(dev, card: str) -> dict:
+    """Each probe kernel, its plain version and cuDNN's layer at B=512 and
+    B=1, T=32, D=180 (the scripts' inputs), CUDA events; each kernel's
+    bound over this run's lengths. Returns {kernel: {key: value}}."""
+    from silent_speech_tpu_torch.infer.predictor import full_f32
+    from silent_speech_tpu_torch.ops import cuda_gru_proto as gp
+    from silent_speech_tpu_torch.ops import gru as gru_ops
+    from silent_speech_tpu_torch.scripts import bench_gru, proto_gru3
+
+    T, H = PROBE_T, PROBE_H
+    out = {name: {} for name in PROBE_KERNELS}
+    for B in (512, 1):
+        x, L, layers = bench_gru.make_problem(B, T, dev)
+        pf, pb = layers[0]["fwd"], layers[0]["bwd"]
+        D, S = x.shape[-1], int(L.sum())
+        x_flip = gru_ops.flip_padded(x, L)
+        xp_f = x @ pf["wi"] + pf["bi"]
+        xp2 = torch.cat([xp_f, x_flip @ pb["wi"] + pb["bi"]])
+        L2 = L.repeat(2)
+        wh2, bh2 = (torch.stack([pf[k], pb[k]]) for k in ("wh", "bh"))
+        lib_uni = ("forward", gru_library_ms(pf, x, L.cpu(), 20,
+                                             bidirectional=False))
+        lib_bi = ("bidirectional", gru_library_ms(pf, x, L.cpu(), 20))
+        rec_bytes = 4 * (B * T * 4 * H + H * 3 * H + 3 * H + B)
+        proj_bytes = 4 * (B * T * (D + H) + (D + H) * 3 * H + 6 * H + B)
+        cases = {  # kernel: (run(bf16), plain, ops, bytes, (library, ms))
+            "gru_kstep": (
+                lambda bf16: gp.gru_sequence_kstep(
+                    xp_f, L, pf["wh"], pf["bh"], bf16_mm=bf16,
+                    impl="kernel", **REC_KNOBS[bf16]),
+                lambda: gp.gru_recurrence_plain(xp_f, L, pf["wh"], pf["bh"]),
+                2 * S * H * 3 * H, rec_bytes, lib_uni),
+            "gru_kstep_2w": (
+                lambda bf16: gp.gru_sequence_kstep_2w(
+                    xp2, L2, wh2, bh2, bf16_mm=bf16, impl="kernel",
+                    **REC_KNOBS[bf16]),
+                lambda: torch.cat([gp.gru_recurrence_plain(
+                    xp2[s * B:(s + 1) * B], L, wh2[s], bh2[s])
+                    for s in (0, 1)]),
+                2 * 2 * S * H * 3 * H, 2 * rec_bytes, lib_bi),
+            "gru_fusedproj": (
+                lambda bf16: proto_gru3.gru_sequence_fusedproj(
+                    x, L, pf["wi"], pf["bi"], pf["wh"], pf["bh"],
+                    impl="kernel"),
+                lambda: gru_ops.gru_layer_single_direction(x, L, pf)[0],
+                2 * S * (D + H) * 3 * H, proj_bytes, lib_uni),
+            "gru_dual": (
+                lambda bf16: gp.gru_layer_dual(x, x_flip, L, pf, pb,
+                                               bf16_mm=bf16, impl="kernel"),
+                lambda: gp.gru_layer_dual_plain(x, x_flip, L, pf, pb),
+                2 * 2 * S * (D + H) * 3 * H,
+                4 * (2 * B * T * (D + H) + 2 * ((D + H) * 3 * H + 6 * H)
+                     + B), lib_bi),
+        }
+        sfx = "" if B == 512 else "_b1"
+        for name, (run, plain, ops, nbytes, lib) in cases.items():
+            r = out[name]
+            r["ms" + sfx] = cuda_ms(lambda: run(False), 20)
+            with full_f32():
+                r["plain_ms" + sfx] = cuda_ms(plain, 5, warmup=1)
+            r["bound_ms" + sfx], r["bound_by" + sfx] = bound_ms(ops, nbytes)
+            r["library_ms" + sfx] = lib[1]
+            line = (f"  {name} B={B} T={T} D={D}: kernel {r['ms' + sfx]:.4f}"
+                    f" ms, plain {r['plain_ms' + sfx]:.4f} ms, bound "
+                    f"{r['bound_ms' + sfx]:.4f} ms ({r['bound_by' + sfx]}), "
+                    f"torch.nn.GRU {lib[0]} layer (cuDNN, projection "
+                    f"included) {lib[1]:.4f} ms")
+            if name != "gru_fusedproj":  # K2 has no bf16 build
+                r["ms_bf16" + sfx] = cuda_ms(lambda: run(True), 20)
+                r["bound_ms_bf16" + sfx] = bound_ms(ops, nbytes,
+                                                    PEAK_BF16_FLOPS)[0]
+                line += (f"; bf16_mm {r['ms_bf16' + sfx]:.4f} ms (bound "
+                         f"{r['bound_ms_bf16' + sfx]:.4f} at the bf16 rate)")
+            print(line + f" {card}")
+    return out
+
+
+def run_gru_probe_scripts() -> dict:
+    """The main() of the four ported GRU scripts at B=512 and B=1, T=32,
+    PROBE_ITERS timed calls a variant; launch counts from 0 over each
+    script's two runs. Checks every f32 row within BAR_GRU of the plain
+    scan and every bf16 row finite and within BAR_PROBE_BF16_ROW. Returns
+    {script: launch counts}; raises on a failure."""
+    import importlib
+
+    from silent_speech_tpu_torch.ops import _kernels
+
+    counts = {}
+    for script in PROBE_SCRIPTS:
+        mod = importlib.import_module(
+            f"silent_speech_tpu_torch.scripts.{script}")
+        _kernels.reset_launch_counts()
+        for argv in ([f"iters={PROBE_ITERS}"],
+                     ["1", str(PROBE_T), f"iters={PROBE_ITERS}"]):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                res = mod.main(argv)
+            print("".join(f"  | {line}\n" for line in
+                          out.getvalue().splitlines()[:-1]), end="")
+            for row in res["rows"]:
+                bar = BAR_PROBE_BF16_ROW if "bf16" in row["name"] else BAR_GRU
+                if not row["max_abs_err"] <= bar:
+                    fail(f"{script} {argv}: row {row['name']} err "
+                         f"{row['max_abs_err']:.3e} over {bar:g}")
+        torch.cuda.synchronize()
+        counts[script] = {k: v for k, v in _kernels.launch_counts().items()
+                          if v}
+        print(f"  {script}: launches over its B=512 and B=1 runs "
+              f"{counts[script]}")
+    want = {script: {"gru_seq"} for script in PROBE_SCRIPTS}  # baselines
+    for _, _, script, count in PROBE_KERNELS.values():
+        want[script].add(count)
+    for script, names in want.items():
+        if any(not counts[script].get(n) for n in names):
+            fail(f"{script}: a kernel of its path was not launched: "
+                 f"{counts[script]}, expected {sorted(names)}")
+    return counts
 
 
 def main() -> int:
@@ -954,6 +1177,16 @@ def main() -> int:
               f"{bd['busy_ms']:.4f} ms, idle share {bd['idle_share']:.4f}; "
               f"{cats}")
 
+    # ---- 8. the GRU probes: kernels vs plain, timings, the four scripts
+    print("GRU probes, kernel vs plain (TF32 off):")
+    probe_errs = check_gru_probes(torch.Generator().manual_seed(SEED + 6),
+                                  dev)
+    print(f"GRU probes, timings {card}:")
+    probe_ms = time_gru_probes(dev, card)
+    print(f"GRU probes, the scripts at B=512 and B=1, T={PROBE_T}, "
+          f"{PROBE_ITERS} timed calls a variant {card}:")
+    probe_counts = run_gru_probe_scripts()
+
     result = {"kernels": [
         {"name": "roi_cnn", "route": "cuda",
          "source": "silent_speech_tpu_torch/csrc/roi_cnn.cu",
@@ -990,6 +1223,12 @@ def main() -> int:
             "ms_sweep_shape": k_sweep, "plain_ms_sweep_shape": p_sweep,
             "bound_ms_sweep_shape": b_sweep,
             "eval_dataset_clips_s": sweep[mode]["clips_s"]})
+    for kname, (source, replaces, script, count) in PROBE_KERNELS.items():
+        result["kernels"].append({
+            "name": kname, "route": "cuda",
+            "source": f"silent_speech_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": probe_counts[script][count],
+            "max_abs_err": probe_errs[kname], **probe_ms[kname]})
     print(json.dumps(result))
     print(smi)
     print(json.dumps({"ok": True, "device": {

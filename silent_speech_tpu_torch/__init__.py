@@ -16,6 +16,8 @@ ops/cuda_cnn     fused TinyROICNN forward, f32 and bf16 (csrc/roi_cnn.cu),
 ops/cuda_cnn_q8  the int8 TinyROICNN (csrc/roi_cnn_q8.cu) + plain version
 ops/cuda_cnn_im2col  the TinyROICNN as im2col GEMMs (csrc/roi_cnn_im2col.cu)
 ops/cuda_gru     GRU sequence kernel (csrc/gru_seq.cu) + plain version
+ops/cuda_gru_proto  the GRU design probes' kernels (csrc/gru_proto.cu) +
+                 plain versions
 models/bigru     BiGRUConfig, TinyROICNN, BiGRUClassifier (dual forward,
                  serving modes)
 data             synthetic corpus, corpus preflight, dataset, loader,
@@ -25,6 +27,8 @@ infer/predictor  Predictor, load_predictor (official family)
 infer/evaluator  evaluate_dataset (the corpus sweep)
 apps/cli         ``python -m silent_speech_tpu_torch train | eval-dataset |
                  predict``
+scripts          the GRU design probes as measurement scripts (bench_gru,
+                 proto_gru2, proto_gru3, proto_gru4)
 
 Not ported yet (ROADMAP.md lists the order): features and ROI crop, CTC,
 the model variants and legacy trainers, streaming and the camera apps, and

@@ -7,7 +7,10 @@ determinism and the inputs it refuses; the GRU kernel refusing autograd;
 a train step through the kernels against the plain path; the serving
 modes' CNN kernels (K1-bf16, K4 int8, K5 im2col) on ragged and single
 frames, narrow embeddings, the inputs they refuse, and the Predictor in
-each mode against its plain path. Every test needs
+each mode against its plain path; the GRU probes' kernels (the recurrence
+kernel with one and two weight sets, the dual-chain kernel) in f32 and
+bf16, their launch counts, their independence of the knobs and the inputs
+they refuse. Every test needs
 a CUDA device and skips without one. On the GPU machine (which has no jax, and tests/conftest.py
 imports jax) run them with
 
@@ -26,7 +29,8 @@ from silent_speech_tpu_torch.models.bigru import (BiGRUClassifier,
 from silent_speech_tpu_torch.train.step import (make_optimizer,
                                                 smoothed_cross_entropy)
 from silent_speech_tpu_torch.ops import (_kernels, cuda_cnn, cuda_cnn_im2col,
-                                         cuda_cnn_q8, cuda_gru)
+                                         cuda_cnn_q8, cuda_gru,
+                                         cuda_gru_proto)
 from silent_speech_tpu_torch.ops import gru as gru_ops
 from silent_speech_tpu_torch.ops.nn import gru_dir_init
 
@@ -414,3 +418,126 @@ def test_predictor_serving_mode_kernels_match_plain(dev, knobs, kernel):
                     **knobs).predict_batch(X, L, R)
     np.testing.assert_allclose(got, ref, atol=1e-3, rtol=0)
     assert (got.argmax(-1) == ref.argmax(-1)).all()
+
+
+# ----------------------------------------------- the GRU probes' kernels
+
+# chip_smoke.py's bars: f32 as K2; with bf16_mm an h within one f32 sum
+# order of a bf16 rounding boundary rounds one bf16 step apart in the kernel
+# and its plain version, which moves the next step's product by up to
+# max|Wh| * 2^-8 * |h| (about 1e-3 here)
+_PROBE_BARS = {False: 1e-4, True: 2e-3}
+
+
+def _probe_problem(dev, B, T, D, H, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, T, D, generator=g)
+    lengths = torch.randint(1, T + 1, (B,), generator=g)
+    lengths[0] = T
+    lengths[-1] = 1
+    if B > 2:
+        lengths[1] = 0
+    ps = [{k: v.to(dev) for k, v in gru_dir_init(D, H, g).items()}
+          for _ in range(2)]
+    return x.to(dev), lengths.to(dev), ps
+
+
+# (batch_tile, k_steps) for each bf16_mm at H=192: the bf16 recurrence keeps
+# Wh in shared memory beside a small stage
+_REC_KNOBS = {False: (8, 8), True: (2, 1)}
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("B", [1, 33])
+@pytest.mark.parametrize("sets", [1, 2])
+def test_recurrence_kernel_matches_plain(dev, sets, B, bf16):
+    T, D, H = 32, 180, 192
+    x, lengths, ps = _probe_problem(dev, B, T, D, H, B + 10 * sets)
+    xps = [x @ p["wi"] + p["bi"] for p in ps[:sets]]
+    xp, L = torch.cat(xps), lengths.repeat(sets)
+    wh = torch.stack([p["wh"] for p in ps[:sets]])
+    bh = torch.stack([p["bh"] for p in ps[:sets]])
+    bt, k = _REC_KNOBS[bf16]
+    kernel = cuda_gru_proto.KSTEP if sets == 1 else cuda_gru_proto.KSTEP_2W
+    before = _kernels.launch_counts()
+    if sets == 1:
+        got = cuda_gru_proto.gru_sequence_kstep(
+            xp, L, wh[0], bh[0], batch_tile=bt, k_steps=k, bf16_mm=bf16)
+    else:
+        got = cuda_gru_proto.gru_sequence_kstep_2w(
+            xp, L, wh, bh, batch_tile=bt, k_steps=k, bf16_mm=bf16)
+    torch.cuda.synchronize()
+    after = _kernels.launch_counts()
+    assert {n for n in after if after[n] != before[n]} == {kernel.name}
+    assert after[kernel.name] == before[kernel.name] + 1
+    ref = torch.cat([cuda_gru_proto.gru_recurrence_plain(
+        xps[s], lengths, wh[s], bh[s], bf16) for s in range(sets)])
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=_PROBE_BARS[bf16], rtol=0)
+    assert not got[L.cpu() == 0].any()
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("B,D", [(1, 180), (33, 384)])
+def test_dual_kernel_matches_plain(dev, B, D, bf16):
+    T, H = 32, 192
+    x, lengths, (pf, pb) = _probe_problem(dev, B, T, D, H, B + D)
+    x_flip = gru_ops.flip_padded(x, lengths)
+    before = cuda_gru_proto.DUAL.launches
+    got = cuda_gru_proto.gru_layer_dual(x, x_flip, lengths, pf, pb,
+                                        bf16_mm=bf16)
+    torch.cuda.synchronize()
+    assert cuda_gru_proto.DUAL.launches == before + 1
+    ref = cuda_gru_proto.gru_layer_dual_plain(x, x_flip, lengths, pf, pb,
+                                              bf16)
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g, r, atol=_PROBE_BARS[bf16], rtol=0)
+
+
+def test_probe_kernels_f32_do_not_depend_on_the_knobs(dev):
+    """Every row's sums run in the same order whatever the tile and the
+    stage: the f32 outputs are bitwise equal across the knobs."""
+    x, lengths, (pf, pb) = _probe_problem(dev, 37, 20, 24, 64, 3)
+    xp = x @ pf["wi"] + pf["bi"]
+    x_flip = gru_ops.flip_padded(x, lengths)
+    rec = [cuda_gru_proto.gru_sequence_kstep(
+        xp, lengths, pf["wh"], pf["bh"], batch_tile=bt, k_steps=k)
+        for bt, k in ((8, 8), (1, 1), (16, 3), (2, 20), (4, 32))]
+    dual = [cuda_gru_proto.gru_layer_dual(x, x_flip, lengths, pf, pb,
+                                          batch_tile=bt, k_steps=k)
+            for bt, k in ((8, 8), (1, 1), (4, 3), (2, 32))]
+    ref = cuda_gru_proto.gru_recurrence_plain(xp, lengths, pf["wh"],
+                                              pf["bh"])
+    for y in rec:
+        torch.testing.assert_close(y, ref, atol=1e-4, rtol=0)
+    ref = cuda_gru_proto.gru_layer_dual_plain(x, x_flip, lengths, pf, pb)
+    for y in dual:
+        for g, r in zip(y, ref):
+            torch.testing.assert_close(g, r, atol=1e-4, rtol=0)
+    for y in rec[1:]:
+        assert torch.equal(y, rec[0]), (y - rec[0]).abs().max().item()
+    for y in dual[1:]:
+        for g, r in zip(y, dual[0]):
+            assert torch.equal(g, r), (g - r).abs().max().item()
+
+
+def test_probe_kernels_refuse_what_they_do_not_take(dev):
+    x, lengths, (pf, pb) = _probe_problem(dev, 4, 6, 8, 16, 4)
+    xp = x @ pf["wi"] + pf["bi"]
+    with pytest.raises(RuntimeError, match="no backward"):
+        cuda_gru_proto.gru_sequence_kstep(
+            xp, lengths, pf["wh"].clone().requires_grad_(), pf["bh"])
+    with pytest.raises(RuntimeError, match="no backward"):
+        cuda_gru_proto.gru_layer_dual(x.clone().requires_grad_(), x, lengths,
+                                      pf, pb)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_gru_proto.gru_sequence_kstep(xp.transpose(0, 1).contiguous()
+                                          .transpose(0, 1), lengths,
+                                          pf["wh"], pf["bh"])
+    with pytest.raises(ValueError, match="f32"):
+        cuda_gru_proto.gru_layer_dual(x.double(), x.double(), lengths, pf,
+                                      pb)
+    y = cuda_gru_proto.gru_sequence_kstep(xp[:0], lengths[:0], pf["wh"],
+                                          pf["bh"])
+    assert y.shape == (0, 6, 16)

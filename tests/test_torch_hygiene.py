@@ -6,12 +6,15 @@
   JAX package or jax in an import statement (checked on the syntax tree).
 - impl='kernel' on a CPU tensor raises; so do the JAX package's serving
   knob values the port does not have.
+- The measurement scripts (silent_speech_tpu_torch/scripts) are among the
+  modules both checks reach.
 - A kernel build without nvcc raises instead of falling back.
 """
 
 import ast
 import glob
 import os
+import pkgutil
 import subprocess
 import sys
 
@@ -21,7 +24,9 @@ import torch
 from silent_speech_tpu_torch.infer.predictor import Predictor
 from silent_speech_tpu_torch.models.bigru import (BiGRUClassifier,
                                                   BiGRUConfig, init_params)
-from silent_speech_tpu_torch.ops import _kernels, cuda_cnn, cuda_gru
+import silent_speech_tpu_torch
+from silent_speech_tpu_torch.ops import (_kernels, cuda_cnn, cuda_gru,
+                                         cuda_gru_proto)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -69,6 +74,18 @@ def test_port_source_imports_nothing_of_jax(path):
     assert not _imported_roots(path) & {"jax", "jaxlib", "silent_speech_tpu"}
 
 
+@pytest.mark.parametrize("script", ["bench_gru", "proto_gru2", "proto_gru3",
+                                    "proto_gru4"])
+def test_scripts_subpackage_is_checked(script):
+    """The fresh-process import check walks the scripts subpackage, and the
+    syntax-tree scan reads its sources."""
+    walked = {m.name for m in pkgutil.walk_packages(
+        silent_speech_tpu_torch.__path__, prefix="silent_speech_tpu_torch.")}
+    assert f"silent_speech_tpu_torch.scripts.{script}" in walked
+    assert os.path.join(REPO, "silent_speech_tpu_torch", "scripts",
+                        f"{script}.py") in _PORT_SOURCES
+
+
 def test_import_scan_sees_the_jax_package(tmp_path):
     """The scan catches every spelling of an import of the JAX package."""
     for line in ("import silent_speech_tpu", "import silent_speech_tpu.ops",
@@ -95,6 +112,24 @@ def test_kernel_impl_on_cpu_tensor_raises():
     with pytest.raises(ValueError, match="unknown impl"):
         cuda_gru.gru_layer(x, torch.tensor([3, 1]), params["gru"][0]["fwd"],
                            impl="pallas")
+
+
+@pytest.mark.parametrize("wrapper", ["kstep", "kstep_2w", "dual"])
+def test_probe_kernel_impl_on_cpu_tensor_raises(wrapper):
+    H = 8
+    xp, lengths = torch.zeros((2, 3, 3 * H)), torch.tensor([3, 1])
+    wh, bh = torch.zeros((H, 3 * H)), torch.zeros(3 * H)
+    p = {"wi": torch.zeros((4, 3 * H)), "bi": bh, "wh": wh, "bh": bh}
+    x = torch.zeros((2, 3, 4))
+    call = {"kstep": lambda: cuda_gru_proto.gru_sequence_kstep(
+                xp, lengths, wh, bh, impl="kernel"),
+            "kstep_2w": lambda: cuda_gru_proto.gru_sequence_kstep_2w(
+                xp, lengths, wh[None].expand(2, -1, -1),
+                bh[None].expand(2, -1), impl="kernel"),
+            "dual": lambda: cuda_gru_proto.gru_layer_dual(
+                x, x, lengths, p, p, impl="kernel")}[wrapper]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call()
 
 
 @pytest.mark.parametrize("knob,value", [
