@@ -44,7 +44,15 @@ prints no result line):
    D=180 and 384, f32 and bf16_mm; their times, bounds and cuDNN's layer
    at B=512 and B=1; and the main() of bench_gru, proto_gru2, proto_gru3
    and proto_gru4 at B=512 and B=1 (5 timed calls a variant), with the
-   launch counts over each script's runs.
+   launch counts over each script's runs;
+9. the CNN-front prototypes (silent_speech_tpu_torch/scripts): the parity
+   conv1 + pool1 kernel in both layouts against its plain version at
+   N=8192 and N=16, on all-0 and all-255 frames, with packed and random
+   weights, its ablation's ``full`` bitwise the kernel; each stage of the
+   front probe and each of K1's debug stops against its plain version; K1
+   itself within its bar; their times, bounds and plain versions' times at
+   N=8192; and the main() of proto_parity_cnn, proto_parity_e2e,
+   proto_ablate and probe_front at N=8192, with the launch counts over each.
 
 Then one JSON line with the kernels' results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA device;
@@ -144,6 +152,40 @@ BAR_GRU_BF16 = 2e-3
 # rounding of every operand (the JAX scripts' own gap is 1.65e-4 / 9.0e-4
 # at B=3, H=16); a sanity bar on values of |h| < 1
 BAR_PROBE_BF16_ROW = 5e-2
+
+# the CNN-front prototypes: the scripts' problem, N=8192 frames; the bars
+# of the JAX scripts (f32 1e-4 with packed weights, proto_parity_cnn.py:223;
+# random unpacked weights, outputs in the thousands: max|err| / max|ref| <=
+# 1e-6); a debug stop's per-frame moments, f32 sums of 4,608 to 10,400
+# terms against float64: 1e-5 of each moment's sum of absolute terms
+FRONT_N, FRONT_ITERS = 8192, 10
+FRONT_SCRIPTS = ("proto_parity_cnn", "proto_parity_e2e", "proto_ablate",
+                 "probe_front")
+BAR_PARITY, BAR_PARITY_REL, BAR_STOP_REL = 1e-4, 1e-6, 1e-5
+# kernel: (source, the TPU kernel's pallas_call, the script whose run
+# counts it)
+FRONT_KERNELS = {
+    "conv1pool1_parity": ("roi_parity.cu", "scripts/proto_parity_cnn.py:144",
+                          "proto_parity_cnn"),
+    "conv1pool1": ("roi_parity.cu", "scripts/proto_parity_e2e.py:91",
+                   "proto_parity_e2e"),
+    "parity_ablate": ("roi_parity.cu", "scripts/proto_ablate.py:91",
+                      "proto_ablate"),
+    "roi_front_probe": ("roi_front_probe.cu", "scripts/probe_front.py:127",
+                        "probe_front"),
+    "roi_cnn_debug": ("roi_cnn.cu",
+                      "silent_speech_tpu/ops/pallas_cnn2.py:1018 "
+                      "(_DEBUG_STOP_AFTER, :78)", "probe_front"),
+}
+# multiply-adds a frame of the parity kernel's function for any WE/WO: 12
+# rows x 4 classes x 3 tiles x 2 matrices x 102 x 128 (the TPU kernel's dot
+# runs 104 patch rows, but rows 102 and 103 of the patch are zero and add
+# nothing; csrc/roi_parity.cu sums r < 102)
+PARITY_MACS = 12 * 4 * 3 * 2 * 102 * 128
+# multiply-adds a frame up to each of K1's debug stops (conv0, conv1, conv2)
+STOP_MACS = {"load": 0, "norm": 0, "conv1": 48 * 96 * 8 * 9,
+             "conv2": 48 * 96 * 8 * 9 + 24 * 48 * 16 * 8 * 9,
+             "conv3": CNN_FWD_MACS}
 
 
 def fail(msg: str):
@@ -733,6 +775,303 @@ def run_gru_probe_scripts() -> dict:
     return counts
 
 
+def parity_inputs(N: int, kind: str, rng, dev):
+    """N random frames (the last two all-0 and all-255) split into classes,
+    and packed or random (unpacked, proto_ablate's draws) WE, WO, bias."""
+    from silent_speech_tpu_torch.ops import cuda_parity_cnn as pc
+    roi = rng.integers(0, 256, (N, 48, 96), dtype=np.uint8)
+    roi[-2], roi[-1] = 0, 255
+    if kind == "packed":
+        w = pc.pack_parity_conv1(
+            rng.standard_normal((3, 3, 1, 8)).astype(np.float32) * 0.3,
+            rng.standard_normal(8).astype(np.float32) * 0.1)
+    else:
+        w = [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+             for sh in ((104, 128), (104, 128), (1, 384))]
+    roi = torch.from_numpy(roi).to(dev)
+    return roi, pc.split_classes(roi), [t.to(dev) for t in w]
+
+
+def check_cnn_front(dev) -> dict:
+    """The CNN-front prototypes' kernels against their plain versions (TF32
+    off): the parity kernel in both layouts at N in (16, FRONT_N) with
+    packed and random weights, all-0 and all-255 frames among them; its
+    ablation's ``full`` bitwise the kernel; each probe stage's per-block
+    value; K1's debug stops, live and standardized. Returns each kernel's
+    largest errors ({name: {key: value}}); raises on a failure."""
+    from silent_speech_tpu_torch.infer.predictor import full_f32
+    from silent_speech_tpu_torch.models.bigru import init_roi_cnn
+    from silent_speech_tpu_torch.ops import cuda_cnn
+    from silent_speech_tpu_torch.ops import cuda_front_probe as fp
+    from silent_speech_tpu_torch.ops import cuda_parity_cnn as pc
+
+    rng = np.random.default_rng(SEED + 9)
+    errs = {name: {"max_abs_err": 0.0} for name in FRONT_KERNELS}
+
+    def close(name, label, got, ref, kind):
+        if kind == "packed":
+            err = check_close(f"{name} {label}", got, ref, BAR_PARITY)
+            errs[name]["max_abs_err"] = max(errs[name]["max_abs_err"], err)
+            return
+        scale = ref.abs().max().item()
+        err = check_close(f"{name} {label} (max|ref| {scale:.1f})", got, ref,
+                          BAR_PARITY_REL * scale) / scale
+        errs[name]["max_rel_err_random_weights"] = max(
+            errs[name].get("max_rel_err_random_weights", 0.0), err)
+
+    for N in (16, FRONT_N):
+        for kind in ("packed", "random"):
+            roi, xs, w = parity_inputs(N, kind, rng, dev)
+            flat = [x.reshape(-1, 96) for x in xs]
+            halves = pc.conv1pool1_parity(*xs, *w, impl="kernel")
+            one = pc.conv1pool1(*flat, *w, impl="kernel")
+            full = pc.run(*flat, *w, mode="full", impl="kernel")
+            torch.cuda.synchronize()
+            with full_f32():
+                ref = pc.parity_halves_plain(xs, *w)
+            label = f"N={N} {kind} weights"
+            for half, g, r in zip(("even", "odd"), halves, ref):
+                close("conv1pool1_parity", f"{label} m-{half}", g, r, kind)
+            close("conv1pool1", label, one,
+                  pc.pooled1_from_quadrants(ref, N), kind)
+            if not all(torch.equal(a, b) for a, b in zip(full, halves)):
+                fail(f"parity_ablate full differs from the kernel ({label})")
+            print(f"  parity_ablate full {label}: bitwise the kernel")
+            if kind == "packed":  # and the plain conv1 + pool1 itself
+                k = torch.stack([torch.stack([w[0][dy * 34 + dx, :8]
+                                              for dx in range(3)])
+                                 for dy in range(3)])[:, :, None] * 255.0
+                with full_f32():
+                    conv = pc.ref_conv1pool1(roi, k, w[2][0, :8])
+                check_close(f"conv1pool1 {label} vs plain conv1+pool1", one,
+                            conv, BAR_PARITY)
+
+    roi_np = rng.integers(0, 256, (FRONT_N, 48, 96), dtype=np.uint8)
+    roi_np[0], roi_np[1] = 0, 255
+    x = torch.from_numpy(roi_np.reshape(-1, 384))
+    x_small = torch.from_numpy(rng.integers(0, 256, (FRONT_N, 4),
+                                            dtype=np.uint8))
+    for stage in fp.STAGES:
+        for F in (fp.DMA_FRAMES if stage == "dma" else (1,)):
+            xi = x_small if stage == "overlap_b" else x
+            got = fp.probe(stage, xi.to(dev), F).cpu().double()
+            want = fp.probe_plain(stage, xi, F).double()
+            err = (got - want).abs()
+            bar = fp.bar(stage, xi, F).double()
+            print(f"  roi_front_probe {stage} F={F}: max difference per "
+                  f"block {err.max().item():.3e} (bar: 1e-5 of each "
+                  f"moment's sum of |terms|, 0 for integer sums)")
+            if (err > bar).any():
+                fail(f"roi_front_probe {stage} F={F}: {int((err > bar).sum())}"
+                     " blocks off the plain version")
+            e = errs["roi_front_probe"]
+            e["max_abs_err"] = max(e["max_abs_err"], err.max().item())
+
+    p = {k: {n: t.to(dev) for n, t in v.items()}
+         for k, v in init_roi_cnn(32, torch.Generator().manual_seed(SEED + 9))
+         .items()}
+    roi = torch.from_numpy(roi_np).to(dev)
+    for std in (False, True):
+        for stop in cuda_cnn.DEBUG_STOPS:
+            got = cuda_cnn.roi_cnn_fused(roi, p, standardize=std,
+                                         impl="kernel", debug_stop=stop)
+            torch.cuda.synchronize()
+            with full_f32():
+                ref = cuda_cnn.roi_cnn_debug_plain(roi, p, std, stop)
+                bar = BAR_STOP_REL * cuda_cnn.roi_cnn_debug_plain(
+                    roi, p, std, stop, absolute=True)
+            err = (got - ref).abs()
+            print(f"  roi_cnn_debug stop={stop} standardize={std}: max abs "
+                  f"err {err.max().item():.3e}, largest share of its bar "
+                  f"{(err / bar.clamp(min=1e-30)).max().item():.3f} (bar "
+                  f"{BAR_STOP_REL:g} of each moment's sum of |terms|)")
+            if not torch.isfinite(got).all() or (err > bar).any():
+                fail(f"roi_cnn_debug stop={stop} standardize={std} off its "
+                     "plain version")
+            e = errs["roi_cnn_debug"]
+            e["max_abs_err"] = max(e["max_abs_err"], err.max().item())
+        got = cuda_cnn.roi_cnn_fused(roi, p, standardize=std, impl="kernel",
+                                     debug_stop=None)
+        with full_f32():
+            ref = cuda_cnn.roi_cnn_plain(roi, p, std)
+        check_close(f"roi_cnn debug_stop=None N={FRONT_N} standardize={std}",
+                    got, ref, BAR_CNN_STD if std else BAR_CNN_LIVE)
+    return errs
+
+
+def time_cnn_front(dev, card: str) -> dict:
+    """Each CNN-front kernel, its plain version and its bound at N=FRONT_N
+    (TF32 off for the plain versions), the ablation's stops, the probe's
+    stages, K1 and its debug stops. One device timer: CUDA events around a
+    run of calls with the host's launches held out
+    (``proto_parity_cnn.device_ms``: the micro-kernels run for less time
+    than the host takes to launch a call), with the L2 evicted before each
+    call where the bound is the bytes from device memory (the 37.75 MB of
+    frames fit the 50 MB L2). Returns {kernel: {key: value}}."""
+    from silent_speech_tpu_torch.infer.predictor import full_f32
+    from silent_speech_tpu_torch.models.bigru import init_roi_cnn
+    from silent_speech_tpu_torch.ops import cuda_cnn
+    from silent_speech_tpu_torch.ops import cuda_front_probe as fp
+    from silent_speech_tpu_torch.ops import cuda_parity_cnn as pc
+    from silent_speech_tpu_torch.scripts import proto_parity_cnn as harness
+    from silent_speech_tpu_torch.scripts import proto_parity_e2e
+
+    N, it = FRONT_N, 20
+    hold = harness.Args(N, dev, it)
+
+    def timed(fn, by: str) -> float:
+        return harness.device_ms(fn, hold, cold=by == "bytes")
+
+    rng = np.random.default_rng(SEED + 10)
+    out = {name: {} for name in FRONT_KERNELS}
+    roi, xs, w = parity_inputs(N, "packed", rng, dev)
+    flat = [x.reshape(-1, 96) for x in xs]
+    in_bytes, out_bytes = N * 48 * 96, 4 * N * 12 * 768
+    w_bytes = 4 * (2 * 104 * 128 + 384)
+    p_bound = bound_ms(2 * N * PARITY_MACS, in_bytes + out_bytes + w_bytes)
+    p_bound_taps = bound_ms(2 * N * 48 * 96 * 8 * 9,
+                            in_bytes + out_bytes + w_bytes)[0]
+    with full_f32():
+        plain_ms = timed(lambda: pc.parity_halves_plain(xs, *w), p_bound[1])
+        k = torch.randn(3, 3, 1, 8, device=dev)
+        conv_ms = timed(lambda: pc.ref_conv1pool1(roi, k, w[2][0, :8]),
+                        p_bound[1])
+    cases = {
+        "conv1pool1_parity": lambda: pc.conv1pool1_parity(*xs, *w,
+                                                          impl="kernel"),
+        "conv1pool1": lambda: pc.conv1pool1(*flat, *w, impl="kernel"),
+        "parity_ablate": lambda: pc.run(*flat, *w, mode="full",
+                                        impl="kernel"),
+    }
+    for name, fn in cases.items():
+        r = out[name]
+        r["ms"] = timed(fn, p_bound[1])
+        r["plain_ms"], r["plain_conv_ms"] = plain_ms, conv_ms
+        r["bound_ms"], r["bound_by"] = p_bound
+        r["bound_ms_9_taps"] = p_bound_taps
+        r["library_ms"] = None
+        print(f"  {name} N={N}: kernel {r['ms']:.4f} ms, plain (through WE, "
+              f"WO) {plain_ms:.4f} ms, plain conv1+ReLU+pool1 (cuDNN, three "
+              f"calls) {conv_ms:.4f} ms, bound {p_bound[0]:.4f} ms "
+              f"({p_bound[1]}; the 9 useful taps alone {p_bound_taps:.4f}); "
+              f"no single PyTorch call computes it {card}")
+    r = out["parity_ablate"]
+    io_bound = bound_ms(0, in_bytes + out_bytes)
+    r["bound_ms_io_only"] = io_bound[0]
+    for mode in ("io_only", "widen_only", "halo_only", "no_dot"):
+        fn = lambda: pc.run(*flat, *w, mode=mode, impl="kernel")
+        r[f"ms_{mode}"] = timed(fn, p_bound[1])
+        print(f"  parity_ablate {mode}: {r[f'ms_{mode}']:.4f} ms {card}")
+
+    cnn = {k_: {n: t.to(dev) for n, t in v.items()}
+           for k_, v in proto_parity_e2e.tiny_roi_cnn().items()}
+    we, wo, bias = (t.to(dev) for t in pc.pack_parity_conv1(
+        cnn["conv0"]["w"].cpu(), cnn["conv0"]["b"].cpu()))
+    cflat = cuda_cnn.flat_weights(cnn)
+    r = out["conv1pool1"]
+    for key, fn in (
+            ("e2e_parity_f32_ms", lambda: pc.roi_cnn_parity(
+                cnn, roi, we, wo, bias, impl="kernel")),
+            ("e2e_parity_bf16_ms", lambda: pc.roi_cnn_parity(
+                cnn, roi, we, wo, bias, impl="kernel",
+                compute_dtype=torch.bfloat16)),
+            ("e2e_k1_ms", lambda: cuda_cnn.roi_cnn_fused(
+                roi, cnn, impl="kernel", flat=cflat))):
+        r[key] = timed(fn, "operations")
+    print(f"  the whole CNN N={N}: parity front + cuDNN back half f32 "
+          f"{r['e2e_parity_f32_ms']:.4f} ms, bf16 {r['e2e_parity_bf16_ms']:.4f}"
+          f" ms; K1 {r['e2e_k1_ms']:.4f} ms {card}")
+
+    x = roi.reshape(-1, 384)
+    x_small = torch.from_numpy(rng.integers(0, 256, (N, 4), dtype=np.uint8)
+                               ).to(dev)
+    r = out["roi_front_probe"]
+    for stage in fp.STAGES:
+        for F in (fp.DMA_FRAMES if stage == "dma" else (1,)):
+            xi = x_small if stage == "overlap_b" else x
+            key = stage if F == 1 else f"{stage}_f{F}"
+            macs = N * fp.THREADS * fp.CHAIN_ACC * fp.CHAIN_LEN \
+                if stage.startswith("overlap") else 0
+            blocks = N // F
+            b_ms, b_by = bound_ms(
+                2 * macs, (0 if stage == "overlap_b" else in_bytes)
+                + 4 * blocks * (1 if stage in fp.SCALAR else 3))
+            r[f"bound_ms_{key}"], r[f"bound_by_{key}"] = b_ms, b_by
+            r[f"ms_{key}"] = timed(lambda: fp.probe(stage, xi, F), b_by)
+            print(f"  roi_front_probe {key}: {r[f'ms_{key}']:.4f} ms"
+                  f"{' (cold L2)' if b_by == 'bytes' else ''}, bound "
+                  f"{b_ms:.4f} ms ({b_by}) {card}")
+    r["ms"], r["bound_ms"], r["bound_by"] = \
+        r["ms_dma"], r["bound_ms_dma"], "bytes"
+    r["plain_ms"] = timed(lambda: fp.probe_plain("dma", x), "bytes")
+    r["library_ms"] = None
+    print(f"  roi_front_probe dma: plain {r['plain_ms']:.4f} ms {card}")
+
+    p = {k_: {n: t.to(dev) for n, t in v.items()}
+         for k_, v in init_roi_cnn(32, torch.Generator().manual_seed(SEED + 10))
+         .items()}
+    pflat = cuda_cnn.flat_weights(p)
+    r = out["roi_cnn_debug"]
+    r["k1_ms"] = timed(lambda: cuda_cnn.roi_cnn_fused(
+        roi, p, impl="kernel", flat=pflat), "operations")
+    io = in_bytes + 4 * N * 32 + 4 * pflat.numel()
+    for stop in cuda_cnn.DEBUG_STOPS:
+        b_ms, b_by = bound_ms(2 * N * STOP_MACS[stop], io)
+        r[f"bound_ms_{stop}"], r[f"bound_by_{stop}"] = b_ms, b_by
+        r[f"ms_{stop}"] = timed(
+            lambda: cuda_cnn.roi_cnn_fused(roi, p, impl="kernel", flat=pflat,
+                                           debug_stop=stop), b_by)
+    with full_f32():
+        r["plain_ms"] = timed(lambda: cuda_cnn.roi_cnn_debug_plain(
+            roi, p, False, "load"), "bytes")
+    r["ms"], r["bound_ms"], r["bound_by"] = \
+        r["ms_load"], r["bound_ms_load"], r["bound_by_load"]
+    r["library_ms"] = None
+    print(f"  K1 N={N}: {r['k1_ms']:.4f} ms (PERF.md section 6: 5.3285 ms); "
+          "debug stops " + ", ".join(
+              f"{s} {r['ms_' + s]:.4f} (bound {r['bound_ms_' + s]:.4f}, "
+              f"{r['bound_by_' + s]})" for s in cuda_cnn.DEBUG_STOPS)
+          + f" ms (cold L2 where bound by bytes); plain stop=load "
+          f"{r['plain_ms']:.4f} ms {card}")
+    return out
+
+
+def run_cnn_front_scripts() -> dict:
+    """The main() of the four CNN-front scripts at N=FRONT_N, FRONT_ITERS
+    timed calls a row (each checks itself and raises over its bars); the
+    launch counts from 0 over each script's run. Returns {script: launch
+    counts}; raises if a kernel of a script's path was not launched."""
+    import importlib
+
+    from silent_speech_tpu_torch.ops import _kernels
+
+    counts = {}
+    for script in FRONT_SCRIPTS:
+        mod = importlib.import_module(
+            f"silent_speech_tpu_torch.scripts.{script}")
+        _kernels.reset_launch_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            mod.main([str(FRONT_N), f"iters={FRONT_ITERS}"])
+        torch.cuda.synchronize()
+        print("".join(f"  | {line}\n" for line in
+                      out.getvalue().splitlines()[:-1]), end="")
+        counts[script] = {k: v for k, v in _kernels.launch_counts().items()
+                          if v}
+        print(f"  {script}: launches over its N={FRONT_N} run "
+              f"{counts[script]}")
+    want = {script: set() for script in FRONT_SCRIPTS}
+    for name, (_, _, script) in FRONT_KERNELS.items():
+        want[script].add(name)
+    want["proto_parity_e2e"].add("roi_cnn")
+    want["probe_front"].add("roi_cnn")
+    for script, names in want.items():
+        if any(not counts[script].get(n) for n in names):
+            fail(f"{script}: a kernel of its path was not launched: "
+                 f"{counts[script]}, expected {sorted(names)}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device; this script runs only on a GPU")
@@ -1187,6 +1526,15 @@ def main() -> int:
           f"{PROBE_ITERS} timed calls a variant {card}:")
     probe_counts = run_gru_probe_scripts()
 
+    # ---- 9. the CNN-front prototypes: kernels vs plain, timings, scripts
+    print("CNN-front prototypes, kernel vs plain (TF32 off):")
+    front_errs = check_cnn_front(dev)
+    print(f"CNN-front prototypes, timings at N={FRONT_N} {card}:")
+    front_ms = time_cnn_front(dev, card)
+    print(f"CNN-front prototypes, the scripts at N={FRONT_N}, {FRONT_ITERS} "
+          f"timed calls a row {card}:")
+    front_counts = run_cnn_front_scripts()
+
     result = {"kernels": [
         {"name": "roi_cnn", "route": "cuda",
          "source": "silent_speech_tpu_torch/csrc/roi_cnn.cu",
@@ -1229,6 +1577,12 @@ def main() -> int:
             "source": f"silent_speech_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": probe_counts[script][count],
             "max_abs_err": probe_errs[kname], **probe_ms[kname]})
+    for kname, (source, replaces, script) in FRONT_KERNELS.items():
+        result["kernels"].append({
+            "name": kname, "route": "cuda",
+            "source": f"silent_speech_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": front_counts[script][kname],
+            **front_errs[kname], **front_ms[kname]})
     print(json.dumps(result))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -43,6 +43,18 @@
 // fc stay f32. Its bound is the bf16 tensor-core rate: these CUDA-core FMAs
 // are the simple first version.
 //
+// The debug stops (roi_cnn_debug_forward) replace the TPU kernel's
+// perf-debug knob _DEBUG_STOP_AFTER (pallas_cnn2.py:78, used at :427 load,
+// :437 norm, :503 conv1, :575 conv2, :632 conv3), a module global there and
+// the template parameter STOP here: the f32 kernel truncated after a stage,
+// each row of the output holding three moments of what that stage computed
+// (load: the scaled input; norm: the haloed image, standardized when
+// asked; conv1, conv2: the pooled maps with their halos; conv3: the ReLU
+// outputs), entry j the moment j % 3: the sum, the sum of squares and the
+// sum weighted by (i % 31), i the value's index in the stage's buffer, so
+// that a wrong scale or a misplaced store shows. STOP_NONE is the serving
+// kernel, unchanged.
+//
 // The constant bank is one per device, so both builds order their
 // launches: under a host mutex the launch copies the weights into the bank
 // on the caller's stream, launches, and records an event; a launch on
@@ -144,7 +156,33 @@ __device__ float block_sum(float v, float* red) {
   return s;
 }
 
-template <typename T>
+// debug stops: after the input load and scaling, the haloed image, each
+// conv stage (STOP_NONE: the whole network)
+enum Stop { STOP_NONE = 0, STOP_LOAD = 1, STOP_NORM = 2, STOP_CONV1 = 3,
+            STOP_CONV2 = 4, STOP_CONV3 = 5 };
+
+// a debug stop's moments of its values: the sum, the sum of squares and
+// the sum weighted by the value's index i in the stage's buffer, i % 31
+// (31 divides none of the buffers' strides)
+constexpr int POS_PERIOD = 31;
+struct Moments {
+  float s = 0.f, s2 = 0.f, sp = 0.f;
+  __device__ __forceinline__ void add(float v, int i) {
+    s += v;
+    s2 = fmaf(v, v, s2);
+    sp = fmaf((float)(i % POS_PERIOD), v, sp);
+  }
+};
+
+// a debug stop's output: the frame's moment j % 3 in entry j of its row
+__device__ void write_stop(float* out, size_t n, int emb, Moments m,
+                           float* red) {
+  const float t[3] = {block_sum(m.s, red), block_sum(m.s2, red),
+                      block_sum(m.sp, red)};
+  if ((int)threadIdx.x < emb) out[n * emb + threadIdx.x] = t[threadIdx.x % 3];
+}
+
+template <typename T, int STOP = STOP_NONE>
 __global__ void __launch_bounds__(THREADS)
 roi_cnn_kernel(const uint8_t* __restrict__ roi, float* __restrict__ out,
                int emb, int standardize) {
@@ -159,7 +197,8 @@ roi_cnn_kernel(const uint8_t* __restrict__ roi, float* __restrict__ out,
   const int tid = threadIdx.x;
   const size_t n = blockIdx.x;
 
-  for (int i = tid; i < P1_SIZE + XP_SIZE; i += THREADS) smem[i] = A::st(0.f);
+  if constexpr (STOP != STOP_LOAD)  // the load stop writes no image
+    for (int i = tid; i < P1_SIZE + XP_SIZE; i += THREADS) smem[i] = A::st(0.f);
 
   // ---- input: 16 consecutive pixels of one row per thread, scaled in f32
   // (the bf16 build multiplies by the rounded 1/255, as the Pallas kernel)
@@ -172,6 +211,13 @@ roi_cnn_kernel(const uint8_t* __restrict__ roi, float* __restrict__ out,
       const float b = (float)((words[k >> 2] >> (8 * (k & 3))) & 0xffu);
       v[k] = BF16 ? b * (1.0f / 255.0f) : b / 255.0f;
     }
+  }
+  if constexpr (STOP == STOP_LOAD) {  // i: the pixel's index in the frame
+    Moments m;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) m.add(v[k], tid * 16 + k);
+    write_stop(out, n, emb, m, red);
+    return;
   }
   if (standardize) {  // two passes, as standardize_frames: mean, then var
     float s = 0.f;
@@ -193,6 +239,12 @@ roi_cnn_kernel(const uint8_t* __restrict__ roi, float* __restrict__ out,
     for (int k = 0; k < 16; ++k) xp[(y + 1) * XP_W + x0 + 1 + k] = A::st(v[k]);
   }
   __syncthreads();
+  if constexpr (STOP == STOP_NORM) {
+    Moments m;
+    for (int i = tid; i < XP_SIZE; i += THREADS) m.add(A::ld(xp[i]), i);
+    write_stop(out, n, emb, m, red);
+    return;
+  }
 
   // ---- stage 1: conv1 + ReLU + pool, one pooled position per iteration.
   // relu(max_i(s_i) + b) == max_i(relu(s_i + b)) exactly (monotone rounding)
@@ -228,6 +280,12 @@ roi_cnn_kernel(const uint8_t* __restrict__ roi, float* __restrict__ out,
     }
   }
   __syncthreads();
+  if constexpr (STOP == STOP_CONV1) {
+    Moments m;
+    for (int i = tid; i < P1_SIZE; i += THREADS) m.add(A::ld(p1[i]), i);
+    write_stop(out, n, emb, m, red);
+    return;
+  }
   for (int i = tid; i < P2_SIZE; i += THREADS) p2[i] = A::st(0.f);  // xp dead
   __syncthreads();
 
@@ -265,6 +323,12 @@ roi_cnn_kernel(const uint8_t* __restrict__ roi, float* __restrict__ out,
           A::st(fmaxf(m[co] + c_w[OFF_B2 + co], 0.f));
   }
   __syncthreads();
+  if constexpr (STOP == STOP_CONV2) {
+    Moments m;
+    for (int i = tid; i < P2_SIZE; i += THREADS) m.add(A::ld(p2[i]), i);
+    write_stop(out, n, emb, m, red);
+    return;
+  }
 
   // ---- stage 3: conv3 + ReLU at this thread's position, summed for the mean
   float acc[C3];
@@ -281,6 +345,14 @@ roi_cnn_kernel(const uint8_t* __restrict__ roi, float* __restrict__ out,
 #pragma unroll
       for (int k = 0; k < 9; ++k)
         acc[co] = fmaf(c_w[OFF_W3 + (co * C2 + ci) * 9 + k], a[k], acc[co]);
+  }
+  if constexpr (STOP == STOP_CONV3) {  // i: co * 288 + tid, CHW order
+    Moments m;
+#pragma unroll
+    for (int co = 0; co < C3; ++co)
+      m.add(fmaxf(acc[co] + c_w[OFF_B3 + co], 0.f), co * THREADS + tid);
+    write_stop(out, n, emb, m, red);
+    return;
   }
   const int lane = tid & 31, warp = tid >> 5;
 #pragma unroll
@@ -309,7 +381,7 @@ roi_cnn_kernel(const uint8_t* __restrict__ roi, float* __restrict__ out,
 // Launch roi_cnn_kernel<T> on stream s after copying the weights into the
 // constant bank, ordered against the last launch of either build (see the
 // note at the top). Returns the first failing cudaError_t.
-template <typename T>
+template <typename T, int STOP = STOP_NONE>
 int launch(const void* roi, const void* weights, void* out, int n, int emb,
            int standardize, void* stream) {
   if (emb < 1 || emb > MAX_EMB || n < 0) return (int)cudaErrorInvalidValue;
@@ -334,11 +406,11 @@ int launch(const void* roi, const void* weights, void* out, int n, int emb,
                               cudaMemcpyDeviceToDevice, s);
   if (e != cudaSuccess) return (int)e;
   constexpr size_t smem = smem_bytes<T>();
-  e = cudaFuncSetAttribute(roi_cnn_kernel<T>,
+  e = cudaFuncSetAttribute(roi_cnn_kernel<T, STOP>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return (int)e;
-  roi_cnn_kernel<T><<<n, THREADS, smem, s>>>(
+  roi_cnn_kernel<T, STOP><<<n, THREADS, smem, s>>>(
       static_cast<const uint8_t*>(roi), static_cast<float*>(out), emb,
       standardize);
   e = cudaGetLastError();
@@ -369,4 +441,32 @@ extern "C" int roi_cnn_bf16_forward(const void* roi, const void* weights,
                                     int standardize, void* stream) {
   return launch<__nv_bfloat16>(roi, weights, out, n, emb, standardize,
                                stream);
+}
+
+// The f32 kernel truncated after a stage (the TPU kernel's
+// _DEBUG_STOP_AFTER): the arguments of roi_cnn_forward and stop = 1 load,
+// 2 norm, 3 conv1, 4 conv2, 5 conv3; out (n, emb): entry j of a frame's row
+// holds the stage's moment j % 3 (sum, sum of squares, index-weighted sum).
+extern "C" int roi_cnn_debug_forward(const void* roi, const void* weights,
+                                     void* out, int n, int emb,
+                                     int standardize, int stop, void* stream) {
+  switch (stop) {
+    case STOP_LOAD:
+      return launch<float, STOP_LOAD>(roi, weights, out, n, emb, standardize,
+                                      stream);
+    case STOP_NORM:
+      return launch<float, STOP_NORM>(roi, weights, out, n, emb, standardize,
+                                      stream);
+    case STOP_CONV1:
+      return launch<float, STOP_CONV1>(roi, weights, out, n, emb, standardize,
+                                       stream);
+    case STOP_CONV2:
+      return launch<float, STOP_CONV2>(roi, weights, out, n, emb, standardize,
+                                       stream);
+    case STOP_CONV3:
+      return launch<float, STOP_CONV3>(roi, weights, out, n, emb, standardize,
+                                       stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -22,6 +22,14 @@ reaches the module's parameters through autograd.
 The bf16 mode (:func:`roi_cnn_bf16`, serving only) stores the activations
 and the three convs' weights in bf16 and accumulates in f32, rounding where
 the Pallas kernel rounds; :func:`roi_cnn_bf16_plain` lists the points.
+
+``roi_cnn_fused(..., debug_stop=...)`` runs the f32 kernel truncated after a
+stage (:data:`DEBUG_STOPS`), the port of the Pallas kernel's perf-debug knob
+``_DEBUG_STOP_AFTER`` (ops/pallas_cnn2.py:78), an explicit argument where
+JAX sets a module global. The stops exist only in the kernel; each row of
+the output holds three moments of what the stage computed
+(:func:`stage_moments`), which :func:`roi_cnn_debug_plain` gives for a
+check.
 """
 
 from __future__ import annotations
@@ -47,6 +55,14 @@ KERNEL = _kernels.Kernel(
 BF16_KERNEL = _kernels.Kernel(
     "roi_cnn_bf16", "roi_cnn_bf16_forward",
     [_P, _P, _P, _I, _I, _I, _P])  # as KERNEL
+DEBUG_KERNEL = _kernels.Kernel(
+    "roi_cnn_debug", "roi_cnn_debug_forward",
+    [_P, _P, _P, _I, _I, _I,  # as KERNEL, then
+     _I, _P])                 # stop, stream
+# _DEBUG_STOP_AFTER's values (pallas_cnn2.py:427, :437, :503, :575, :632)
+# and the kernel's STOP for each
+DEBUG_STOPS = {"load": 1, "norm": 2, "conv1": 3, "conv2": 4, "conv3": 5}
+POS_PERIOD = 31  # the index weight of stage_moments: i % 31
 BWD_KERNEL = _kernels.Kernel(
     "roi_cnn_bwd", "roi_cnn_backward",
     [_P, _P, _P,      # roi, dE, flat
@@ -114,6 +130,61 @@ def roi_cnn_bf16_plain(roi_u8: torch.Tensor, params: dict,
     y = round_bf16(torch.relu(y + params["conv1"]["b"]))
     y = torch.relu(conv(y, "conv2") + params["conv2"]["b"])
     return dense(y.mean(dim=(1, 2)), params["fc"])
+
+
+def stage_moments(v: torch.Tensor, absolute: bool = False) -> torch.Tensor:
+    """(rows, K) values, each row in the order of a kernel's buffer ->
+    (rows, 3) f32: the sum, the sum of squares and the sum weighted by the
+    index, (i % 31) v_i, summed in float64. The sum of a standardized image
+    is about 0 whatever scale it has; the squares see the scale and the
+    weights a misplaced value. ``absolute``: the same moments of |v|, the
+    scale of a bar."""
+    v = v.double()
+    if absolute:
+        v = v.abs()
+    w = torch.arange(v.shape[1], device=v.device) % POS_PERIOD
+    return torch.stack([v.sum(dim=1), v.square().sum(dim=1),
+                        (v * w).sum(dim=1)], dim=1).to(torch.float32)
+
+
+def _haloed(x: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, C) -> (N, C * (H + 2) * (W + 2)): the zero-haloed CHW
+    planes of the kernel's shared memory, flat."""
+    return torch.nn.functional.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1)
+                                   ).flatten(1)
+
+
+def roi_cnn_debug_plain(roi_u8: torch.Tensor, params: dict,
+                        standardize: bool, stop: str,
+                        absolute: bool = False) -> torch.Tensor:
+    """What the kernel's debug stop ``stop`` writes: (N, emb), entry j of a
+    row the frame's :func:`stage_moments` j % 3 of the stage's values in
+    the order of the kernel's buffer: the input / 255 (``load``, before any
+    standardization; H x W), the haloed normalized image (``norm``), the
+    haloed CHW pooled maps of conv1 and conv2 (``conv1``, ``conv2``), the
+    CHW ReLU outputs of conv3 (``conv3``). The stages in the parameters'
+    dtype; ``absolute`` as in :func:`stage_moments`."""
+    if stop not in DEBUG_STOPS:
+        raise ValueError(f"unknown debug_stop {stop!r}; the kernel takes "
+                         f"{tuple(DEBUG_STOPS)}")
+    dtype = params["fc"]["w"].dtype
+    x = preprocess_roi(roi_u8, standardize and stop != "load", dtype)
+    x = x.unsqueeze(-1)  # (N, H, W, 1)
+    if stop not in ("load", "norm"):
+        x = max_pool_2x2(torch.relu(conv2d_nhwc(x, params["conv0"])))
+        if stop != "conv1":
+            x = max_pool_2x2(torch.relu(conv2d_nhwc(x, params["conv1"])))
+            if stop == "conv3":
+                x = torch.relu(conv2d_nhwc(x, params["conv2"]))
+    if stop == "load":
+        flat = x.flatten(1)
+    elif stop == "conv3":
+        flat = x.permute(0, 3, 1, 2).flatten(1)
+    else:
+        flat = _haloed(x)
+    m = stage_moments(flat, absolute)
+    emb = params["fc"]["b"].shape[0]
+    return m[:, torch.arange(emb, device=m.device) % 3].contiguous()
 
 
 def roi_cnn_train_plain(roi_u8: torch.Tensor, params: dict,
@@ -211,24 +282,49 @@ def _check_params(roi_u8: torch.Tensor, params: dict) -> int:
     return fc_b.shape[0]
 
 
+def _check_debug_stop(debug_stop: Optional[str]) -> None:
+    if debug_stop is not None and debug_stop not in DEBUG_STOPS:
+        raise ValueError(f"unknown debug_stop {debug_stop!r}; the kernel "
+                         f"takes None or one of {tuple(DEBUG_STOPS)}")
+
+
 def roi_cnn_fused(roi_u8: torch.Tensor, params: dict, *,
                   standardize: bool = False, impl: str = "auto",
-                  flat: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  flat: Optional[torch.Tensor] = None,
+                  debug_stop: Optional[str] = None) -> torch.Tensor:
     """roi_u8: (N, 48, 96) uint8 -> embeddings (N, emb) f32 (inference: no
     gradient reaches ``params`` through the kernel).
 
     ``impl`` as in ``ops._kernels``: 'auto' launches the kernel for a CUDA
     tensor and runs :func:`roi_cnn_plain` for a CPU tensor. ``flat`` is
     :func:`flat_weights` of ``params``, built once by the caller; without
-    it every launch builds it anew."""
+    it every launch builds it anew. ``debug_stop`` (:data:`DEBUG_STOPS`)
+    runs the kernel truncated after that stage; it has no plain route and
+    raises unless the kernel runs."""
     _check_frames(roi_u8)
+    _check_debug_stop(debug_stop)
     if not _kernels.use_kernel(impl, roi_u8):
+        if debug_stop is not None:
+            raise ValueError(
+                f"debug_stop={debug_stop!r} is a stop of the CUDA kernel: it "
+                f"needs a CUDA tensor and impl 'auto' or 'kernel', got "
+                f"impl={impl!r} on {roi_u8.device}")
         return roi_cnn_plain(roi_u8, params, standardize)
     emb = _check_params(roi_u8, params)
     if flat is None:
         with torch.no_grad():
             flat = flat_weights(params)
-    return _forward_kernel(roi_u8, flat, emb, standardize)
+    if debug_stop is None:
+        return _forward_kernel(roi_u8, flat, emb, standardize)
+    _check_kernel_inputs(roi_u8, flat, emb)
+    out = torch.empty((roi_u8.shape[0], emb), dtype=torch.float32,
+                      device=roi_u8.device)
+    if roi_u8.shape[0]:
+        DEBUG_KERNEL.launch(_kernels.ptr(roi_u8), _kernels.ptr(flat),
+                            _kernels.ptr(out), roi_u8.shape[0], emb,
+                            int(standardize), DEBUG_STOPS[debug_stop],
+                            _kernels.stream_ptr(roi_u8.device))
+    return out
 
 
 def roi_cnn_bf16(roi_u8: torch.Tensor, params: dict, *,
@@ -299,16 +395,21 @@ class _FusedTrain(torch.autograd.Function):
 
 
 def roi_cnn_fused_train(roi_u8: torch.Tensor, params: dict, *,
-                        standardize: bool = True,
-                        impl: str = "auto") -> torch.Tensor:
+                        standardize: bool = True, impl: str = "auto",
+                        debug_stop: Optional[str] = None) -> torch.Tensor:
     """Differentiable fused TinyROICNN: (N, 48, 96) uint8 -> (N, emb) f32.
 
     On a CUDA tensor ('auto' or 'kernel') the forward is the forward kernel
     and the backward the weight-gradient kernel, on a flat weight buffer
     built from ``params`` by ``torch.cat`` (autograd maps its gradient back
     to the parameters); on a CPU tensor, or with 'plain', it is
-    :func:`roi_cnn_train_plain`. Only the reference 48x96 ROI is taken."""
+    :func:`roi_cnn_train_plain`. Only the reference 48x96 ROI is taken.
+    ``debug_stop`` is accepted only as None: the stops have no backward."""
     _check_frames(roi_u8)
+    if debug_stop is not None:
+        raise ValueError(f"debug_stop={debug_stop!r}: the forward kernel's "
+                         "debug stops have no backward; the training CNN "
+                         "takes only debug_stop=None")
     if tuple(roi_u8.shape[1:]) != (ROI_H, ROI_W):
         raise ValueError(
             f"the training ROI CNN takes only the reference {ROI_H}x{ROI_W} "

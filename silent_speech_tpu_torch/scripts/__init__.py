@@ -9,10 +9,19 @@ proto_gru2   a recurrence kernel over a hoisted projection, one weight set
 proto_gru3   the projection fused in the kernel, one launch a direction:
              K2's function, run through K2's one-direction launch
 proto_gru4   both directions of a layer as two chains in one kernel
+proto_parity_cnn  the parity-packed conv1 + pool1 kernel against the plain
+             conv1 + pool1; the harness of the CNN-front probes
+proto_parity_e2e  the whole ROI CNN with the parity kernel in front and a
+             plain back half, against K1 and the plain CNN, f32 and bf16
+proto_ablate the parity kernel's stages timed one by one
+probe_front  K1's input front as a ladder of micro-kernels, frames a block,
+             the front beside K1-sized arithmetic, and K1's debug stops
 
-Each runs as ``python -m silent_speech_tpu_torch.scripts.<name> [B] [T]
-[device=cuda] [iters=100]`` (B=512, T=32 by default), on the card unless
-``device=cpu`` is given, and prints one row a variant (ms, speedup over the
-table's first row, max abs error against the plain scan) and then one JSON
-line.
+The GRU probes run as ``python -m silent_speech_tpu_torch.scripts.<name>
+[B] [T] [device=cuda] [iters=100]`` (B=512, T=32 by default) and print one
+row a variant (ms, speedup over the table's first row, max abs error
+against the plain scan); the CNN-front probes as ``... [N] [device=cuda]
+[iters=30]`` (N=8192 frames by default, a multiple of 16) and print one row
+a variant (ms, the kernel's device time, max abs error). All run on the
+card unless ``device=cpu`` is given, and end with one JSON line.
 """

@@ -10,7 +10,10 @@ frames, narrow embeddings, the inputs they refuse, and the Predictor in
 each mode against its plain path; the GRU probes' kernels (the recurrence
 kernel with one and two weight sets, the dual-chain kernel) in f32 and
 bf16, their launch counts, their independence of the knobs and the inputs
-they refuse. Every test needs
+they refuse; the CNN-front prototypes' kernels (the parity conv1 + pool1
+kernel in both layouts and its ablation stops, the front probe's stages,
+K1's debug stops) against their plain versions, and the four scripts' main
+at N=64. Every test needs
 a CUDA device and skips without one. On the GPU machine (which has no jax, and tests/conftest.py
 imports jax) run them with
 
@@ -29,8 +32,9 @@ from silent_speech_tpu_torch.models.bigru import (BiGRUClassifier,
 from silent_speech_tpu_torch.train.step import (make_optimizer,
                                                 smoothed_cross_entropy)
 from silent_speech_tpu_torch.ops import (_kernels, cuda_cnn, cuda_cnn_im2col,
-                                         cuda_cnn_q8, cuda_gru,
-                                         cuda_gru_proto)
+                                         cuda_cnn_q8, cuda_front_probe,
+                                         cuda_gru, cuda_gru_proto,
+                                         cuda_parity_cnn)
 from silent_speech_tpu_torch.ops import gru as gru_ops
 from silent_speech_tpu_torch.ops.nn import gru_dir_init
 
@@ -541,3 +545,158 @@ def test_probe_kernels_refuse_what_they_do_not_take(dev):
     y = cuda_gru_proto.gru_sequence_kstep(xp[:0], lengths[:0], pf["wh"],
                                           pf["bh"])
     assert y.shape == (0, 6, 16)
+
+
+# ---------------------------------------------- the CNN-front prototypes
+
+
+def _parity_inputs(dev, N, kind, seed, const=None):
+    """Class arrays of N frames (the last two all-0 and all-255 when
+    ``const``) and packed or random (unpacked) WE, WO, bias."""
+    rng = np.random.default_rng(seed)
+    roi = rng.integers(0, 256, (N, 48, 96), dtype=np.uint8)
+    if const:
+        roi[-2], roi[-1] = 0, 255
+    if kind == "packed":
+        w = cuda_parity_cnn.pack_parity_conv1(
+            rng.standard_normal((3, 3, 1, 8)).astype(np.float32) * 0.3,
+            rng.standard_normal(8).astype(np.float32) * 0.1)
+    else:
+        w = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+             for s in ((104, 128), (104, 128), (1, 384))]
+    roi = torch.from_numpy(roi).to(dev)
+    return roi, cuda_parity_cnn.split_classes(roi), [t.to(dev) for t in w]
+
+
+def _parity_close(got, ref, kind):
+    """Packed: the scripts' f32 bar 1e-4; random weights (outputs in the
+    thousands): max|err| / max|ref| <= 1e-6."""
+    assert torch.isfinite(got).all()
+    err = (got - ref).abs().max().item()
+    if kind == "packed":
+        assert err <= 1e-4, err
+    else:
+        assert err <= 1e-6 * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("kind", ["packed", "random"])
+@pytest.mark.parametrize("N", [16, 48])
+def test_parity_kernel_matches_plain(dev, N, kind):
+    roi, xs, w = _parity_inputs(dev, N, kind, N, const=True)
+    before = _kernels.launch_counts()
+    halves = cuda_parity_cnn.conv1pool1_parity(*xs, *w)
+    one = cuda_parity_cnn.conv1pool1(*[x.reshape(-1, 96) for x in xs], *w)
+    torch.cuda.synchronize()
+    after = _kernels.launch_counts()
+    assert {n: after[n] - before[n] for n in after
+            if after[n] != before[n]} == {"conv1pool1_parity": 1,
+                                          "conv1pool1": 1}
+    ref = cuda_parity_cnn.parity_halves_plain(xs, *w)
+    for g, r in zip(halves, ref):
+        _parity_close(g, r, kind)
+    _parity_close(one, cuda_parity_cnn.pooled1_from_quadrants(ref, N), kind)
+    assert torch.equal(one, cuda_parity_cnn.pooled1_from_quadrants(
+        halves, N))
+    if kind == "packed":
+        _parity_close(one, cuda_parity_cnn.ref_conv1pool1(
+            roi, *_conv0_of(w, dev)), kind)
+
+
+def _conv0_of(w, dev):
+    """Recover (k, b) from packed WE and bias: WE[dy*34 + dx, co] holds
+    k[dy, dx, 0, co] / 255 (t = 0)."""
+    WE, _, bias = (t.cpu() for t in w)
+    k = torch.stack([torch.stack([WE[dy * 34 + dx, :8] for dx in range(3)])
+                     for dy in range(3)])[:, :, None, :] * 255.0
+    return k.to(dev), bias[0, :8].to(dev)
+
+
+def test_parity_ablation_full_is_the_kernel_bitwise(dev):
+    roi, xs, w = _parity_inputs(dev, 32, "random", 5)
+    flat = [x.reshape(-1, 96) for x in xs]
+    pp = cuda_parity_cnn.conv1pool1_parity(*xs, *w)
+    before = cuda_parity_cnn.ABLATE.launches
+    full = cuda_parity_cnn.run(*flat, *w, mode="full")
+    for mode in ("io_only", "widen_only", "halo_only", "no_dot"):
+        out = cuda_parity_cnn.run(*flat, *w, mode=mode)
+        assert [o.shape for o in out] == [(32 * 12, 384)] * 2
+    torch.cuda.synchronize()
+    assert cuda_parity_cnn.ABLATE.launches == before + 5
+    for a, b in zip(full, pp):
+        assert torch.equal(a, b)
+
+
+def test_parity_kernel_refuses_what_it_does_not_take(dev):
+    _, xs, w = _parity_inputs(dev, 16, "packed", 1)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        cuda_parity_cnn.conv1pool1_parity(*[x[:8] for x in xs], *w)
+    with pytest.raises(ValueError, match="WE"):
+        cuda_parity_cnn.conv1pool1_parity(*xs, w[0].double(), *w[1:])
+    with pytest.raises(ValueError, match="must be on"):
+        cuda_parity_cnn.conv1pool1_parity(*xs, w[0].cpu(), *w[1:])
+    with pytest.raises(ValueError, match="counterpart"):
+        cuda_parity_cnn.run(*[x.reshape(-1, 96) for x in xs], *w,
+                            mode="no_patch")
+
+
+@pytest.mark.parametrize("stage,F", [("dma", 1), ("dma", 2), ("dma", 4),
+                                     ("widen", 1), ("front", 1),
+                                     ("front_std", 1), ("overlap_a", 1),
+                                     ("overlap_b", 1)])
+def test_front_probe_stage_matches_plain(dev, stage, F):
+    rng = np.random.default_rng(F)
+    roi = rng.integers(0, 256, (36, 48, 96), dtype=np.uint8)
+    roi[0], roi[1] = 0, 255
+    x = torch.from_numpy(roi.reshape(-1, 384))
+    if stage == "overlap_b":
+        x = torch.from_numpy(roi[:, 5, :4].copy())
+    before = cuda_front_probe.PROBE.launches
+    got = cuda_front_probe.probe(stage, x.to(dev), F)
+    torch.cuda.synchronize()
+    assert cuda_front_probe.PROBE.launches == before + 1
+    want = cuda_front_probe.probe_plain(stage, x, F)
+    err = (got.cpu().double() - want.double()).abs()
+    assert (err <= cuda_front_probe.bar(stage, x, F).double()).all(), \
+        err.max().item()
+
+
+@pytest.mark.parametrize("standardize", [False, True])
+@pytest.mark.parametrize("stop", ["load", "norm", "conv1", "conv2", "conv3"])
+def test_roi_cnn_debug_stop_matches_plain(dev, stop, standardize):
+    """Each row holds three moments of the stage (sum, sum of squares,
+    index-weighted sum): f32 sums of 4,608 to 10,400 terms against float64,
+    within 1e-5 of each moment's sum of absolute terms."""
+    g = torch.Generator().manual_seed(7)
+    roi = torch.randint(0, 256, (9, 48, 96), generator=g, dtype=torch.uint8)
+    roi = roi.to(dev)
+    p = _cnn_params(dev, 7)
+    before = _kernels.launch_counts()
+    got = cuda_cnn.roi_cnn_fused(roi, p, standardize=standardize,
+                                 debug_stop=stop)
+    torch.cuda.synchronize()
+    after = _kernels.launch_counts()
+    assert {n for n in after if after[n] != before[n]} == {"roi_cnn_debug"}
+    ref = cuda_cnn.roi_cnn_debug_plain(roi, p, standardize, stop)
+    bar = 1e-5 * cuda_cnn.roi_cnn_debug_plain(roi, p, standardize, stop,
+                                              absolute=True)
+    assert torch.isfinite(got).all()
+    assert ((got - ref).abs() <= bar).all(), (got - ref).abs().max().item()
+
+
+@pytest.mark.parametrize("script", ["proto_parity_cnn", "proto_parity_e2e",
+                                    "proto_ablate", "probe_front"])
+def test_cnn_front_script_main_on_the_card(dev, script, capsys):
+    import importlib
+    mod = importlib.import_module(f"silent_speech_tpu_torch.scripts.{script}")
+    _kernels.reset_launch_counts()
+    out = mod.main(["64", "iters=2"])
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    assert out["timer"] == "cuda events" and out["N"] == 64
+    want = {"proto_parity_cnn": ["conv1pool1_parity"],
+            "proto_parity_e2e": ["conv1pool1", "roi_cnn"],
+            "proto_ablate": ["parity_ablate"],
+            "probe_front": ["roi_front_probe", "roi_cnn", "roi_cnn_debug"]}
+    assert all(counts[k] > 0 for k in want[script]), counts
+    assert all(r["ms"] is not None for r in out["rows"]
+               if "no counterpart" not in r.get("note", ""))

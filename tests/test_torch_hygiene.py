@@ -75,7 +75,9 @@ def test_port_source_imports_nothing_of_jax(path):
 
 
 @pytest.mark.parametrize("script", ["bench_gru", "proto_gru2", "proto_gru3",
-                                    "proto_gru4"])
+                                    "proto_gru4", "proto_parity_cnn",
+                                    "proto_parity_e2e", "proto_ablate",
+                                    "probe_front"])
 def test_scripts_subpackage_is_checked(script):
     """The fresh-process import check walks the scripts subpackage, and the
     syntax-tree scan reads its sources."""
