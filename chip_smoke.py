@@ -52,7 +52,16 @@ prints no result line):
    front probe and each of K1's debug stops against its plain version; K1
    itself within its bar; their times, bounds and plain versions' times at
    N=8192; and the main() of proto_parity_cnn, proto_parity_e2e,
-   proto_ablate and probe_front at N=8192, with the launch counts over each.
+   proto_ablate and probe_front at N=8192, with the launch counts over each;
+10. the forward rate probes (silent_speech_tpu_torch/scripts): the
+   matmul-rate kernel (MR) at bench_fused_cnn's six shapes and small ragged
+   ones, the chained-dot kernel (DC) in its four modes at K=384 and 512,
+   and the layout kernel (LP) in its nine bodies, each against its plain
+   version (DC in bf16 also product by product, with two controls that
+   must fail); then the main() of probe_int8, bench_fused_cnn (mxu, main
+   and ftile) and mosaic_micro at full size, with the launch counts over
+   each, whose rows give the kernels' times, bounds (a row above 100% of
+   its bound fails), and the plain versions' and library calls' times.
 
 Then one JSON line with the kernels' results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA device;
@@ -186,6 +195,24 @@ PARITY_MACS = 12 * 4 * 3 * 2 * 102 * 128
 STOP_MACS = {"load": 0, "norm": 0, "conv1": 48 * 96 * 8 * 9,
              "conv2": 48 * 96 * 8 * 9 + 24 * 48 * 16 * 8 * 9,
              "conv3": CNN_FWD_MACS}
+
+# the forward rate probes (silent_speech_tpu_torch/scripts): the JAX
+# scripts' problems, nothing cut; kernel: (source, the TPU kernel's
+# pallas_call, the script whose run counts and times it, the row the
+# kernels line shows first)
+RATE_SCRIPTS = ("probe_int8", "bench_fused_cnn", "mosaic_micro")
+RATE_KERNELS = {
+    "mm_rate": ("mm_rate.cu", "scripts/bench_fused_cnn.py:78",
+                "bench_fused_cnn", "1024x1024x1024"),
+    "dot_chain": ("dot_chain.cu", "scripts/probe_int8.py:97", "probe_int8",
+                  "int8_k512"),
+    "layout_micro": ("layout_micro.cu", "scripts/mosaic_micro.py:34",
+                     "mosaic_micro", "copy"),
+}
+RATE_ITERS = 5
+# the rate probes' small shapes: MR at reps 9 (every r % 8) and grid 2,
+# ragged against the 64 x 64 tile; DC at 3 steps; LP at 2 steps
+RATE_SMALL_MM = ((16, 24, 16), (70, 104, 130), (192, 104, 128))
 
 
 def fail(msg: str):
@@ -1072,6 +1099,144 @@ def run_cnn_front_scripts() -> dict:
     return counts
 
 
+def check_rate_probes(dev) -> dict:
+    """The rate probes' kernels against their plain versions on the card
+    (TF32 off): MR at the six probe shapes (reps 64, grid 64) and at small
+    ragged ones (reps 9, grid 2), within 4 sqrt(reps K) 2^-24 of each
+    element's sum of |terms| (ops/cuda_mm_rate.BAR_DEPTH); DC in every mode
+    at K=384 and 512, 256 steps and 3, its check instantiation's output and
+    moments bitwise for int8 / int8i and within 1e-5 (f32) or 2e-2 (bf16,
+    rounding flips) of each value's sum of |terms|
+    (ops/cuda_dot_chain.compare), in bf16 its traced rows product by
+    product (ops/cuda_dot_chain.check_rounding, with two controls that must
+    fail it: the chain held in f32 and in f16 between products), and the
+    timed instantiation's output bitwise the check instantiation's; LP's
+    nine bodies at 512 steps and 2,
+    bitwise but the product (4 sqrt(512) 2^-24 of each sum of |terms|;
+    scripts/mosaic_micro.check_body), the unaligned body on its written
+    lanes with zeros in the rest. Returns {kernel: {key: value}}; raises on
+    a failure."""
+    from silent_speech_tpu_torch.infer.predictor import full_f32
+    from silent_speech_tpu_torch.ops import cuda_dot_chain as dc
+    from silent_speech_tpu_torch.ops import cuda_layout_micro as lm
+    from silent_speech_tpu_torch.ops import cuda_mm_rate as mr
+    from silent_speech_tpu_torch.scripts import mosaic_micro
+
+    errs = {name: {"max_abs_err": 0.0, "max_share_of_bar": 0.0}
+            for name in RATE_KERNELS}
+
+    def note(name, label, r):
+        e = errs[name]
+        e["max_abs_err"] = max(e["max_abs_err"], r["max_abs_err"])
+        e["max_share_of_bar"] = max(e["max_share_of_bar"], r["share_of_bar"])
+        print(f"  {name} {label}: max difference {r['max_abs_err']:.3e}, "
+              f"{r['share_of_bar']:.3f} of the bar")
+
+    with torch.no_grad(), full_f32():
+        shapes = [(M, K, N, mr.REPS, mr.GRID) for M, K, N, _ in mr.SHAPES]
+        shapes += [(M, K, N, 9, 2) for M, K, N in RATE_SMALL_MM]
+        for M, K, N, reps, grid in shapes:
+            a, b = mr.make_problem(M, K, N, dev)
+            note("mm_rate", f"({M},{K},{N}) reps={reps} grid={grid}",
+                 mr.check(a, b, reps, grid))
+        rng = np.random.default_rng(SEED + 11)
+        for steps in (dc.GRID, 3):
+            x = torch.from_numpy(rng.integers(0, 256, (steps * 8, 128),
+                                              dtype=np.uint8)).to(dev)
+            for K in dc.KS:
+                for mode in dc.MODES:
+                    w = dc.make_weights(mode, K).to(dev)
+                    note("dot_chain", f"{mode} K={K} steps={steps}",
+                         dc.check(x, w, mode))
+                    if mode != "bf16":
+                        continue
+                    for keep in (torch.float32, torch.float16):
+                        bad = dc.rounding_outside(dc.trace_plain(x, w, keep),
+                                                  x, w)
+                        print(f"  dot_chain bf16 K={K} steps={steps}, control"
+                              f" held in {keep}: {bad} traced values outside "
+                              "their windows")
+                        if not bad:
+                            fail(f"dot_chain bf16: the control held in {keep}"
+                                 " passed the rounding check")
+        for steps in (lm.STEPS, 2):
+            x = torch.from_numpy(rng.standard_normal((steps * lm.R, lm.L))
+                                 .astype(np.float32)).to(dev)
+            for body in lm.BODIES:
+                err = mosaic_micro.check_body(body, x)
+                note("layout_micro", f"{body} steps={steps}",
+                     {"max_abs_err": err, "share_of_bar": 0.0})
+            del x
+    return errs
+
+
+def run_rate_probe_scripts(card: str) -> tuple[dict, dict]:
+    """The three rate probes' scripts at their full size (probe_int8: 256
+    steps, K=384 and 512; bench_fused_cnn: its mxu probe, main and ftile at
+    N=8192; mosaic_micro: 512 steps), RATE_ITERS timed calls a row (each
+    checks its kernel against its plain version and raises over its bars;
+    bench_fused_cnn's mxu rows take at most 2); the launch counts from 0
+    over each script's run. Each rate probe row gives its kernel's time,
+    its bound, its plain version's time and its library row (TF32 off);
+    a row above 100% of its bound fails: the bound is the least time the
+    card can take, so a faster row did less work than the function asks.
+    Returns ({script: launch counts}, {kernel: the kernels line's keys and
+    its rows}); raises if a kernel of a script's path was not launched."""
+    import importlib
+
+    from silent_speech_tpu_torch.ops import _kernels
+
+    counts, reports = {}, {}
+    for script in RATE_SCRIPTS:
+        mod = importlib.import_module(
+            f"silent_speech_tpu_torch.scripts.{script}")
+        parts = ([mod.probe_mxu, mod.main, mod.sweep_f_tile]
+                 if script == "bench_fused_cnn" else [mod.main])
+        _kernels.reset_launch_counts()
+        reports[script] = []
+        for part in parts:
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                reports[script].append(part([f"iters={RATE_ITERS}"]))
+            torch.cuda.synchronize()
+            print("".join(f"  | {line}\n" for line in
+                          out.getvalue().splitlines()[:-1]), end="")
+        counts[script] = {k: v for k, v in _kernels.launch_counts().items()
+                          if v}
+        print(f"  {script}: launches over its full-size run {counts[script]}")
+    want = {script: set() for script in RATE_SCRIPTS}
+    for name, (_, _, script, _) in RATE_KERNELS.items():
+        want[script].add(name)
+    want["bench_fused_cnn"] |= {"roi_cnn", "roi_cnn_bf16", "roi_cnn_debug",
+                                "gru_seq"}
+    for script, names in want.items():
+        if any(not counts[script].get(n) for n in names):
+            fail(f"{script}: a kernel of its path was not launched: "
+                 f"{counts[script]}, expected {sorted(names)}")
+
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    rates = {}
+    for name, (_, _, script, first) in RATE_KERNELS.items():
+        rows = {r["name"].removeprefix("mxu_"): r
+                for r in reports[script][0]["rows"]}
+        for key, r in rows.items():
+            share = r["bound_ms"] / r["ms"]
+            r["share_of_bound"] = share
+            print(f"  {name} {key}: {r['ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {share:.1%} of "
+                  f"it; plain {r['plain_ms']:.4f} ms; library "
+                  + ("none: no single call" if r["library_ms"] is None
+                     else f"{r['library_ms']:.4f} ms") + f" {card}")
+            if share > 1.0:
+                fail(f"{name} {key}: {r['ms']:.4f} ms is {share:.1%} of its "
+                     f"bound {r['bound_ms']:.4f} ms: it did less work than "
+                     "the function")
+        rates[name] = {**{k: rows[first][k] for k in keys}, "row": first,
+                       "rows": {k: {c: v for c, v in r.items() if c != "name"}
+                                for k, r in rows.items()}}
+    return counts, rates
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device; this script runs only on a GPU")
@@ -1535,6 +1700,13 @@ def main() -> int:
           f"timed calls a row {card}:")
     front_counts = run_cnn_front_scripts()
 
+    # ---- 10. the forward rate probes: kernels vs plain, timings, scripts
+    print("forward rate probes, kernel vs plain (TF32 off):")
+    rate_errs = check_rate_probes(dev)
+    print(f"forward rate probes, the scripts at full size, {RATE_ITERS} timed "
+          f"calls a row {card}:")
+    rate_counts, rate_ms = run_rate_probe_scripts(card)
+
     result = {"kernels": [
         {"name": "roi_cnn", "route": "cuda",
          "source": "silent_speech_tpu_torch/csrc/roi_cnn.cu",
@@ -1583,6 +1755,12 @@ def main() -> int:
             "source": f"silent_speech_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": front_counts[script][kname],
             **front_errs[kname], **front_ms[kname]})
+    for kname, (source, replaces, script, _) in RATE_KERNELS.items():
+        result["kernels"].append({
+            "name": kname, "route": "cuda",
+            "source": f"silent_speech_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": rate_counts[script][kname],
+            **rate_errs[kname], **rate_ms[kname]})
     print(json.dumps(result))
     print(smi)
     print(json.dumps({"ok": True, "device": {

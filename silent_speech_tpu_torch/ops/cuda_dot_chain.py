@@ -1,0 +1,414 @@
+"""The chained-dot rate probe's kernel (csrc/dot_chain.cu) and its plain
+PyTorch version: the port of the Pallas kernel of scripts/probe_int8.py
+(``_kernel``, built by ``build``).
+
+Each of ``steps`` grid steps takes the sum of its (8, 128) uint8 block of
+``x`` as a seed, runs a serial chain of :data:`DEPTH` products ``y <- y W``
+with y (384, K) and W (K, K), and writes one value, the sum of
+``y[0, 0:128]``, over its (8, 128) output block. The modes (:data:`MODES`):
+
+- ``f32``: y0 = f32(seed) * 1e-6, f32 products;
+- ``bf16``: y0 and each product's f32 sum rounded to bf16;
+- ``int8``: y0 = s8(seed & 63); s8 x s8 -> s32 products, then ``>> 7``
+  (arithmetic) and a wrap to s8 modulo 256, as XLA's convert does;
+- ``int8i``: 14 independent s8 products of ``base + d`` (base = s8(seed &
+  63), d < 14) with W, summed in s32.
+
+**Defined weights.** The TPU kernel's W is a VMEM scratch that is never
+written (probe_int8.py:105), so its output is undefined. The port takes W
+as an input: :func:`make_weights` draws it as the port's scripts use it
+(``default_rng(1)``: standard normal / sqrt(K) for ``f32``, the same
+rounded to bf16 for ``bf16``, integers in [-128, 128) for the int modes).
+
+**The output sum.** The int modes' sum of the 128 integers is taken
+exactly and rounded once to f32 (the TPU's f32 sum of them is exact while
+it stays under 2^24; this sum also when it does not).
+
+**Checks.** Every row of y is the same by construction, so the output
+alone says little. ``check=True`` launches a check instantiation that also
+returns the three moments of each step's final y (:func:`chain_moments`:
+the sum, the sum of squares and the sum weighted by ``i % 31``, i the
+row-major index in the step's (384, K) y): float64 for the float modes,
+int64 sums modulo 2^64 for the int modes, which any summation order gives
+bitwise. In ``bf16`` it also returns a trace, one row of each 64-row tile
+after each product, which :func:`check_rounding` holds product by product
+against the bf16 rounding of the exact product of the row before. The
+timed instantiation writes only the TPU kernel's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import _kernels
+
+GRID, DEPTH, M = 256, 14, 384  # probe_int8.py:51-53
+KS = (384, 512)
+MODES = ("f32", "bf16", "int8", "int8i")
+_MODE_CODE = {m: i for i, m in enumerate(MODES)}
+TM = 64    # csrc/dot_chain.cu: a block's rows
+TILES = M // TM
+TRACE_STRIDE = 13  # the traced row of tile t: 13 t % TM
+POS_PERIOD = 31
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+KERNEL = _kernels.Kernel(
+    "dot_chain", "dot_chain",
+    [_P, _P, _P, _P, _P, _P,      # x, packed W, out, moments, trace, sink
+     _I, _I, _I, _I, _P])         # sink_at, steps, K, mode, stream
+
+
+def _check_mode(mode: str, K: int) -> None:
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; the probe has {MODES}")
+    if K < 1:
+        raise ValueError(f"K must be positive, got {K}")
+
+
+def make_weights(mode: str, K: int) -> torch.Tensor:
+    """The port's W for ``mode`` (module docstring): f32 (K, K) for f32
+    and bf16 (bf16 values held in f32), int8 (K, K) for the int modes."""
+    _check_mode(mode, K)
+    rng = np.random.default_rng(1)
+    if mode.startswith("int8"):
+        return torch.from_numpy(rng.integers(-128, 128, (K, K),
+                                             dtype=np.int8))
+    w = torch.from_numpy((rng.standard_normal((K, K)) / np.sqrt(K))
+                         .astype(np.float32))
+    return w.to(torch.bfloat16).float() if mode == "bf16" else w
+
+
+def pack_weights(w: torch.Tensor, mode: str) -> torch.Tensor:
+    """W as the kernel reads it: f32 k-major for ``f32``; W transposed
+    (n-major) in bf16 or int8 for the tensor-core modes."""
+    if mode == "f32":
+        return w.to(torch.float32).contiguous()
+    dtype = torch.bfloat16 if mode == "bf16" else torch.int8
+    return w.t().to(dtype).contiguous()
+
+
+def _steps(x: torch.Tensor) -> int:
+    if x.dtype != torch.uint8 or x.ndim != 2 or x.shape[1] != 128 \
+            or x.shape[0] % 8:
+        raise ValueError(f"x must be (steps * 8, 128) uint8, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    return x.shape[0] // 8
+
+
+def _check_w(w: torch.Tensor, mode: str) -> int:
+    K = w.shape[0]
+    _check_mode(mode, K)
+    want = torch.int8 if mode.startswith("int8") else torch.float32
+    if w.ndim != 2 or w.shape[1] != K or w.dtype != want:
+        raise ValueError(f"w must be (K, K) {want} for mode {mode!r}, got "
+                         f"{tuple(w.shape)} {w.dtype}")
+    return K
+
+
+def seeds(x: torch.Tensor) -> torch.Tensor:
+    """(steps,) int64: the sum of each step's 1,024 bytes."""
+    steps = _steps(x)
+    return x.reshape(steps, 8 * 128).to(torch.int64).sum(dim=1)
+
+
+def _y0(s: torch.Tensor, mode: str) -> torch.Tensor:
+    """The float modes' first y value of each step, f32 (bf16 values in
+    bf16 mode)."""
+    y0 = s.to(torch.float32) * torch.tensor(1e-6, dtype=torch.float32)
+    return _round_bf16(y0) if mode == "bf16" else y0
+
+
+def chain_plain(x: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
+    """The plain version of the chain: (steps, 384, K) final y, f32 for the
+    float modes (bf16 values held in f32), int64 for the int modes (int8:
+    the s8 values; int8i: the s32 sums). f32 products run with the
+    caller's TF32 setting (the port's callers turn it off); the bf16 mode
+    multiplies bf16 values in f32 (exact products, f32 sums) and rounds
+    each product to bf16; the int modes multiply exactly in float64 (every
+    sum is an integer under 2^53)."""
+    K = _check_w(w, mode)
+    s = seeds(x)
+    steps = s.shape[0]
+    shape = (steps * M, K)
+    if mode in ("f32", "bf16"):
+        y = _y0(s, mode).to(x.device)[:, None].expand(steps, M * K) \
+            .reshape(shape)
+        wf = w.to(device=x.device, dtype=torch.float32)
+        if mode == "bf16":
+            wf = _round_bf16(wf)
+        for _ in range(DEPTH):
+            y = y @ wf
+            if mode == "bf16":
+                y = _round_bf16(y)
+        return y.reshape(steps, M, K)
+    wd = w.to(device=x.device, dtype=torch.float64)
+    base = (s & 63).to(x.device)
+    if mode == "int8":
+        y = base.to(torch.int8)[:, None].expand(steps, M * K).reshape(shape)
+        for _ in range(DEPTH):
+            acc = (y.to(torch.float64) @ wd).to(torch.int64)
+            y = (acc >> 7).to(torch.int8)  # a wrap modulo 256
+        return y.to(torch.int64).reshape(steps, M, K)
+    acc = torch.zeros(shape, dtype=torch.float64, device=x.device)
+    for d in range(DEPTH):
+        xd = (base + d).to(torch.int8)[:, None].expand(steps, M * K)
+        acc += xd.reshape(shape).to(torch.float64) @ wd
+    return acc.to(torch.int64).reshape(steps, M, K)
+
+
+def _round_bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def trace_plain(x: torch.Tensor, w: torch.Tensor,
+                keep: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The bf16 chain's trace as the check instantiation writes it:
+    (steps, TILES, DEPTH, K) bf16, the traced row of each tile after each
+    product (every row of y is the same, so one row a step is computed).
+    ``keep`` is the type y is held in between products: bf16 for the plain
+    version; f32 or f16 give a chain that rounds other than the probe's,
+    the controls that :func:`check_rounding` must fail."""
+    K = _check_w(w, "bf16")
+    s = seeds(x)
+    y = _y0(s, "bf16").to(x.device)[:, None].expand(-1, K)
+    wf = _round_bf16(w.to(device=x.device, dtype=torch.float32))
+    rows = []
+    for _ in range(DEPTH):
+        y = (y @ wf).to(keep).to(torch.float32)
+        rows.append(y.to(torch.bfloat16))
+    return torch.stack(rows, dim=1)[:, None].expand(-1, TILES, -1, -1)
+
+
+def output_of(y: torch.Tensor) -> torch.Tensor:
+    """The TPU kernel's output from the final y: (steps, 8, 128) f32, each
+    block the sum of y[0, 0:128] (int: exact, then rounded to f32)."""
+    row = y[:, 0, :128]
+    s = row.sum(dim=1).to(torch.float32)
+    return s[:, None, None].expand(-1, 8, 128).contiguous()
+
+
+def chain_moments(y: torch.Tensor) -> torch.Tensor:
+    """(steps, 3) moments of each step's final y (module docstring):
+    float64 for float y, int64 modulo 2^64 for integer y."""
+    steps = y.shape[0]
+    flat = y.reshape(steps, -1)
+    idx = torch.arange(flat.shape[1], device=y.device) % POS_PERIOD
+    v = flat.to(torch.int64 if not y.is_floating_point() else torch.float64)
+    return torch.stack([v.sum(dim=1), (v * v).sum(dim=1),
+                        (v * idx).sum(dim=1)], dim=1)
+
+
+def dot_chain(x: torch.Tensor, w: torch.Tensor, mode: str, *,
+              impl: str = "auto", packed: Optional[torch.Tensor] = None,
+              check: bool = False):
+    """probe_int8's kernel (``build(mode, K)`` called on x): x (steps * 8,
+    128) uint8, w (K, K) f32 (f32, bf16) or int8 (int8, int8i), K 384 or 512
+    for the kernel. Returns the (steps, 8, 128) f32 output, or with
+    ``check`` the triple (output, :func:`chain_moments` of the final y, the
+    trace of :func:`trace_plain` in bf16 and None in the other modes).
+
+    ``packed`` is :func:`pack_weights` of ``w``, built once by the caller;
+    without it every launch packs anew. ``impl`` as in ``ops._kernels``."""
+    K = _check_w(w, mode)
+    steps = _steps(x)
+    if not _kernels.use_kernel(impl, x):
+        y = chain_plain(x, w, mode)
+        out = output_of(y)
+        if not check:
+            return out
+        return out, chain_moments(y), \
+            trace_plain(x, w) if mode == "bf16" else None
+    if K not in KS:
+        raise ValueError(f"the kernel takes K in {KS}, got {K}")
+    if packed is None:
+        packed = pack_weights(w, mode)
+    want = {"f32": torch.float32, "bf16": torch.bfloat16}.get(mode,
+                                                             torch.int8)
+    if packed.shape != (K, K) or packed.dtype != want or \
+            packed.device != x.device or not packed.is_contiguous():
+        raise ValueError(f"packed must be pack_weights(w, {mode!r}) on "
+                         f"{x.device}")
+    if not x.is_contiguous() or x.data_ptr() % 16 or packed.data_ptr() % 16:
+        raise ValueError("x and packed must be contiguous and 16-byte "
+                         "aligned")
+    out = torch.empty((steps, 8, 128), dtype=torch.float32, device=x.device)
+    mom = None
+    if check:
+        mom = torch.empty((steps, TILES, 3), device=x.device,
+                          dtype=torch.int64 if mode.startswith("int8")
+                          else torch.float64)
+    trace = None
+    if check and mode == "bf16":
+        trace = torch.empty((steps, TILES, DEPTH, K), dtype=torch.bfloat16,
+                            device=x.device)
+    null = ctypes.c_void_p(0)
+    sink = torch.zeros(1, dtype=torch.float32, device=x.device)
+    if steps:
+        KERNEL.launch(_kernels.ptr(x), _kernels.ptr(packed),
+                      _kernels.ptr(out), _kernels.ptr(mom) if check else null,
+                      null if trace is None else _kernels.ptr(trace),
+                      _kernels.ptr(sink), -1, steps, K, _MODE_CODE[mode],
+                      _kernels.stream_ptr(x.device))
+    if not check:
+        return out
+    return out, mom.sum(dim=1), trace
+
+
+def macs(steps: int, K: int) -> int:
+    """Multiply-adds of one call: steps * 14 * 384 * K^2."""
+    return steps * DEPTH * M * K * K
+
+
+def bytes_moved(steps: int, K: int, mode: str) -> int:
+    """Bytes a call must move: x read (1,024 a step), the (8, 128) f32
+    output written a step, and the packed W read once."""
+    esize = {"f32": 4, "bf16": 2}.get(mode, 1)
+    return steps * 1024 + steps * 4096 + K * K * esize
+
+
+def library(x: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
+    """The same chain as 14 library GEMMs of (steps * 384, K) x (K, K), W
+    shared by every step: ``torch.matmul`` in f32 (with the caller's TF32
+    setting) and in bf16, ``torch._int_mm`` for s8 with the re-narrowing
+    between calls as torch ops. Returns the final y as :func:`chain_plain`
+    does. A yardstick timed beside the kernel on the card; the port's path
+    does not call it."""
+    K = _check_w(w, mode)
+    s = seeds(x)
+    steps = s.shape[0]
+    shape = (steps * M, K)
+    if mode in ("f32", "bf16"):
+        dt = torch.float32 if mode == "f32" else torch.bfloat16
+        y0 = (s.to(torch.float32) * torch.tensor(1e-6)).to(dt)
+        y = y0[:, None].expand(steps, M * K).reshape(shape)
+        wd = w.to(dt)
+        for _ in range(DEPTH):
+            y = torch.matmul(y, wd)
+        return y.float().reshape(steps, M, K)
+    base = (s & 63).to(torch.int8)
+    if mode == "int8":
+        y = base[:, None].expand(steps, M * K).reshape(shape)
+        for _ in range(DEPTH):
+            y = (torch._int_mm(y, w) >> 7).to(torch.int8)
+        return y.to(torch.int64).reshape(steps, M, K)
+    acc = torch.zeros(shape, dtype=torch.int32, device=x.device)
+    for d in range(DEPTH):
+        xd = (base + d)[:, None].expand(steps, M * K).reshape(shape)
+        acc += torch._int_mm(xd, w)
+    return acc.to(torch.int64).reshape(steps, M, K)
+
+
+# kernel vs plain, each value (the output, each moment) against its sum of
+# |terms|, in float64. f32: each product sums K terms in f32 in another
+# order than the plain version's (about sqrt(K) 2^-24 = 1.3e-6 of the row's
+# norm at K=512), and W's gain (about 1: W ~ N(0, 1/K)) carries it through
+# 14 products: 1e-5. bf16: two sound chains agree bitwise until their f32
+# sums, taken in other orders, put one value on the other side of a bf16
+# rounding boundary (one flip, one bf16 step apart). From that product on,
+# W (gain about 1) spreads the flip over the row and the next roundings
+# differ in the two: each product adds at most half a bf16 step (2^-8 of a
+# value) of rounding noise of its own, so after the at most 14 products
+# left a value differs by about sqrt(14) 2^-8 = 1.5e-2 of its magnitude,
+# and a moment by no more of its sum of |terms|: 2e-2. That bar holds the
+# placement and the scale of every row; a chain that skips the rounding
+# stays under it too, so the bf16 rounding itself is held product by
+# product on the traced rows (:func:`check_rounding`). int8, int8i: exact,
+# bitwise.
+BAR_F32, BAR_BF16 = 1e-5, 2e-2
+# check_rounding: a bf16 y value is the bf16 rounding of an f32 sum of its
+# K products (bf16 x bf16 is exact in f32). Any order of the K - 1 adds,
+# each off by at most 2^-23 of a partial sum even where it truncates, lands
+# within K 2^-23 of the terms' sum of |terms| from the exact sum; the
+# window is twice that, and rounding is monotone, so a sound chain's every
+# value lies between the bf16 roundings of its window's ends.
+ROUND_SLACK = 2
+
+
+def compare(out: torch.Tensor, mom: torch.Tensor, y: torch.Tensor,
+            mode: str) -> dict:
+    """A kernel's output and moments against those of the plain final y
+    (:func:`chain_plain`): the largest difference and the largest share of
+    the bar (int modes: bitwise, share 0 or inf). Raises over the bar."""
+    want_out, want_mom = output_of(y), chain_moments(y)
+    if out.shape != want_out.shape or mom.shape != want_mom.shape:
+        raise RuntimeError(f"dot_chain {mode}: shapes {tuple(out.shape)}, "
+                           f"{tuple(mom.shape)} off the plain version's")
+    err = max((out.double() - want_out.double()).abs().max().item(),
+              (mom.double() - want_mom.double()).abs().max().item())
+    if mode.startswith("int8"):
+        share = 0.0 if torch.equal(out, want_out) and \
+            torch.equal(mom, want_mom) else float("inf")
+        rel = 0.0
+    else:
+        rel = BAR_F32 if mode == "f32" else BAR_BF16
+        bar_out = rel * y[:, 0, :128].double().abs().sum(dim=1)
+        bar_mom = rel * chain_moments(y.abs())
+        e_out = (out.double() - want_out.double()).abs().amax(dim=(1, 2))
+        e_mom = (mom - want_mom).abs()
+        share = max((e_out / bar_out.clamp(min=1e-300)).max().item(),
+                    (e_mom / bar_mom.clamp(min=1e-300)).max().item())
+    if not (torch.isfinite(out).all() and share <= 1.0):
+        raise RuntimeError(f"dot_chain {mode} K={y.shape[2]}: off the plain "
+                           f"version (largest difference {err:.3e}; bar: "
+                           f"{rel:g} of each value's sum of |terms|, 0 for "
+                           f"the int modes)")
+    return {"max_abs_err": err, "share_of_bar": share}
+
+
+def rounding_outside(trace: torch.Tensor, x: torch.Tensor,
+                     w: torch.Tensor) -> int:
+    """The bf16 chain's trace (:func:`dot_chain` with ``check``, or
+    :func:`trace_plain`) product by product: the number of traced values
+    (or non-finite ones) outside the bf16 roundings of the ends of their
+    window, the exact product of the row before (the step's first y before
+    the first product) within ``ROUND_SLACK K 2^-23`` of its sum of
+    |terms|. 0 for a sound chain."""
+    K = _check_w(w, "bf16")
+    s = seeds(x)
+    if trace.shape != (s.shape[0], TILES, DEPTH, K) or \
+            trace.dtype != torch.bfloat16:
+        raise ValueError(f"trace must be ({s.shape[0]}, {TILES}, {DEPTH}, "
+                         f"{K}) bf16, got {tuple(trace.shape)} {trace.dtype}")
+    y0 = _y0(s, "bf16").to(device=trace.device, dtype=torch.float64)
+    prev = torch.cat([y0[:, None, None, None].expand(-1, TILES, 1, K),
+                      trace[:, :, :-1].to(torch.float64)], dim=2)
+    wd = _round_bf16(w.to(device=trace.device, dtype=torch.float32)).double()
+    z = prev @ wd
+    e = ROUND_SLACK * K * 2.0 ** -23 * (prev.abs() @ wd.abs())
+    lo, hi = _round_bf16((z - e).float()), _round_bf16((z + e).float())
+    v = trace.float()
+    return int(((v < lo) | (v > hi) | ~torch.isfinite(v)).sum().item())
+
+
+def check_rounding(trace: torch.Tensor, x: torch.Tensor,
+                   w: torch.Tensor) -> None:
+    """Raises if a traced value is not a bf16 rounding of its product
+    (:func:`rounding_outside`)."""
+    outside = rounding_outside(trace, x, w)
+    if outside:
+        raise RuntimeError(
+            f"dot_chain bf16: {outside} of {trace.numel()} traced values are "
+            "not a bf16 rounding of their product's f32 sum (off the plain "
+            "version)")
+
+
+def check(x: torch.Tensor, w: torch.Tensor, mode: str, *,
+          packed: Optional[torch.Tensor] = None) -> dict:
+    """The kernel against the plain version on x's device: the check
+    instantiation's output and moments (:func:`compare`) and, in bf16, its
+    trace (:func:`check_rounding`); then the timed instantiation's output,
+    which must be bitwise the check instantiation's."""
+    out, mom, trace = dot_chain(x, w, mode, impl="kernel", packed=packed,
+                                check=True)
+    r = compare(out, mom, chain_plain(x, w.to(x.device), mode), mode)
+    if trace is not None:
+        check_rounding(trace, x, w)
+    timed = dot_chain(x, w, mode, impl="kernel", packed=packed)
+    if not torch.equal(timed, out):
+        raise RuntimeError(f"dot_chain {mode}: the timed instantiation's "
+                           "output is not bitwise the check instantiation's")
+    return r

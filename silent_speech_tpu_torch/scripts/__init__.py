@@ -16,12 +16,25 @@ proto_parity_e2e  the whole ROI CNN with the parity kernel in front and a
 proto_ablate the parity kernel's stages timed one by one
 probe_front  K1's input front as a ladder of micro-kernels, frames a block,
              the front beside K1-sized arithmetic, and K1's debug stops
+probe_int8   a serial chain of 14 (384, K) x (K, K) products a step in f32,
+             bf16 and int8 (tensor cores for the last two), K 384 and 512
+bench_fused_cnn  the matmul rate at K1's packed shapes (``mxu``), K1
+             against the plain CNN with K1's debug stops and the live
+             forward (``main``), and the f_tile sweep (``ftile``, which
+             has no counterpart on the card and says so)
+mosaic_micro nine layout primitives on (768, 768) f32 blocks: copies,
+             rolls and maxes, strided rows, the transpose, lane slices, a
+             product beside a copy
 
 The GRU probes run as ``python -m silent_speech_tpu_torch.scripts.<name>
 [B] [T] [device=cuda] [iters=100]`` (B=512, T=32 by default) and print one
 row a variant (ms, speedup over the table's first row, max abs error
 against the plain scan); the CNN-front probes as ``... [N] [device=cuda]
 [iters=30]`` (N=8192 frames by default, a multiple of 16) and print one row
-a variant (ms, the kernel's device time, max abs error). All run on the
-card unless ``device=cpu`` is given, and end with one JSON line.
+a variant (ms, the kernel's device time, max abs error); the rate probes
+as ``... [STEPS] [device=cuda] [iters=N]`` (probe_int8: 256 steps at
+K=384 and 512; mosaic_micro: 512 steps; bench_fused_cnn: ``[mxu|ftile]
+[N] ...``, N=8192 frames) and print one row a mode, shape or body (ms,
+rate, share of the card's bound, the plain version's time). All run on the card
+unless ``device=cpu`` is given, and end with one JSON line.
 """

@@ -40,6 +40,21 @@ from .bench_gru import device_name, time_ms
 N_FRAMES = 8192
 ITERS = 30
 TOL = 1e-4  # proto_parity_cnn.py:223 and proto_parity_e2e.py:165, f32
+# H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit), the rate
+# probes' bounds: operations a second by type (an FMA or a multiply-add is
+# two), and HBM bytes a second
+PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+PEAK_BYTES_S = 3.35e12
+
+
+def bound_ms(macs: float, nbytes: float, kind: str = "f32"
+             ) -> tuple[float, str]:
+    """The least time for the work on the card, and what sets it: the
+    larger of 2 * macs over the peak for ``kind`` and the bytes over the
+    memory rate."""
+    t_ops = 2 * macs / PEAK_OPS[kind] * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 class Args(NamedTuple):
@@ -48,8 +63,10 @@ class Args(NamedTuple):
     iters: int
 
 
-def parse_args(argv: Sequence[str], what: str) -> Args:
-    """``[N] [device=cuda] [iters=30]``."""
+def parse_args(argv: Sequence[str], what: str, n_default: int = N_FRAMES,
+               n_step: int = pc.F_STEP, iters_default: int = ITERS) -> Args:
+    """``[N] [device=cuda] [iters=30]``: N frames (or the script's own
+    count, ``n_default``), a positive multiple of ``n_step``."""
     pos = [a for a in argv if "=" not in a]
     kw = dict(a.split("=", 1) for a in argv if "=" in a)
     if len(pos) > 1 or set(kw) - {"device", "iters"}:
@@ -59,10 +76,10 @@ def parse_args(argv: Sequence[str], what: str) -> Args:
         raise RuntimeError(
             f"no CUDA device: {what} measures the card; pass device=cpu to "
             "run the plain versions on the CPU")
-    N = int(pos[0]) if pos else N_FRAMES
-    if N < pc.F_STEP or N % pc.F_STEP:
-        raise SystemExit(f"N={N}: a positive multiple of {pc.F_STEP} frames")
-    return Args(N, device, int(kw.get("iters", ITERS)))
+    N = int(pos[0]) if pos else n_default
+    if N < n_step or N % n_step:
+        raise SystemExit(f"N={N}: a positive multiple of {n_step}")
+    return Args(N, device, int(kw.get("iters", iters_default)))
 
 
 def header(args: Args, what: str) -> None:
@@ -109,6 +126,14 @@ def device_ms(fn: Callable, args: Args, cold: bool = False
     return _held_ms(lambda: (flush(), fn()), args) - _held_ms(flush, args)
 
 
+def timed_ms(fn: Callable, args: Args, cold: bool = False) -> float:
+    """A call's ms: on the card its device time (:func:`device_ms`), on
+    the CPU the host clock (a check of the code, not a measurement)."""
+    if args.device.type == "cuda":
+        return device_ms(fn, args, cold)
+    return time_ms(fn, args.iters, args.device)
+
+
 def row(name: str, fn: Callable, args: Args, err: Optional[float] = None,
         cold: bool = False) -> dict:
     """Time ``fn`` and print one row. ``ms``: on the card the device time of
@@ -116,8 +141,7 @@ def row(name: str, fn: Callable, args: Args, err: Optional[float] = None,
     for a row bound by the bytes from device memory), on the CPU the host
     clock (a check of the code, not a measurement). ``err`` is its error
     against the table's reference (None: not compared)."""
-    ms = device_ms(fn, args, cold) if args.device.type == "cuda" \
-        else time_ms(fn, args.iters, args.device)
+    ms = timed_ms(fn, args, cold)
     tail = "" if err is None else f"  err={err:.2e}"
     print(f"{name:>34s}: {ms:9.4f} ms{tail}", flush=True)
     return {"name": name, "ms": ms, "max_abs_err": err}

@@ -13,7 +13,11 @@ bf16, their launch counts, their independence of the knobs and the inputs
 they refuse; the CNN-front prototypes' kernels (the parity conv1 + pool1
 kernel in both layouts and its ablation stops, the front probe's stages,
 K1's debug stops) against their plain versions, and the four scripts' main
-at N=64. Every test needs
+at N=64; the forward rate probes' kernels (the matmul-rate kernel at small
+ragged shapes, the chained-dot kernel in every mode at K=384 and 512, the
+layout kernel in every body) against their plain versions, their launch
+counts, the inputs they refuse, and the three scripts' main at small
+sizes. Every test needs
 a CUDA device and skips without one. On the GPU machine (which has no jax, and tests/conftest.py
 imports jax) run them with
 
@@ -32,9 +36,10 @@ from silent_speech_tpu_torch.models.bigru import (BiGRUClassifier,
 from silent_speech_tpu_torch.train.step import (make_optimizer,
                                                 smoothed_cross_entropy)
 from silent_speech_tpu_torch.ops import (_kernels, cuda_cnn, cuda_cnn_im2col,
-                                         cuda_cnn_q8, cuda_front_probe,
-                                         cuda_gru, cuda_gru_proto,
-                                         cuda_parity_cnn)
+                                         cuda_cnn_q8, cuda_dot_chain,
+                                         cuda_front_probe, cuda_gru,
+                                         cuda_gru_proto, cuda_layout_micro,
+                                         cuda_mm_rate, cuda_parity_cnn)
 from silent_speech_tpu_torch.ops import gru as gru_ops
 from silent_speech_tpu_torch.ops.nn import gru_dir_init
 
@@ -700,3 +705,94 @@ def test_cnn_front_script_main_on_the_card(dev, script, capsys):
     assert all(counts[k] > 0 for k in want[script]), counts
     assert all(r["ms"] is not None for r in out["rows"]
                if "no counterpart" not in r.get("note", ""))
+
+
+# ------------------------------------------------ the forward rate probes
+
+
+@pytest.mark.parametrize("M,K,N,reps,grid", [
+    (16, 24, 16, 9, 2), (70, 104, 130, 9, 2), (1, 8, 1, 1, 1),
+    (192, 104, 128, 64, 3)])
+def test_mm_rate_kernel_matches_plain(dev, M, K, N, reps, grid):
+    a, b = cuda_mm_rate.make_problem(M, K, N, dev)
+    before = cuda_mm_rate.KERNEL.launches
+    r = cuda_mm_rate.check(a, b, reps, grid)
+    torch.cuda.synchronize()
+    assert cuda_mm_rate.KERNEL.launches == before + 1
+    assert r["share_of_bar"] <= 1.0
+
+
+@pytest.mark.parametrize("mode", cuda_dot_chain.MODES)
+@pytest.mark.parametrize("K", cuda_dot_chain.KS)
+def test_dot_chain_kernel_matches_plain(dev, mode, K):
+    rng = np.random.default_rng(K)
+    x = torch.from_numpy(rng.integers(0, 256, (3 * 8, 128),
+                                      dtype=np.uint8)).to(dev)
+    x[:8] = 255  # the largest seed
+    w = cuda_dot_chain.make_weights(mode, K).to(dev)
+    before = cuda_dot_chain.KERNEL.launches
+    cuda_dot_chain.check(x, w, mode)  # the check and timed instantiations
+    torch.cuda.synchronize()
+    assert cuda_dot_chain.KERNEL.launches == before + 2
+    timed = cuda_dot_chain.dot_chain(x, w, mode)
+    want = cuda_dot_chain.output_of(cuda_dot_chain.chain_plain(x, w, mode))
+    if mode.startswith("int8"):
+        assert torch.equal(timed, want)
+    if mode == "bf16":  # chains held in f32 or f16 fail the rounding check
+        for keep in (torch.float32, torch.float16):
+            assert cuda_dot_chain.rounding_outside(
+                cuda_dot_chain.trace_plain(x, w, keep), x, w) > 0
+
+
+def test_rate_probe_kernels_refuse_what_they_do_not_take(dev):
+    x = torch.zeros((16, 128), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="K in"):
+        cuda_dot_chain.dot_chain(x, cuda_dot_chain.make_weights(
+            "f32", 256).to(dev), "f32")
+    w = cuda_dot_chain.make_weights("int8", 384).to(dev)
+    with pytest.raises(ValueError, match="packed"):
+        cuda_dot_chain.dot_chain(x, w, "int8", packed=w.float())
+    with pytest.raises(ValueError, match="uint8"):
+        cuda_dot_chain.dot_chain(x[:, :64], w, "int8")
+    a, b = cuda_mm_rate.make_problem(8, 16, 8, dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_mm_rate.mm_rate(a.t(), b[:8].t().contiguous())
+    xs = torch.zeros((768, 768), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_layout_micro.layout("copy", xs.t())
+    with pytest.raises(ValueError, match="unknown body"):
+        cuda_layout_micro.layout("gather", xs)
+
+
+@pytest.mark.parametrize("body", cuda_layout_micro.BODIES)
+def test_layout_kernel_matches_plain(dev, body):
+    from silent_speech_tpu_torch.scripts import mosaic_micro
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2 * 768, 768)).astype(np.float32)).to(dev)
+    before = cuda_layout_micro.KERNEL.launches
+    mosaic_micro.check_body(body, x)
+    torch.cuda.synchronize()
+    assert cuda_layout_micro.KERNEL.launches == before + 1
+
+
+@pytest.mark.parametrize("script,argv,want", [
+    ("probe_int8", ["2", "iters=2"], ["dot_chain"]),
+    ("mosaic_micro", ["2", "iters=2"], ["layout_micro"]),
+    ("bench_fused_cnn", ["64", "iters=2"],
+     ["mm_rate", "roi_cnn", "roi_cnn_bf16", "roi_cnn_debug", "gru_seq"])])
+def test_rate_probe_script_main_on_the_card(dev, script, argv, want,
+                                            monkeypatch):
+    import importlib
+    mod = importlib.import_module(f"silent_speech_tpu_torch.scripts.{script}")
+    monkeypatch.setattr(cuda_mm_rate, "REPS", 2)  # the mxu probe, cut
+    monkeypatch.setattr(cuda_mm_rate, "GRID", 2)
+    _kernels.reset_launch_counts()
+    parts = [mod.probe_mxu, mod.main] if script == "bench_fused_cnn" \
+        else [mod.main]
+    outs = [part(argv) for part in parts]
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    assert all(counts[k] > 0 for k in want), counts
+    assert all(o["timer"] == "cuda events" for o in outs)
+    assert all(r["ms"] > 0 for o in outs for r in o["rows"]
+               if r["ms"] is not None)

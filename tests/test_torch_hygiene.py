@@ -25,8 +25,9 @@ from silent_speech_tpu_torch.infer.predictor import Predictor
 from silent_speech_tpu_torch.models.bigru import (BiGRUClassifier,
                                                   BiGRUConfig, init_params)
 import silent_speech_tpu_torch
-from silent_speech_tpu_torch.ops import (_kernels, cuda_cnn, cuda_gru,
-                                         cuda_gru_proto)
+from silent_speech_tpu_torch.ops import (_kernels, cuda_cnn, cuda_dot_chain,
+                                         cuda_gru, cuda_gru_proto,
+                                         cuda_layout_micro, cuda_mm_rate)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -77,7 +78,8 @@ def test_port_source_imports_nothing_of_jax(path):
 @pytest.mark.parametrize("script", ["bench_gru", "proto_gru2", "proto_gru3",
                                     "proto_gru4", "proto_parity_cnn",
                                     "proto_parity_e2e", "proto_ablate",
-                                    "probe_front"])
+                                    "probe_front", "probe_int8",
+                                    "bench_fused_cnn", "mosaic_micro"])
 def test_scripts_subpackage_is_checked(script):
     """The fresh-process import check walks the scripts subpackage, and the
     syntax-tree scan reads its sources."""
@@ -116,7 +118,8 @@ def test_kernel_impl_on_cpu_tensor_raises():
                            impl="pallas")
 
 
-@pytest.mark.parametrize("wrapper", ["kstep", "kstep_2w", "dual"])
+@pytest.mark.parametrize("wrapper", ["kstep", "kstep_2w", "dual", "mm_rate",
+                                     "dot_chain", "layout_micro"])
 def test_probe_kernel_impl_on_cpu_tensor_raises(wrapper):
     H = 8
     xp, lengths = torch.zeros((2, 3, 3 * H)), torch.tensor([3, 1])
@@ -129,7 +132,14 @@ def test_probe_kernel_impl_on_cpu_tensor_raises(wrapper):
                 xp, lengths, wh[None].expand(2, -1, -1),
                 bh[None].expand(2, -1), impl="kernel"),
             "dual": lambda: cuda_gru_proto.gru_layer_dual(
-                x, x, lengths, p, p, impl="kernel")}[wrapper]
+                x, x, lengths, p, p, impl="kernel"),
+            "mm_rate": lambda: cuda_mm_rate.mm_rate(
+                torch.zeros((4, 8)), torch.zeros((8, 4)), impl="kernel"),
+            "dot_chain": lambda: cuda_dot_chain.dot_chain(
+                torch.zeros((8, 128), dtype=torch.uint8),
+                torch.zeros((384, 384)), "f32", impl="kernel"),
+            "layout_micro": lambda: cuda_layout_micro.layout(
+                "copy", torch.zeros((768, 768)), impl="kernel")}[wrapper]
     with pytest.raises(ValueError, match="CUDA tensor"):
         call()
 
