@@ -61,7 +61,16 @@ prints no result line):
    must fail); then the main() of probe_int8, bench_fused_cnn (mxu, main
    and ftile) and mosaic_micro at full size, with the launch counts over
    each, whose rows give the kernels' times, bounds (a row above 100% of
-   its bound fails), and the plain versions' and library calls' times.
+   its bound fails), and the plain versions' and library calls' times;
+11. the backward-dot probes (silent_speech_tpu_torch/scripts): the tt, xp,
+   nt, base and nn kernels against their plain versions at small ragged
+   shapes (rows 100, m 24, K 104, N 130; dots3's form at 7 steps), tt and
+   base twice on the same full-size inputs (bitwise equal), nt's tail rows
+   exact zeros; then the main() of proto_bwd_dots, proto_bwd_dots2 and
+   proto_bwd_dots3 at full size, with the launch counts over each, whose
+   rows hold each kernel against its plain version at the scripts' shapes
+   and give its time, bound (a row above 100% of it fails), and the plain
+   version's and the library call's times.
 
 Then one JSON line with the kernels' results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA device;
@@ -213,6 +222,30 @@ RATE_ITERS = 5
 # the rate probes' small shapes: MR at reps 9 (every r % 8) and grid 2,
 # ragged against the 64 x 64 tile; DC at 3 steps; LP at 2 steps
 RATE_SMALL_MM = ((16, 24, 16), (70, 104, 130), (192, 104, 128))
+
+# the backward-dot probes (silent_speech_tpu_torch/scripts): the JAX
+# scripts' problems, nothing cut; kernel: (the TPU kernels' pallas_calls it
+# replaces, the script and row the kernels line shows first); the rows of
+# each kind a kernel runs
+BWD_SCRIPTS = ("proto_bwd_dots", "proto_bwd_dots2", "proto_bwd_dots3")
+BWD_KERNELS = {
+    "bwd_dot_tt": ("scripts/proto_bwd_dots.py:51 (run_tt); "
+                   "scripts/proto_bwd_dots2.py:60 (_k_tt); "
+                   "scripts/proto_bwd_dots3.py:44 (_k_tt)",
+                   ("proto_bwd_dots", "tt_384x512x256")),
+    "bwd_dot_nt": ("scripts/proto_bwd_dots.py:71 (run_nt)",
+                   ("proto_bwd_dots", "nt_384x512x256")),
+    "bwd_dot_base": ("scripts/proto_bwd_dots2.py:60 (_k_base)",
+                     ("proto_bwd_dots2", "base_m384")),
+    "bwd_dot_nn": ("scripts/proto_bwd_dots3.py:44 (_k_nn)",
+                   ("proto_bwd_dots3", "nn_384x512x256")),
+    "bwd_dot_xp": ("scripts/proto_bwd_dots2.py:60 (_k_xp)",
+                   ("proto_bwd_dots2", "xp_m384")),
+}
+BWD_KIND_KERNEL = {"tt": "bwd_dot_tt", "nt": "bwd_dot_nt",
+                   "base": "bwd_dot_base", "nn": "bwd_dot_nn",
+                   "xp": "bwd_dot_xp"}
+BWD_SMALL = (100, 24, 104, 130)  # rows, m, K, N: ragged everywhere
 
 
 def fail(msg: str):
@@ -1237,6 +1270,124 @@ def run_rate_probe_scripts(card: str) -> tuple[dict, dict]:
     return counts, rates
 
 
+def check_bwd_dots(dev) -> dict:
+    """The backward-dot kernels against their plain versions on the card
+    (TF32 off) at the small ragged shape BWD_SMALL (every kind; tt and nn
+    also in dots3's form, one 24-row tile over 7 steps), within 4 sqrt(n)
+    2^-24 of each element's sum of |terms| (ops/cuda_bwd_dots.compare; nt's
+    tail rows exact zeros); tt and base twice on the same full-size
+    inputs, bitwise equal. The scripts' rows hold every
+    kernel at the full shapes. Returns {kernel: {max_abs_err,
+    max_share_of_bar}}; raises on a failure."""
+    from silent_speech_tpu_torch.infer.predictor import full_f32
+    from silent_speech_tpu_torch.ops import cuda_bwd_dots as bd
+
+    errs = {name: {"max_abs_err": 0.0, "max_share_of_bar": 0.0}
+            for name in BWD_KERNELS}
+
+    def note(kind, label, r):
+        e = errs[BWD_KIND_KERNEL[kind]]
+        e["max_abs_err"] = max(e["max_abs_err"], r["max_abs_err"])
+        e["max_share_of_bar"] = max(e["max_share_of_bar"], r["share_of_bar"])
+        print(f"  {BWD_KIND_KERNEL[kind]} {kind} {label}: max difference "
+              f"{r['max_abs_err']:.3e}, {r['share_of_bar']:.3f} of the bar")
+
+    rng = np.random.default_rng(SEED + 12)
+    rows, m, K, N = BWD_SMALL
+    with torch.no_grad(), full_f32():
+        p, dy, w = (bd.draw(rng, s, dev) for s in ((rows, K), (rows, N),
+                                                    (K, N)))
+        for kind, a, b in (("tt", p, dy), ("xp", p, dy), ("nt", dy, w),
+                           ("base", p, w)):
+            note(kind, f"rows={rows} m={m} K={K} N={N}",
+                 bd.check(kind, a, b, m=m))
+        note("tt", f"one {m}-row tile, 7 steps", bd.check(
+            "tt", p[:m].contiguous(), dy[:m].contiguous(), m=m, steps=7))
+        note("nn", f"({K},{m})x({m},{N}), 7 steps", bd.check(
+            "nn", p[:m].T.contiguous(), dy[:m].contiguous(), steps=7))
+        out = bd.bwd_dot_nt(dy, w, m)
+        if not torch.equal(out[rows // m * m:],
+                           torch.zeros_like(out[rows // m * m:])):
+            fail("bwd_dot_nt: the tail rows past G m are not zeros")
+        p, dy, w = (bd.draw(rng, s, dev) for s in ((bd.ROWS, 512),
+                                                    (bd.ROWS, 256),
+                                                    (512, 256)))
+        for kind, a, b in (("tt", p, dy), ("base", p, w)):
+            one, two = bd.run(kind, a, b, m=384), bd.run(kind, a, b, m=384)
+            torch.cuda.synchronize()
+            if not torch.equal(one, two):
+                fail(f"bwd_dot {kind}: two launches on the same inputs "
+                     "differ")
+            print(f"  {BWD_KIND_KERNEL[kind]} {kind} rows={bd.ROWS} m=384: "
+                  "two launches bitwise equal")
+    return errs
+
+
+def run_bwd_dot_scripts(card: str) -> tuple[dict, dict]:
+    """The three backward-dot scripts at full size (98,304 rows; dots3 512
+    steps), RATE_ITERS timed calls a row (each row first holds its kernel's
+    output against the plain version and raises over its bar); the launch
+    counts from 0 over each script's run. A row above 100% of its bound
+    fails: the bound is the least time the card can take, so a faster row
+    did less work than the function asks (a product hoisted out of dots3's
+    steps, or base's colsum(p) @ w). Returns ({script: launch counts},
+    {kernel: the kernels line's keys, its rows, its launches over the
+    three runs}); raises if a kernel of a script's path was not
+    launched."""
+    import importlib
+
+    from silent_speech_tpu_torch.ops import _kernels
+
+    counts, reports = {}, {}
+    for script in BWD_SCRIPTS:
+        mod = importlib.import_module(
+            f"silent_speech_tpu_torch.scripts.{script}")
+        _kernels.reset_launch_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            reports[script] = mod.main([f"iters={RATE_ITERS}"])
+        torch.cuda.synchronize()
+        print("".join(f"  | {line}\n" for line in
+                      out.getvalue().splitlines()[:-1]), end="")
+        counts[script] = {k: v for k, v in _kernels.launch_counts().items()
+                          if v}
+        print(f"  {script}: launches over its full-size run {counts[script]}")
+        want = {BWD_KIND_KERNEL[r["kind"]] for r in reports[script]["rows"]}
+        if any(not counts[script].get(n) for n in want):
+            fail(f"{script}: a kernel of its path was not launched: "
+                 f"{counts[script]}, expected {sorted(want)}")
+
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    rates = {name: {"rows": {}} for name in BWD_KERNELS}
+    for script, rep in reports.items():
+        for r in rep["rows"]:
+            share = r["bound_ms"] / r["ms"]
+            r["share_of_bound"] = share
+            print(f"  {script} {r['name']}: {r['ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {share:.1%} of "
+                  f"it; plain {r['plain_ms']:.4f} ms; library "
+                  f"{r['library_ms']:.4f} ms; "
+                  f"{r['share_of_bar']:.3f} of the bar {card}")
+            if share > 1.0:
+                fail(f"{script} {r['name']}: {r['ms']:.4f} ms is {share:.1%} "
+                     f"of its bound {r['bound_ms']:.4f} ms: it did less work "
+                     "than the function")
+            rates[BWD_KIND_KERNEL[r["kind"]]]["rows"][
+                f"{script}:{r['name']}"] = {c: v for c, v in r.items()
+                                            if c != "name"}
+    for name, (_, (script, first)) in BWD_KERNELS.items():
+        row = rates[name]["rows"][f"{script}:{first}"]
+        rates[name].update({k: row[k] for k in keys})
+        rates[name]["row"] = f"{script}:{first}"
+        rates[name]["launches"] = sum(c.get(name, 0)
+                                      for c in counts.values())
+        rates[name]["rows_max_abs_err"] = max(
+            r["max_abs_err"] for r in rates[name]["rows"].values())
+        rates[name]["rows_max_share_of_bar"] = max(
+            r["share_of_bar"] for r in rates[name]["rows"].values())
+    return counts, rates
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device; this script runs only on a GPU")
@@ -1707,6 +1858,13 @@ def main() -> int:
           f"calls a row {card}:")
     rate_counts, rate_ms = run_rate_probe_scripts(card)
 
+    # ---- 11. the backward-dot probes: kernels vs plain, the scripts
+    print("backward-dot probes, kernel vs plain (TF32 off):")
+    bwd_errs = check_bwd_dots(dev)
+    print(f"backward-dot probes, the scripts at full size, {RATE_ITERS} timed "
+          f"calls a row {card}:")
+    _, bwd_ms = run_bwd_dot_scripts(card)
+
     result = {"kernels": [
         {"name": "roi_cnn", "route": "cuda",
          "source": "silent_speech_tpu_torch/csrc/roi_cnn.cu",
@@ -1761,6 +1919,17 @@ def main() -> int:
             "source": f"silent_speech_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": rate_counts[script][kname],
             **rate_errs[kname], **rate_ms[kname]})
+    for kname, (replaces, _) in BWD_KERNELS.items():
+        r, e = bwd_ms[kname], bwd_errs[kname]
+        result["kernels"].append({
+            "name": kname, "route": "cuda",
+            "source": "silent_speech_tpu_torch/csrc/bwd_dots.cu",
+            "replaces": replaces, "launches": r["launches"],
+            "max_abs_err": max(e["max_abs_err"], r["rows_max_abs_err"]),
+            "share_of_bar": max(e["max_share_of_bar"],
+                                r["rows_max_share_of_bar"]),
+            **{k: v for k, v in r.items() if k not in (
+                "launches", "rows_max_abs_err", "rows_max_share_of_bar")}})
     print(json.dumps(result))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 // One 64 x 64 f32 output tile of acc += A' B on the CUDA cores (FMAs),
-// shared by csrc/mm_rate.cu and csrc/layout_micro.cu. A' is A with its
+// shared by csrc/mm_rate.cu and csrc/layout_micro.cu; csrc/bwd_dots.cu
+// stages its own chunks and uses the product and the store. A' is A with its
 // columns rolled by `shift`: A'[m, k] = A[m, (k - shift) mod K] (jnp.roll
 // along the lanes, which is what pltpu.roll computes), applied as an index
 // when the A chunk is loaded; shift 0 is A itself. 256 threads, 4 x 4
@@ -18,14 +19,29 @@ struct Smem {
   float b[BK][BN + 4];
 };
 
-// acc[i][j] += sum over k of A'[m0 + 4 ty + i, k] B[k, n0 + 4 tx + j],
+// acc[i][j] += sum over the chunk of s.a[kk][4 ty + i] s.b[kk][4 tx + j],
 // tx = thread % 16, ty = thread / 16
+__device__ __forceinline__ void fma_chunk(float (&acc)[4][4], const Smem& s) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int kk = 0; kk < BK; ++kk) {
+    const float4 a = *reinterpret_cast<const float4*>(&s.a[kk][4 * ty]);
+    const float4 b = *reinterpret_cast<const float4*>(&s.b[kk][4 * tx]);
+    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+// acc[i][j] += sum over k of A'[m0 + 4 ty + i, k] B[k, n0 + 4 tx + j]
 __device__ __forceinline__ void tile(float (&acc)[4][4],
                                      const float* __restrict__ A, int lda,
                                      const float* __restrict__ B, int ldb,
                                      int M, int N, int K, int m0, int n0,
                                      int shift, Smem& s) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x;
   for (int k0 = 0; k0 < K; k0 += BK) {
     for (int e = tid; e < BM * BK; e += THREADS) {
       const int mm = e / BK, kk = e % BK, m = m0 + mm, k = k0 + kk;
@@ -42,16 +58,7 @@ __device__ __forceinline__ void tile(float (&acc)[4][4],
       s.b[kk][nn] = (k < K && n < N) ? B[(size_t)k * ldb + n] : 0.f;
     }
     __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&s.a[kk][4 * ty]);
-      const float4 b = *reinterpret_cast<const float4*>(&s.b[kk][4 * tx]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
+    fma_chunk(acc, s);
     __syncthreads();
   }
 }

@@ -25,6 +25,14 @@ bench_fused_cnn  the matmul rate at K1's packed shapes (``mxu``), K1
 mosaic_micro nine layout primitives on (768, 768) f32 blocks: copies,
              rolls and maxes, strided rows, the transpose, lane slices, a
              product beside a copy
+proto_bwd_dots  the backward kernel's two dot forms over 98,304 rows,
+             p^T dy summed over row tiles (tt) and dy w^T (nt), beside
+             torch.matmul; the rows' harness of the next two
+proto_bwd_dots2  variants of one accumulation over row tiles: the column
+             sums of p @ w (base), tt, and tt through an explicit
+             transpose (xp), m 384 to 3072
+proto_bwd_dots3  tt and the normal-form product (nn) on operands that stay
+             put, recomputed and summed over 512 steps
 
 The GRU probes run as ``python -m silent_speech_tpu_torch.scripts.<name>
 [B] [T] [device=cuda] [iters=100]`` (B=512, T=32 by default) and print one
@@ -34,7 +42,8 @@ against the plain scan); the CNN-front probes as ``... [N] [device=cuda]
 a variant (ms, the kernel's device time, max abs error); the rate probes
 as ``... [STEPS] [device=cuda] [iters=N]`` (probe_int8: 256 steps at
 K=384 and 512; mosaic_micro: 512 steps; bench_fused_cnn: ``[mxu|ftile]
-[N] ...``, N=8192 frames) and print one row a mode, shape or body (ms,
+[N] ...``, N=8192 frames; proto_bwd_dots and proto_bwd_dots2 ``[ROWS]``,
+98,304 rows; proto_bwd_dots3 ``[STEPS]``, 512) and print one row a mode, shape or body (ms,
 rate, share of the card's bound, the plain version's time). All run on the card
 unless ``device=cpu`` is given, and end with one JSON line.
 """

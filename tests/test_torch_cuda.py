@@ -17,7 +17,10 @@ at N=64; the forward rate probes' kernels (the matmul-rate kernel at small
 ragged shapes, the chained-dot kernel in every mode at K=384 and 512, the
 layout kernel in every body) against their plain versions, their launch
 counts, the inputs they refuse, and the three scripts' main at small
-sizes. Every test needs
+sizes; the backward-dot probes' kernels (tt, xp, nt, and nn with its two
+epilogues) at ragged shapes, bitwise repeatable, nt's zero tail, the
+inputs they refuse, and the three scripts' main at small sizes. Every test
+needs
 a CUDA device and skips without one. On the GPU machine (which has no jax, and tests/conftest.py
 imports jax) run them with
 
@@ -35,8 +38,9 @@ from silent_speech_tpu_torch.models.bigru import (BiGRUClassifier,
                                                   init_roi_cnn)
 from silent_speech_tpu_torch.train.step import (make_optimizer,
                                                 smoothed_cross_entropy)
-from silent_speech_tpu_torch.ops import (_kernels, cuda_cnn, cuda_cnn_im2col,
-                                         cuda_cnn_q8, cuda_dot_chain,
+from silent_speech_tpu_torch.ops import (_kernels, cuda_bwd_dots, cuda_cnn,
+                                         cuda_cnn_im2col, cuda_cnn_q8,
+                                         cuda_dot_chain,
                                          cuda_front_probe, cuda_gru,
                                          cuda_gru_proto, cuda_layout_micro,
                                          cuda_mm_rate, cuda_parity_cnn)
@@ -796,3 +800,110 @@ def test_rate_probe_script_main_on_the_card(dev, script, argv, want,
     assert all(o["timer"] == "cuda events" for o in outs)
     assert all(r["ms"] > 0 for o in outs for r in o["rows"]
                if r["ms"] is not None)
+
+
+# ---------------------------------------------- the backward-dot probes
+
+BWD_KERNELS = {"tt": cuda_bwd_dots.KERNEL_TT, "xp": cuda_bwd_dots.KERNEL_XP,
+               "nt": cuda_bwd_dots.KERNEL_NT,
+               "base": cuda_bwd_dots.KERNEL_BASE,
+               "nn": cuda_bwd_dots.KERNEL_NN}
+
+
+def _bwd_operands(kind, dev, rows, m, K, N, seed=5):
+    rng = np.random.default_rng(seed)
+    p = cuda_bwd_dots.draw(rng, (rows, K), dev)
+    dy = cuda_bwd_dots.draw(rng, (rows, N), dev)
+    w = cuda_bwd_dots.draw(rng, (K, N), dev)
+    return {"tt": (p, dy, {"m": m}), "xp": (p, dy, {"m": m}),
+            "nt": (dy, w, {"m": m}), "base": (p, w, {"m": m}),
+            "nn": (p[:m].T.contiguous(), dy[:m].contiguous(),
+                   {"steps": 3})}[kind]
+
+
+@pytest.mark.parametrize("kind", cuda_bwd_dots.KINDS)
+@pytest.mark.parametrize("rows,m,K,N", [(100, 24, 104, 130), (64, 64, 16, 8),
+                                        (1, 1, 1, 1), (300, 37, 65, 63)])
+def test_bwd_dot_kernel_matches_plain(dev, kind, rows, m, K, N):
+    a, b, kw = _bwd_operands(kind, dev, rows, m, K, N)
+    before = BWD_KERNELS[kind].launches
+    r = cuda_bwd_dots.check(kind, a, b, **kw)
+    torch.cuda.synchronize()
+    assert BWD_KERNELS[kind].launches == before + 1
+    assert r["share_of_bar"] <= 1.0
+
+
+@pytest.mark.parametrize("M,K,N,steps", [(384, 104, 256, 7), (24, 130, 70, 3),
+                                         (384, 512, 256, 600)])
+def test_bwd_dot_tt_steps_match_plain(dev, M, K, N, steps):
+    """dots3's form: one tile of M rows, its product added in each step."""
+    p, dy, _ = _bwd_operands("tt", dev, M, M, K, N)
+    cuda_bwd_dots.check("tt", p, dy, m=M, steps=steps)
+    pk = p.T.contiguous()
+    cuda_bwd_dots.check("nn", pk, dy, steps=steps)
+
+
+@pytest.mark.parametrize("kind", cuda_bwd_dots.KINDS)
+def test_bwd_dot_kernels_are_bitwise_repeatable(dev, kind):
+    a, b, kw = _bwd_operands(kind, dev, 3000, 384 if kind != "nn" else 96,
+                             104, 256)
+    one = cuda_bwd_dots.run(kind, a, b, **kw)
+    two = cuda_bwd_dots.run(kind, a, b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+
+
+@pytest.mark.parametrize("kind,K,N,steps,groups", [
+    ("tt", 512, 256, 256, 12),   # 32 tiles: 384 blocks of 396 slots
+    ("nn", 104, 256, 512, 47),   # 8 tiles: 376 blocks, 11 steps a group
+    ("xp", 512, 256, 256, 8),    # 2 blocks an SM: 256 of 264 slots
+    ("tt", 128, 192, 4, 4),      # fewer steps than slots: a step a group
+    ("tt", 1600, 1600, 5, 1)])   # more tiles than slots: one group
+def test_bwd_dot_groups_fill_one_wave(dev, kind, K, N, steps, groups):
+    """csrc/bwd_dots.cu sizes the groups from the shapes alone: at most one
+    wave of the blocks its launch bounds guarantee on 132 SMs."""
+    n = cuda_bwd_dots._scratch(kind, K, N, steps, dev).numel()
+    assert n == (0 if groups == 1 else groups * K * N)
+
+
+def test_bwd_dot_nt_writes_zeros_past_the_tiles(dev):
+    dy, w, kw = _bwd_operands("nt", dev, 100, 24, 104, 130)
+    m = kw["m"]
+    junk = torch.full((100, 104), float("nan"), device=dev)
+    del junk  # the allocator hands the block to the output next
+    out = cuda_bwd_dots.bwd_dot_nt(dy, w, m)
+    torch.cuda.synchronize()
+    assert torch.equal(out[96:], torch.zeros_like(out[96:]))
+    assert torch.isfinite(out).all()
+
+
+def test_bwd_dot_kernels_refuse_what_they_do_not_take(dev):
+    p, dy, w = (_bwd_operands(k, dev, 64, 16, 16, 16)[i]
+                for k, i in (("tt", 0), ("tt", 1), ("nt", 1)))
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_bwd_dots.bwd_dot_tt(p, dy.T.contiguous().T, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_bwd_dots.bwd_dot_nt(dy, w.T.contiguous().T, 16)
+    with pytest.raises(ValueError, match="one device"):
+        cuda_bwd_dots.bwd_dot_base(p, w.cpu(), 16)
+    with pytest.raises(ValueError, match="f32"):
+        cuda_bwd_dots.bwd_dot_nn(p.T.contiguous().half(), dy, 2)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        cuda_bwd_dots.bwd_dot_xp(p.cpu(), dy.cpu(), 16, impl="kernel")
+
+
+@pytest.mark.parametrize("script,argv,want", [
+    ("proto_bwd_dots", ["3072", "iters=2"], ["bwd_dot_tt", "bwd_dot_nt"]),
+    ("proto_bwd_dots2", ["3072", "iters=2"],
+     ["bwd_dot_base", "bwd_dot_tt", "bwd_dot_xp"]),
+    ("proto_bwd_dots3", ["4", "iters=2"], ["bwd_dot_tt", "bwd_dot_nn"])])
+def test_bwd_dots_script_main_on_the_card(dev, script, argv, want):
+    import importlib
+    mod = importlib.import_module(f"silent_speech_tpu_torch.scripts.{script}")
+    _kernels.reset_launch_counts()
+    out = mod.main(argv)
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    assert all(counts[k] > 0 for k in want), counts
+    assert out["timer"] == "cuda events"
+    assert all(r["ms"] > 0 and r["share_of_bar"] <= 1.0 for r in out["rows"])

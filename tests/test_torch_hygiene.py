@@ -25,9 +25,10 @@ from silent_speech_tpu_torch.infer.predictor import Predictor
 from silent_speech_tpu_torch.models.bigru import (BiGRUClassifier,
                                                   BiGRUConfig, init_params)
 import silent_speech_tpu_torch
-from silent_speech_tpu_torch.ops import (_kernels, cuda_cnn, cuda_dot_chain,
-                                         cuda_gru, cuda_gru_proto,
-                                         cuda_layout_micro, cuda_mm_rate)
+from silent_speech_tpu_torch.ops import (_kernels, cuda_bwd_dots, cuda_cnn,
+                                         cuda_dot_chain, cuda_gru,
+                                         cuda_gru_proto, cuda_layout_micro,
+                                         cuda_mm_rate)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -79,7 +80,9 @@ def test_port_source_imports_nothing_of_jax(path):
                                     "proto_gru4", "proto_parity_cnn",
                                     "proto_parity_e2e", "proto_ablate",
                                     "probe_front", "probe_int8",
-                                    "bench_fused_cnn", "mosaic_micro"])
+                                    "bench_fused_cnn", "mosaic_micro",
+                                    "proto_bwd_dots", "proto_bwd_dots2",
+                                    "proto_bwd_dots3"])
 def test_scripts_subpackage_is_checked(script):
     """The fresh-process import check walks the scripts subpackage, and the
     syntax-tree scan reads its sources."""
@@ -119,7 +122,9 @@ def test_kernel_impl_on_cpu_tensor_raises():
 
 
 @pytest.mark.parametrize("wrapper", ["kstep", "kstep_2w", "dual", "mm_rate",
-                                     "dot_chain", "layout_micro"])
+                                     "dot_chain", "layout_micro",
+                                     "bwd_dot_tt", "bwd_dot_xp", "bwd_dot_nt",
+                                     "bwd_dot_base", "bwd_dot_nn"])
 def test_probe_kernel_impl_on_cpu_tensor_raises(wrapper):
     H = 8
     xp, lengths = torch.zeros((2, 3, 3 * H)), torch.tensor([3, 1])
@@ -139,7 +144,18 @@ def test_probe_kernel_impl_on_cpu_tensor_raises(wrapper):
                 torch.zeros((8, 128), dtype=torch.uint8),
                 torch.zeros((384, 384)), "f32", impl="kernel"),
             "layout_micro": lambda: cuda_layout_micro.layout(
-                "copy", torch.zeros((768, 768)), impl="kernel")}[wrapper]
+                "copy", torch.zeros((768, 768)), impl="kernel"),
+            "bwd_dot_tt": lambda: cuda_bwd_dots.bwd_dot_tt(
+                torch.zeros((16, 8)), torch.zeros((16, 4)), 8, impl="kernel"),
+            "bwd_dot_xp": lambda: cuda_bwd_dots.bwd_dot_xp(
+                torch.zeros((16, 8)), torch.zeros((16, 4)), 8, impl="kernel"),
+            "bwd_dot_nt": lambda: cuda_bwd_dots.bwd_dot_nt(
+                torch.zeros((16, 4)), torch.zeros((8, 4)), 8, impl="kernel"),
+            "bwd_dot_base": lambda: cuda_bwd_dots.bwd_dot_base(
+                torch.zeros((16, 8)), torch.zeros((8, 4)), 8, impl="kernel"),
+            "bwd_dot_nn": lambda: cuda_bwd_dots.bwd_dot_nn(
+                torch.zeros((8, 16)), torch.zeros((16, 4)), 2,
+                impl="kernel")}[wrapper]
     with pytest.raises(ValueError, match="CUDA tensor"):
         call()
 
