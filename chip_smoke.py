@@ -14,6 +14,10 @@ prints no result line):
    twice on the same inputs (bitwise-equal); the serving modes' ROI CNN
    kernels (K1-bf16, K4 int8, K5 im2col) at N=8192, a ragged N=33, N=1 and
    on all-0 and all-255 frames, and K4 on sub-batches (bitwise-equal rows);
+   K2's two kernels each against its own plain version (gru_proj against
+   the matmul, gru_seq over its output against the masked recurrence,
+   gru_seq twice bitwise) at B=1, 64, 256 and 1024 (the split tile and
+   three tiled ones), D=212 and 384, both directions a launch;
 4. the serving path at full width (random weights from a seed): the
    ``predict`` CLI on clips of 5..90 frames, and ``Predictor.predict_batch``
    at B=256, T=32 against the plain path on the card and on the CPU, with
@@ -31,7 +35,11 @@ prints no result line):
    equal for every clip, drift under tests/test_bf16_parity.py's 0.15);
 6. timings with CUDA events: each kernel, its plain version and, where one
    exists, the PyTorch library call for the same function; each kernel's
-   bound; the serving modes' kernels at the sweep's shape (64 x 90 = 5,760
+   bound; K2 (one bidirectional layer, D=212, T=32) at B=1, 256 and 1024:
+   the layer and each of its two kernels with the host's launches held
+   out, beside torch.nn.GRU and torch.addmm, with its plan (C, BT, the
+   route of Wh) and bounds (a time under its bound fails); the serving
+   modes' kernels at the sweep's shape (64 x 90 = 5,760
    frames) and at N=8192, and their forward at B=64, T=90; serving clips/s
    at B=256 and B=1024 (T=32), p50 latency at B=1; train steps at B=16,
    T=90 and B=256, T=32;
@@ -124,6 +132,7 @@ B_SERVE, T_SERVE = 256, 32
 B_TRAIN, T_TRAIN = 16, 90  # the reference protocol (core/config.py)
 TRAIN_EPOCHS, TRAIN_LR = 10, 1e-3
 B_SWEEP = 64  # eval-dataset's batch; clips pad to the checkpoint's max_t 90
+K2_B = (1, B_SERVE, 1024)  # K2's timings: live, and two serving batches
 # the serving modes: Predictor knobs and the ROI CNN kernel each runs
 MODES = {"f32": ({}, "roi_cnn"),
          "bf16": ({"compute_dtype": "bfloat16"}, "roi_cnn_bf16"),
@@ -347,8 +356,10 @@ def device_breakdown(fn, calls: int = 3) -> dict:
             cat = "K1-bf16 roi_cnn_bf16"
         elif "roi_cnn_kernel" in name:
             cat = "K1 roi_cnn"
-        elif "gru_seq_kernel" in name:
+        elif "gru_seq" in name:
             cat = "K2 gru_seq"
+        elif "gru_proj_kernel" in name:
+            cat = "K2 gru_proj"
         elif name.startswith("Memset"):
             cat = "memset"
         else:
@@ -627,28 +638,186 @@ def train_step_fn(params, cfg, batch, dev, impl):
     return lambda: train_step(model, opt, scfg, *batch, gen)
 
 
-def gru_library_ms(p: dict, x: torch.Tensor, lengths: torch.Tensor,
-                   iters: int, bidirectional: bool = True) -> float:
+def nn_gru(p: dict, D: int, bidirectional: bool,
+           dev: torch.device) -> torch.nn.GRU:
     """torch.nn.GRU (cuDNN), one bidirectional (or forward) layer with the
-    weights of each direction set to ``p``, on the packed sequence."""
-    from torch.nn.utils.rnn import pack_padded_sequence
-
-    D, H = x.shape[-1], p["wh"].shape[0]
+    weights of each direction set to ``p``."""
+    H = p["wh"].shape[0]
     gru = torch.nn.GRU(D, H, batch_first=True,
-                       bidirectional=bidirectional).to(x.device)
+                       bidirectional=bidirectional).to(dev)
     with torch.no_grad():
         for sfx in ("l0", "l0_reverse")[:1 + bidirectional]:
             getattr(gru, f"weight_ih_{sfx}").copy_(p["wi"].t())
             getattr(gru, f"weight_hh_{sfx}").copy_(p["wh"].t())
             getattr(gru, f"bias_ih_{sfx}").copy_(p["bi"])
             getattr(gru, f"bias_hh_{sfx}").copy_(p["bh"])
-    lens = lengths.cpu()
+    return gru
+
+
+def held_ms(fn, dev, iters: int = 20) -> float:
+    """Mean device ms a call, the host's launches held out
+    (``proto_parity_cnn.device_ms``: a spin kernel holds the stream while
+    the host enqueues the calls)."""
+    from silent_speech_tpu_torch.scripts import proto_parity_cnn as harness
+
+    return harness.device_ms(fn, harness.Args(0, dev, iters))
+
+
+def gru_library_ms(p: dict, x: torch.Tensor, lengths: torch.Tensor,
+                   bidirectional: bool = True) -> tuple[float, float]:
+    """torch.nn.GRU (cuDNN), one bidirectional (or forward) layer with each
+    direction's weights ``p``, on a sequence packed once before the calls:
+    (the held-stream timer's ms, CUDA events as the host launches). Each is
+    an upper bound of its device time (the first if the call waits on the
+    host, the second if the host launches slower than the card runs). The
+    caller sets TF32: with it cuDNN computes another function."""
+    from torch.nn.utils.rnn import pack_padded_sequence
+
+    gru = nn_gru(p, x.shape[-1], bidirectional, x.device)
+    seq = pack_padded_sequence(x, lengths.cpu(), batch_first=True,
+                               enforce_sorted=False)
 
     def run():
         with torch.no_grad():
-            gru(pack_padded_sequence(x, lens, batch_first=True,
-                                     enforce_sorted=False))
-    return cuda_ms(run, iters)
+            gru(seq)
+    return held_ms(run, x.device), cuda_ms(run, 20)
+
+
+def check_k2_parts(gru_p: dict, lengths: torch.Tensor, dev
+                   ) -> tuple[float, float]:
+    """Each of K2's two kernels against its own plain version (TF32 off)
+    on the layers' shapes (D=212 and 384, H=192, both directions in one
+    launch as the model runs them) at B=1, 64, B_SERVE and 1024 (the split
+    tile and three tiled ones), T_SERVE: gru_proj
+    against the matmul, gru_seq over gru_proj's output against the masked
+    recurrence, and gru_seq twice on the same inputs (bitwise equal).
+    Prints the plan (C, BT, the route of Wh). Returns the two largest
+    errors."""
+    from silent_speech_tpu_torch.infer.predictor import full_f32
+    from silent_speech_tpu_torch.ops import cuda_gru
+    from silent_speech_tpu_torch.ops.nn import gru_dir_init
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    proj_err = seq_err = 0.0
+    for D, pf in gru_p.items():
+        pb = {k: v.to(dev) for k, v in gru_dir_init(D, 192, gen).items()}
+        pack = cuda_gru.pack_layer([(pf, False), (pb, True)])
+        for B in (1, 64, B_SERVE, 1024):
+            x = torch.randn(B, T_SERVE, D, generator=gen).to(dev)
+            L = torch.randint(1, T_SERVE + 1, (B,), generator=gen)
+            L[0] = T_SERVE
+            L = L.to(dev)
+            pl = cuda_gru.plan(B, 192, 2)
+            label = (f"B={B} D={D} (C={pl.C} BT={pl.BT} Wh in "
+                     f"{'shared' if pl.smem_w else 'device'} memory)")
+            xp = cuda_gru.gru_proj(x, pack.wi, pack.bi, impl="kernel")
+            y = cuda_gru.gru_recurrence(xp, L, pack, impl="kernel")
+            again = cuda_gru.gru_recurrence(xp, L, pack, impl="kernel")
+            torch.cuda.synchronize()
+            if not torch.equal(y, again):
+                fail(f"gru_seq {label}: two calls on the same inputs differ")
+            with full_f32():
+                ref_xp = cuda_gru.gru_proj_plain(x, pack.wi, pack.bi)
+                ref_y = cuda_gru.gru_recurrence(xp, L, pack, impl="plain")
+            proj_err = max(proj_err, check_close(f"gru_proj {label}", xp,
+                                                 ref_xp, BAR_GRU))
+            seq_err = max(seq_err, check_close(
+                f"gru_seq (recurrence) {label}", y, ref_y, BAR_GRU))
+    return proj_err, seq_err
+
+
+def time_k2(p: dict, x: torch.Tensor, lengths: torch.Tensor, dev,
+            card: str) -> dict:
+    """K2 on one bidirectional layer (D=212, H=192, T_SERVE, both
+    directions' weights ``p``) at each B of K2_B: the layer (gru_proj then
+    gru_seq, through bigru_kernel), each kernel alone, and torch.nn.GRU on
+    the same inputs, all with the host's launches held out (held_ms; the
+    library also with CUDA events as the host launches, the smaller
+    taken); the plain versions with CUDA events (TF32 off); the bounds
+    over this run's lengths. ``x`` and ``lengths`` are B_SERVE's inputs;
+    the other B draw theirs from SEED + 8. Fails if a time is under its
+    bound. Returns {B: {key: value}}."""
+    from silent_speech_tpu_torch.infer.predictor import full_f32
+    from silent_speech_tpu_torch.ops import cuda_gru
+    from silent_speech_tpu_torch.ops import gru as gru_ops
+
+    gen = torch.Generator().manual_seed(SEED + 8)
+    D, H, T = x.shape[-1], p["wh"].shape[0], T_SERVE
+    pack = cuda_gru.pack_layer([(p, False), (p, True)])
+    layer = [{"fwd": p, "bwd": p, "packed": pack}]
+    out = {}
+    for B in K2_B:
+        if B == B_SERVE:
+            xb, L = x, lengths
+        else:
+            xb = torch.randn(B, T, D, generator=gen).to(dev)
+            L = torch.randint(5, T + 1, (B,), generator=gen)
+            L[0] = T
+        Ld = L.to(dev)
+        S = int(L.sum())
+        pl = cuda_gru.plan(B, H, 2)
+        xp = cuda_gru.gru_proj(xb, pack.wi, pack.bi, impl="kernel")
+        r = {"C": pl.C, "BT": pl.BT, "wh_in": "shared memory" if pl.smem_w
+             else "device memory", "blocks": pl.blocks,
+             "threads": pl.threads, "smem_bytes": pl.smem,
+             "card_clusters": pl.clusters, "waves": pl.waves}
+        r["layer_ms"] = held_ms(lambda: cuda_gru.bigru_kernel(
+            xb, Ld, layer, impl="kernel"), dev)
+        r["proj_ms"] = held_ms(lambda: cuda_gru.gru_proj(
+            xb, pack.wi, pack.bi, impl="kernel"), dev)
+        r["seq_ms"] = held_ms(lambda: cuda_gru.gru_recurrence(
+            xp, Ld, pack, impl="kernel"), dev)
+        with full_f32():  # TF32 is another function (PERF.md, PR 8)
+            held, events = gru_library_ms(p, xb, L)
+        r["layer_library_held_ms"] = held
+        r["layer_library_events_ms"] = events
+        r["layer_library_ms"] = min(held, events)
+        r["layer_library_tf32_ms"] = min(gru_library_ms(p, xb, L))
+        x2 = xb.reshape(-1, D)
+        with full_f32():
+            r["layer_plain_ms"] = cuda_ms(lambda: gru_ops.bigru(
+                xb, Ld, layer), 5, warmup=1)
+            r["proj_plain_ms"] = cuda_ms(lambda: cuda_gru.gru_proj_plain(
+                xb, pack.wi, pack.bi), 20)
+            r["proj_library_ms"] = held_ms(lambda: torch.addmm(
+                pack.bi, x2, pack.wi), dev)
+            r["seq_plain_ms"] = cuda_ms(lambda: cuda_gru.gru_recurrence(
+                xp, Ld, pack, impl="plain"), 5, warmup=1)
+        r["layer_bound_ms"], r["layer_bound_by"] = bound_ms(
+            2 * 2 * S * (D + H) * 3 * H,
+            4 * (xb.numel() + 2 * ((D + H) * 3 * H + 6 * H) + B * T * 2 * H))
+        r["proj_bound_ms"], r["proj_bound_by"] = bound_ms(
+            2 * B * T * D * 6 * H,
+            4 * (B * T * D + D * 6 * H + 6 * H + B * T * 6 * H))
+        r["seq_bound_ms"], r["seq_bound_by"] = bound_ms(
+            2 * 2 * S * H * 3 * H,
+            4 * (B * T * 6 * H + 2 * (H * 3 * H + 3 * H) + B * T * 2 * H + B))
+        print(f"  K2 one bidirectional layer B={B} T={T} D={D} H={H} (C="
+              f"{pl.C} blocks a cluster, BT={pl.BT} rows a cluster, Wh in "
+              f"{r['wh_in']}, {pl.blocks} blocks of {pl.threads} threads, "
+              f"{pl.smem} B of shared memory; the card runs "
+              f"{pl.clusters} such clusters at once, so {pl.waves} wave(s)):"
+              f" layer {r['layer_ms']:.4f} ms "
+              f"(gru_proj {r['proj_ms']:.4f} + gru_seq {r['seq_ms']:.4f}), "
+              f"torch.nn.GRU (cuDNN, packed once, TF32 off) "
+              f"{r['layer_library_ms']:.4f} ms (held {held:.4f}, events "
+              f"{events:.4f}; with TF32 {r['layer_library_tf32_ms']:.4f}): "
+              f"{'' if r['layer_ms'] < r['layer_library_ms'] else 'NOT '}"
+              f"faster x{r['layer_library_ms'] / r['layer_ms']:.2f}; plain "
+              f"{r['layer_plain_ms']:.4f} ms; bound "
+              f"{r['layer_bound_ms']:.4f} ms ({r['layer_bound_by']}) {card}")
+        print(f"    gru_proj: {r['proj_ms']:.4f} ms, plain (matmul) "
+              f"{r['proj_plain_ms']:.4f}, torch.addmm "
+              f"{r['proj_library_ms']:.4f}, bound {r['proj_bound_ms']:.4f} "
+              f"({r['proj_bound_by']}); gru_seq: {r['seq_ms']:.4f} ms, plain "
+              f"{r['seq_plain_ms']:.4f}, bound {r['seq_bound_ms']:.4f} "
+              f"({r['seq_bound_by']}) {card}")
+        for key in ("layer_", "proj_", "seq_"):
+            if r[key + "ms"] < r[key + "bound_ms"]:
+                fail(f"K2 {key[:-1]} B={B}: {r[key + 'ms']:.4f} ms is "
+                     f"under its bound {r[key + 'bound_ms']:.4f} ms")
+        out[B] = r
+    return out
 
 
 def check_gru_probes(gen, dev) -> dict:
@@ -736,9 +905,10 @@ def time_gru_probes(dev, card: str) -> dict:
         xp2 = torch.cat([xp_f, x_flip @ pb["wi"] + pb["bi"]])
         L2 = L.repeat(2)
         wh2, bh2 = (torch.stack([pf[k], pb[k]]) for k in ("wh", "bh"))
-        lib_uni = ("forward", gru_library_ms(pf, x, L.cpu(), 20,
-                                             bidirectional=False))
-        lib_bi = ("bidirectional", gru_library_ms(pf, x, L.cpu(), 20))
+        with full_f32():
+            lib_uni = ("forward", min(gru_library_ms(pf, x, L,
+                                                     bidirectional=False)))
+            lib_bi = ("bidirectional", min(gru_library_ms(pf, x, L)))
         rec_bytes = 4 * (B * T * 4 * H + H * 3 * H + 3 * H + B)
         proj_bytes = 4 * (B * T * (D + H) + (D + H) * 3 * H + 6 * H + B)
         cases = {  # kernel: (run(bf16), plain, ops, bytes, (library, ms))
@@ -782,7 +952,7 @@ def time_gru_probes(dev, card: str) -> dict:
                     f" ms, plain {r['plain_ms' + sfx]:.4f} ms, bound "
                     f"{r['bound_ms' + sfx]:.4f} ms ({r['bound_by' + sfx]}), "
                     f"torch.nn.GRU {lib[0]} layer (cuDNN, projection "
-                    f"included) {lib[1]:.4f} ms")
+                    f"included, packed once, TF32 off) {lib[1]:.4f} ms")
             if name != "gru_fusedproj":  # K2 has no bf16 build
                 r["ms_bf16" + sfx] = cuda_ms(lambda: run(True), 20)
                 r["bound_ms_bf16" + sfx] = bound_ms(ops, nbytes,
@@ -825,7 +995,8 @@ def run_gru_probe_scripts() -> dict:
                           if v}
         print(f"  {script}: launches over its B=512 and B=1 runs "
               f"{counts[script]}")
-    want = {script: {"gru_seq"} for script in PROBE_SCRIPTS}  # baselines
+    want = {script: {"gru_proj", "gru_seq"}  # baselines
+            for script in PROBE_SCRIPTS}
     for _, _, script, count in PROBE_KERNELS.values():
         want[script].add(count)
     for script, names in want.items():
@@ -1461,6 +1632,7 @@ def main() -> int:
                     x, lengths.to(dev), p, reverse=reverse)[0]
             gru_err = max(gru_err, check_close(
                 f"gru_seq D={D} reverse={reverse}", got, ref, BAR_GRU))
+    proj_err, seq_err = check_k2_parts(gru_p, lengths, dev)
 
     k3_abs, k3_rel = check_k3(p_cnn, flat,
                               torch.Generator().manual_seed(SEED + 3), dev)
@@ -1510,7 +1682,7 @@ def main() -> int:
     logits = pred.predict_batch(Xb, Lb, Rb)
     counts = _kernels.launch_counts()
     print(f"  launches on the serving path: {counts}")
-    if any(counts[k] <= 0 for k in ("roi_cnn", "gru_seq")):
+    if any(counts[k] <= 0 for k in ("roi_cnn", "gru_proj", "gru_seq")):
         fail(f"a kernel of the path was not launched: {counts}")
 
     cli_lines = out.getvalue().strip().splitlines()
@@ -1629,9 +1801,10 @@ def main() -> int:
               f"({wall:.3f} s, npz loading included), launches {launched}")
         others = [k for _, k in MODES.values() if k != kname]
         if mode_counts[kname] <= 0 or mode_counts["gru_seq"] <= 0 or \
+                mode_counts["gru_proj"] != mode_counts["gru_seq"] or \
                 any(mode_counts[k] for k in others):
             fail(f"eval-dataset {mode}: launches {launched}, expected "
-                 f"{kname} and gru_seq only")
+                 f"{kname}, gru_proj and gru_seq only")
         sweep[mode] = {"acc": acc, "conf": conf, "clips_s": n_sweep / wall,
                        "launches": mode_counts[kname]}
     if not sweep["f32"]["acc"] >= 0.5:
@@ -1736,25 +1909,7 @@ def main() -> int:
               f"batches, host arrays in and out): {ms:.4f} ms, "
               f"{B_SWEEP / ms * 1e3:.1f} clips/s {card}")
     x = torch.randn(B_SERVE, T_SERVE, 212, generator=gen).to(dev)
-    layer = [{"fwd": gru_p[212], "bwd": gru_p[212]}]
-    Ld = lengths.to(dev)
-    gru_ms = cuda_ms(lambda: cuda_gru.bigru_kernel(x, Ld, layer,
-                                                   impl="kernel"), 20)
-    with full_f32():
-        gru_plain_ms = cuda_ms(lambda: gru_ops.bigru(x, Ld, layer), 20)
-    gru_lib_ms = gru_library_ms(gru_p[212], x, lengths, 20)
-    gru_lib_b1_ms = gru_library_ms(gru_p[212], x[:1],
-                                   torch.tensor([T_SERVE]), 20)
-    H = 192
-    gru_bound, gru_by = bound_ms(
-        2 * 2 * int(lengths.sum()) * (212 + H) * 3 * H,
-        4 * (x.numel() + 2 * ((212 + H) * 3 * H + 6 * H)
-             + B_SERVE * T_SERVE * 2 * H))
-    print(f"  gru_seq one bidirectional layer B={B_SERVE} T={T_SERVE} D=212:"
-          f" kernel {gru_ms:.4f} ms, plain {gru_plain_ms:.4f} ms, "
-          f"torch.nn.GRU (cuDNN, packed) {gru_lib_ms:.4f} ms, bound "
-          f"{gru_bound:.4f} ms ({gru_by}); torch.nn.GRU at B=1 T={T_SERVE} "
-          f"{gru_lib_b1_ms:.4f} ms {card}")
+    k2 = time_k2(gru_p[212], x, lengths, dev, card)
     for B in (B_SERVE, 1024):
         Xs = rng.standard_normal((B, T_SERVE, cfg.x_dim)).astype(np.float32)
         Ls = np.full((B,), T_SERVE, np.int32)
@@ -1875,9 +2030,34 @@ def main() -> int:
         {"name": "gru_seq", "route": "cuda",
          "source": "silent_speech_tpu_torch/csrc/gru_seq.cu",
          "replaces": "silent_speech_tpu/ops/pallas_gru.py:165",
-         "launches": counts["gru_seq"], "max_abs_err": gru_err,
-         "ms": gru_ms, "plain_ms": gru_plain_ms, "bound_ms": gru_bound,
-         "bound_by": gru_by, "library_ms": gru_lib_ms},
+         "launches": counts["gru_seq"],
+         "max_abs_err": max(gru_err, seq_err),
+         "ms": k2[B_SERVE]["seq_ms"],
+         "plain_ms": k2[B_SERVE]["seq_plain_ms"],
+         "bound_ms": k2[B_SERVE]["seq_bound_ms"],
+         "bound_by": k2[B_SERVE]["seq_bound_by"],
+         "library_ms": None,
+         "layer_of": f"one bidirectional layer (gru_proj + gru_seq), "
+                     f"B={B_SERVE} T={T_SERVE} D=212; layer_library_ms: "
+                     f"torch.nn.GRU",
+         **{k: v for k, v in k2[B_SERVE].items()
+            if not k.startswith(("proj_", "seq_"))},
+         "by_batch": {str(B): {k: v for k, v in r.items()
+                               if not k.startswith("proj_")}
+                      for B, r in k2.items()}},
+        {"name": "gru_proj", "route": "cuda",
+         "source": "silent_speech_tpu_torch/csrc/gru_proj.cu",
+         "replaces": "silent_speech_tpu/ops/pallas_gru.py:165 (the "
+                     "projection in its body, :95-99)",
+         "launches": counts["gru_proj"], "max_abs_err": proj_err,
+         "ms": k2[B_SERVE]["proj_ms"],
+         "plain_ms": k2[B_SERVE]["proj_plain_ms"],
+         "bound_ms": k2[B_SERVE]["proj_bound_ms"],
+         "bound_by": k2[B_SERVE]["proj_bound_by"],
+         "library_ms": k2[B_SERVE]["proj_library_ms"],
+         "by_batch": {str(B): {k: r[k] for k in (
+             "proj_ms", "proj_plain_ms", "proj_library_ms", "proj_bound_ms")}
+             for B, r in k2.items()}},
         {"name": "roi_cnn_bwd", "route": "cuda",
          "source": "silent_speech_tpu_torch/csrc/roi_cnn_bwd.cu",
          "replaces": "silent_speech_tpu/ops/pallas_cnn2_grad.py:319",

@@ -15,7 +15,8 @@ ops/cuda_cnn     fused TinyROICNN forward, f32 and bf16 (csrc/roi_cnn.cu),
                  its weight gradients (csrc/roi_cnn_bwd.cu), plain versions
 ops/cuda_cnn_q8  the int8 TinyROICNN (csrc/roi_cnn_q8.cu) + plain version
 ops/cuda_cnn_im2col  the TinyROICNN as im2col GEMMs (csrc/roi_cnn_im2col.cu)
-ops/cuda_gru     GRU sequence kernel (csrc/gru_seq.cu) + plain version
+ops/cuda_gru     GRU sequence: the input projection (csrc/gru_proj.cu) and
+                 the cluster recurrence (csrc/gru_seq.cu) + plain versions
 ops/cuda_gru_proto  the GRU design probes' kernels (csrc/gru_proto.cu) +
                  plain versions
 models/bigru     BiGRUConfig, TinyROICNN, BiGRUClassifier (dual forward,

@@ -283,7 +283,9 @@ class BiGRUClassifier(nn.Module):
 
     def kernel_weights(self, roi_pack: str = "roi_cnn") -> dict:
         """The kernels' weight layouts on the parameters' device: ``'gru'``,
-        the layers' (D, 3H) / (H, 3H) matrices made contiguous, and the ROI
+        the layers' (D, 3H) / (H, 3H) matrices made contiguous, with each
+        layer's ``'packed'`` layout for the two GRU kernels
+        (``cuda_gru.pack_layer``), and the ROI
         CNN kernel ``roi_pack``'s (ROI_PACKS), under its name, with those of
         the other ROI CNN kernels asked for before. Built at the first call
         that needs them and kept until a parameter moves or changes in
@@ -292,9 +294,12 @@ class BiGRUClassifier(nn.Module):
                     for p in self.parameters())
         if key != self._kernel_weights_key:
             with torch.no_grad():
-                self._kernel_weights = {"gru": [
-                    {d: {k: v.contiguous() for k, v in lp[d].items()}
-                     for d in lp} for lp in self.params_tree()["gru"]]}
+                layers = [{d: {k: v.contiguous() for k, v in lp[d].items()}
+                           for d in lp} for lp in self.params_tree()["gru"]]
+                for lp in layers:
+                    lp["packed"] = cuda_gru.pack_layer(
+                        [(lp["fwd"], False), (lp["bwd"], True)])
+                self._kernel_weights = {"gru": layers}
             self._kernel_weights_key = key
         kw = self._kernel_weights
         if roi_pack not in kw:

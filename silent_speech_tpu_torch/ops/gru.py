@@ -1,5 +1,6 @@
 """Masked GRU scan (port of the JAX ops/gru.py) — the plain PyTorch version
-of the GRU sequence kernel (ops/cuda_gru.py, csrc/gru_seq.cu).
+of K2, the GRU sequence kernels (ops/cuda_gru.py: csrc/gru_proj.cu, then
+csrc/gru_seq.cu over ``gru_recurrence``'s input).
 
 Semantics, all as in the JAX package and PyTorch's
 ``pack_padded_sequence(..., enforce_sorted=False)``:
@@ -52,6 +53,26 @@ def gru_cell_step(h: torch.Tensor, xp_t: torch.Tensor, wh: torch.Tensor,
     return (1.0 - z) * n + z * h
 
 
+def gru_recurrence(xp: torch.Tensor, lengths: torch.Tensor,
+                   wh: torch.Tensor, bh: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None):
+    """The masked recurrence over the input projection ``xp = x W_i + b_i``
+    (B, T, 3H); wh (H, 3H), bh (3H,). Returns (outputs (B, T, H) zero past
+    each length, h_last (B, H))."""
+    B, T, _ = xp.shape
+    H = wh.shape[0]
+    h = xp.new_zeros((B, H)) if h0 is None else h0
+    L = lengths.to(xp.device)
+    ys = []
+    for t in range(T):
+        h_new = gru_cell_step(h, xp[:, t], wh, bh)
+        valid = (L > t)[:, None]
+        h = torch.where(valid, h_new, h)  # freeze the carry past the end
+        ys.append(torch.where(valid, h, torch.zeros_like(h)))
+    y = torch.stack(ys, dim=1) if ys else xp.new_zeros((B, 0, H))
+    return y, h
+
+
 def gru_layer_single_direction(
     x: torch.Tensor,
     lengths: torch.Tensor,
@@ -66,18 +87,8 @@ def gru_layer_single_direction(
     Returns (outputs (B, T, H) zero past each length, h_last (B, H))."""
     if reverse:
         x = flip_padded(x, lengths)
-    B, T, _ = x.shape
-    H = params["wh"].shape[0]
     xp = x @ params["wi"] + params["bi"]  # (B, T, 3H), hoisted out of the loop
-    h = x.new_zeros((B, H)) if h0 is None else h0
-    L = lengths.to(x.device)
-    ys = []
-    for t in range(T):
-        h_new = gru_cell_step(h, xp[:, t], params["wh"], params["bh"])
-        valid = (L > t)[:, None]
-        h = torch.where(valid, h_new, h)  # freeze the carry past the end
-        ys.append(torch.where(valid, h, torch.zeros_like(h)))
-    y = torch.stack(ys, dim=1)
+    y, h = gru_recurrence(xp, lengths, params["wh"], params["bh"], h0)
     if reverse:
         y = flip_padded(y, lengths)
     return y, h

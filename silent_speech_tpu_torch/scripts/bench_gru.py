@@ -93,10 +93,14 @@ def scan_stack(pb: Problem) -> torch.Tensor:
 
 def baselines(pb: Problem) -> list[tuple[str, Callable]]:
     """The rows every probe's stack table starts with: the plain scan and
-    K2 (one launch a layer, both directions, in-kernel reverse)."""
+    K2 (two launches a layer, gru_proj and gru_seq, both directions in
+    each, the reverse in the recurrence), its weights packed once before
+    the calls, as the model keeps them (``kernel_weights``)."""
+    packed = [dict(lp, packed=cuda_gru.pack_layer(
+        [(lp["fwd"], False), (lp["bwd"], True)])) for lp in pb.layers]
     return [("scan", lambda: scan_stack(pb)),
             ("K2 bigru_kernel", lambda: cuda_gru.bigru_kernel(
-                pb.x, pb.lengths, pb.layers))]
+                pb.x, pb.lengths, packed))]
 
 
 def one_direction_baselines(pb: Problem) -> list[tuple[str, Callable]]:

@@ -6,16 +6,18 @@ direction (port of scripts/proto_gru3.py).
 
 The TPU kernel of this probe (proto_gru3.py::_gru_fusedproj_kernel) is the
 prototype that became K2 (ops/pallas_gru.py::_gru_fusedproj_kernel), and it
-computes K2's function. Its counterpart here is K2's one-direction launch
-(ops/cuda_gru.gru_sequence, csrc/gru_seq.cu): no kernel of its own. As in
-the JAX script the backward direction flips its input and output on the
-host (``flip_padded``) around a forward launch, where K2's own
-``bigru_kernel`` reverses inside the kernel and runs both directions in one
-launch; the table holds the two against each other.
+computes K2's function. Its counterpart here is K2's one-direction pair
+of launches (ops/cuda_gru.gru_sequence: csrc/gru_proj.cu, then
+csrc/gru_seq.cu): no kernel of its own. As in the JAX script the backward
+direction flips its input and output on the host (``flip_padded``) around
+a forward call, where K2's own ``bigru_kernel`` reverses inside the
+recurrence and runs both directions in each launch; the table holds the
+two against each other.
 
-K2 has no knobs: it runs 8 rows a block and stages one step of input at a
-time, so ``batch_tile`` takes 8, ``k_steps`` 1 and ``vmem_mb`` (a Mosaic
-VMEM limit) 0, and other values raise; K2 has no bf16 build, so
+K2 has no knobs: it picks its batch tile from the shapes and the card
+(``cuda_gru.plan``) and reads one step of input at a time, so
+``batch_tile`` takes None, ``k_steps`` 1 and ``vmem_mb`` (a Mosaic VMEM
+limit) 0, and other values raise; K2 has no bf16 build, so
 ``bf16_mm=True`` raises (proto_gru4's dual-chain kernel has one).
 """
 
@@ -31,32 +33,29 @@ from ..ops import cuda_gru
 from ..ops.gru import flip_padded
 from . import bench_gru as harness
 
-K2_ROWS_PER_BLOCK = 8  # csrc/gru_seq.cu: BT
-
-
-def _check_knobs(batch_tile: int, k_steps: int, bf16_mm: bool,
+def _check_knobs(batch_tile: Optional[int], k_steps: int, bf16_mm: bool,
                  vmem_mb: int) -> None:
-    for name, value, only in (("batch_tile", batch_tile, K2_ROWS_PER_BLOCK),
+    for name, value, only in (("batch_tile", batch_tile, None),
                               ("k_steps", k_steps, 1),
                               ("vmem_mb", vmem_mb, 0),
                               ("bf16_mm", bf16_mm, False)):
         if value != only:
             raise ValueError(
                 f"{name}={value!r}: this probe runs K2's one-direction "
-                f"launch, which takes only {name}={only!r} ({K2_ROWS_PER_BLOCK}"
-                " rows a block, one step staged at a time, f32; no VMEM "
+                f"launches, which take only {name}={only!r} (the batch tile "
+                "from the shapes, one step read at a time, f32; no VMEM "
                 "limit on the card)")
 
 
 def gru_sequence_fusedproj(x: torch.Tensor, lengths: torch.Tensor,
                            wi: torch.Tensor, bi: torch.Tensor,
                            wh: torch.Tensor, bh: torch.Tensor, *,
-                           batch_tile: int = K2_ROWS_PER_BLOCK,
+                           batch_tile: Optional[int] = None,
                            k_steps: int = 1, bf16_mm: bool = False,
                            vmem_mb: int = 0, impl: str = "auto"
                            ) -> torch.Tensor:
     """One GRU direction with the projection in the kernel
-    (proto_gru3.py::gru_sequence_fusedproj): K2's one-direction launch.
+    (proto_gru3.py::gru_sequence_fusedproj): K2's one-direction launches.
     x: (B, T, D), already flipped for the reverse direction. Returns
     (B, T, H)."""
     _check_knobs(batch_tile, k_steps, bf16_mm, vmem_mb)
@@ -65,7 +64,7 @@ def gru_sequence_fusedproj(x: torch.Tensor, lengths: torch.Tensor,
 
 def gru_layer_fusedproj(x: torch.Tensor, lengths: torch.Tensor,
                         params: dict, *, reverse: bool = False,
-                        batch_tile: int = K2_ROWS_PER_BLOCK, k_steps: int = 1,
+                        batch_tile: Optional[int] = None, k_steps: int = 1,
                         bf16_mm: bool = False, vmem_mb: int = 0,
                         impl: str = "auto") -> torch.Tensor:
     """One direction, flipping on the host for ``reverse``
@@ -80,7 +79,7 @@ def gru_layer_fusedproj(x: torch.Tensor, lengths: torch.Tensor,
 
 
 def bigru_fusedproj(x: torch.Tensor, lengths: torch.Tensor, layers: list, *,
-                    batch_tile: int = K2_ROWS_PER_BLOCK, k_steps: int = 1,
+                    batch_tile: Optional[int] = None, k_steps: int = 1,
                     bf16_mm: bool = False, vmem_mb: int = 0,
                     impl: str = "auto") -> torch.Tensor:
     """Stacked biGRU, one launch a direction

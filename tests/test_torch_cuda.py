@@ -3,7 +3,11 @@
 Edge shapes the smoke run (chip_smoke.py) does not reach: single frames and
 rows, ragged batch tiles, zero lengths, constant frames under
 standardization, odd widths; the ROI CNN backward (K3) on tie frames, its
-determinism and the inputs it refuses; the GRU kernel refusing autograd;
+determinism and the inputs it refuses; K2's two kernels (gru_proj,
+gru_seq) each against its plain version at B 1-256, D 180-384, H 16-1024
+(clusters of 1, 4 and 8, Wh from device memory at H 512 and 1024), both
+directions, lengths 0, 1 and T, bitwise repeatable, on a side stream, and
+refusing autograd;
 a train step through the kernels against the plain path; the serving
 modes' CNN kernels (K1-bf16, K4 int8, K5 im2col) on ragged and single
 frames, narrow embeddings, the inputs they refuse, and the Predictor in
@@ -159,9 +163,127 @@ def test_bigru_kernel_one_launch_per_layer(dev):
     lengths = torch.randint(1, T + 1, (B,), generator=g).to(dev)
     _kernels.reset_launch_counts()
     got = cuda_gru.bigru_kernel(x, lengths, layers)
-    assert _kernels.launch_counts()["gru_seq"] == 2
+    counts = _kernels.launch_counts()
+    assert counts["gru_proj"] == 2 and counts["gru_seq"] == 2  # per layer
     ref = gru_ops.bigru(x, lengths, layers)[0]
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+
+
+# K2's two kernels, each against its own plain version: H=16 runs clusters
+# of 1, 192 of 4, 200 of 8 (U=25, not whole warps); 512 and 1024 read Wh
+# from device memory (the kernel's plan, cuda_gru.plan)
+GRU_B, GRU_D, GRU_H = (1, 3, 17, 256), (180, 212, 384), (16, 192, 200, 512,
+                                                        1024)
+
+
+def _gru_lengths(g, B, T):
+    """Ragged, with T, 0 and 1 among them."""
+    lengths = torch.randint(0, T + 1, (B,), generator=g)
+    lengths[:3] = torch.tensor([T, 0, 1])[:B]
+    return lengths
+
+
+@pytest.mark.parametrize("H", GRU_H)
+@pytest.mark.parametrize("D", GRU_D)
+@pytest.mark.parametrize("B", GRU_B)
+def test_gru_proj_kernel_matches_plain(dev, B, D, H):
+    g = torch.Generator().manual_seed(B * 7 + D + H)
+    T = 5
+    x = torch.randn(B, T, D, generator=g).to(dev)
+    wi = (torch.randn(D, 6 * H, generator=g) / D ** 0.5).to(dev)
+    bi = torch.randn(6 * H, generator=g).to(dev)
+    before = cuda_gru.PROJ.launches
+    got = cuda_gru.gru_proj(x, wi, bi, impl="kernel")
+    again = cuda_gru.gru_proj(x, wi, bi, impl="kernel")
+    torch.cuda.synchronize()
+    assert cuda_gru.PROJ.launches == before + 2
+    assert torch.equal(got, again)  # a fixed summation order
+    torch.testing.assert_close(got, cuda_gru.gru_proj_plain(x, wi, bi),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dirs", ["fwd", "rev", "both"])
+@pytest.mark.parametrize("H", GRU_H)
+@pytest.mark.parametrize("B", GRU_B)
+def test_gru_seq_kernel_matches_plain(dev, B, H, dirs):
+    g = torch.Generator().manual_seed(B * 11 + H)
+    T = 7
+    pf, pb = [{k: v.to(dev) for k, v in gru_dir_init(4, H, g).items()}
+              for _ in range(2)]
+    pack = cuda_gru.pack_layer({"fwd": [(pf, False)], "rev": [(pb, True)],
+                                "both": [(pf, False), (pb, True)]}[dirs])
+    ndir = len(pack.reverse)
+    xp = torch.randn(B, T, ndir * 3 * H, generator=g).to(dev)
+    lengths = _gru_lengths(g, B, T).to(dev)
+    before = cuda_gru.SEQ.launches
+    got = cuda_gru.gru_recurrence(xp, lengths, pack, impl="kernel")
+    again = cuda_gru.gru_recurrence(xp, lengths, pack, impl="kernel")
+    torch.cuda.synchronize()
+    assert cuda_gru.SEQ.launches == before + 2
+    assert torch.equal(got, again)  # a fixed summation order
+    ref = cuda_gru.gru_recurrence(xp, lengths, pack, impl="plain")
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+    for b, n in enumerate(lengths.tolist()):
+        assert not got[b, n:].any()
+
+
+@pytest.mark.parametrize("H", GRU_H)
+@pytest.mark.parametrize("B", (1, 32, 64, 256, 1024))
+def test_gru_plan_waves_fit_the_card(dev, B, H):
+    """The kernel's plan (gru_seq_plan): the pack's layout, a block that
+    fits, and the waves its clusters take on this card by
+    cudaOccupancyMaxActiveClusters; at the model's H=192 one wave."""
+    pl = cuda_gru.plan(B, H, 2)
+    C = cuda_gru.cluster_size(H)
+    assert (pl.C, pl.U, pl.Up, pl.Hk) == (C, *cuda_gru._layout(H, C))
+    assert pl.threads <= 512 and pl.smem <= 232448
+    assert pl.smem_w == (H <= 384)
+    assert pl.BT in (1, 2) or pl.BT % 4 == 0
+    tiles = -(-B // pl.BT) * 2
+    assert pl.blocks == C * tiles and pl.clusters >= 1
+    assert pl.waves == -(-tiles // pl.clusters)
+    if B == 1:
+        assert pl.BT == 1 and pl.waves == 1
+    if H == 192:
+        assert pl.waves == 1, pl
+
+
+def test_gru_plan_fits_every_hidden_size(dev):
+    """Every H the kernel takes, 1..1024, gets a plan on this card, Wh in
+    shared memory up to H=384, and gru_seq runs it."""
+    g = torch.Generator().manual_seed(13)
+    for H in range(1, cuda_gru.MAX_HIDDEN + 1):
+        for B in (1, 256):
+            pl = cuda_gru.plan(B, H, 2)
+            assert pl.smem_w == (H <= 384) and pl.waves >= 1, (H, B)
+    for H in (1, 7, 100, 385, 1000):
+        p = {k: v.to(dev) for k, v in gru_dir_init(4, H, g).items()}
+        pack = cuda_gru.pack_layer([(p, True)])
+        xp = torch.randn(3, 4, 3 * H, generator=g).to(dev)
+        lengths = torch.tensor([4, 0, 2], device=dev)
+        torch.testing.assert_close(
+            cuda_gru.gru_recurrence(xp, lengths, pack, impl="kernel"),
+            cuda_gru.gru_recurrence(xp, lengths, pack, impl="plain"),
+            atol=1e-4, rtol=0)
+
+
+def test_gru_kernels_on_a_side_stream(dev):
+    """Launched on a non-default stream, the two kernels give the default
+    stream's bits."""
+    g = torch.Generator().manual_seed(12)
+    B, T, D, H = 17, 9, 212, 192
+    layers = [{k: {n: t.to(dev) for n, t in gru_dir_init(d, H, g).items()}
+               for k in ("fwd", "bwd")} for d in (D, 2 * H)]
+    x = torch.randn(B, T, D, generator=g).to(dev)
+    lengths = _gru_lengths(g, B, T).to(dev)
+    ref = cuda_gru.bigru_kernel(x, lengths, layers)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        got = cuda_gru.bigru_kernel(x, lengths, layers)
+    side.synchronize()
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
 
 
 # --------------------------------------------------------------------- K3
@@ -269,6 +391,18 @@ def test_gru_kernel_refuses_autograd(dev):
             cuda_gru.gru_layer(xx, lengths, pp, impl="kernel")
         with torch.no_grad():
             cuda_gru.gru_layer(xx, lengths, pp, impl="kernel")
+    # each of the two kernels on its own
+    pack = cuda_gru.pack_layer([(p, False)])
+    xp = torch.randn(3, 5, 48, generator=g).to(dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        cuda_gru.gru_proj(x, p["wi"].clone().requires_grad_(), p["bi"],
+                          impl="kernel")
+    with pytest.raises(RuntimeError, match="no backward"):
+        cuda_gru.gru_recurrence(xp.clone().requires_grad_(), lengths, pack,
+                                impl="kernel")
+    layer = {"fwd": p, "bwd": dict(p, wi=p["wi"].clone().requires_grad_())}
+    with pytest.raises(RuntimeError, match="no backward"):
+        cuda_gru.bigru_kernel(x, lengths, [layer], impl="kernel")
 
 
 def test_train_step_kernels_match_plain(dev):
@@ -425,7 +559,7 @@ def test_predictor_serving_mode_kernels_match_plain(dev, knobs, kernel):
                     **knobs).predict_batch(X, L, R)
     counts = _kernels.launch_counts()
     assert counts[kernel] == 1 and counts["gru_seq"] == 2
-    assert sum(counts.values()) == 3
+    assert counts["gru_proj"] == 2 and sum(counts.values()) == 5
     ref = Predictor(model=model, id_to_label=labels, device="cuda",
                     roi_impl="plain", gru_impl="plain",
                     **knobs).predict_batch(X, L, R)

@@ -2,9 +2,9 @@
 JAX package's Pallas GRU (ops/pallas_gru.py) in interpret mode.
 
 On the CPU the module's wrappers run their plain version (the masked scan);
-the CUDA kernel itself is held against that plain version on the card
-(tests/test_torch_cuda.py, chip_smoke.py). atol 1e-4: the bar of the JAX
-package's own GRU parity tests."""
+the two CUDA kernels (gru_proj, gru_seq) are held against their plain
+versions on the card (tests/test_torch_cuda.py, chip_smoke.py). atol 1e-4:
+the bar of the JAX package's own GRU parity tests."""
 
 import numpy as np
 import pytest
