@@ -14,6 +14,9 @@ prints no result line):
    twice on the same inputs (bitwise-equal); the serving modes' ROI CNN
    kernels (K1-bf16, K4 int8, K5 im2col) at N=8192, a ragged N=33, N=1 and
    on all-0 and all-255 frames, and K4 on sub-batches (bitwise-equal rows);
+   K1 and K1-bf16 at the edges of the kernel's own wave (roi_cnn_plan: a
+   wave, a frame either side, two waves and a frame), twice on the same
+   frames and on sub-batches (bitwise-equal rows);
    K2's two kernels each against its own plain version (gru_proj against
    the matmul, gru_seq over its output against the masked recurrence,
    gru_seq twice bitwise) at B=1, 64, 256 and 1024 (the split tile and
@@ -35,7 +38,10 @@ prints no result line):
    equal for every clip, drift under tests/test_bf16_parity.py's 0.15);
 6. timings with CUDA events: each kernel, its plain version and, where one
    exists, the PyTorch library call for the same function; each kernel's
-   bound; K2 (one bidirectional layer, D=212, T=32) at B=1, 256 and 1024:
+   bound; K1 and K1-bf16 at N=8192, 5,760 and 32 with the host's launches
+   held out, each beside its bound (the bf16 build at the bf16 rate; the
+   f32 build at the f32 FMAs and the tensor cores' 3xTF32 together; a row
+   over 100% of its bound fails), and K1 on the official init beside it; K2 (one bidirectional layer, D=212, T=32) at B=1, 256 and 1024:
    the layer and each of its two kernels with the host's launches held
    out, beside torch.nn.GRU and torch.addmm, with its plan (C, BT, the
    route of Wh) and bounds (a time under its bound fails); the serving
@@ -58,8 +64,8 @@ prints no result line):
    N=8192 and N=16, on all-0 and all-255 frames, with packed and random
    weights, its ablation's ``full`` bitwise the kernel; each stage of the
    front probe and each of K1's debug stops against its plain version; K1
-   itself within its bar; their times, bounds and plain versions' times at
-   N=8192; and the main() of proto_parity_cnn, proto_parity_e2e,
+   itself within its bar; their times, bounds (K1's stops on K1's routes,
+   over 100% failing) and plain versions' times at N=8192; and the main() of proto_parity_cnn, proto_parity_e2e,
    proto_ablate and probe_front at N=8192, with the launch counts over each;
 10. the forward rate probes (silent_speech_tpu_torch/scripts): the
    matmul-rate kernel (MR) at bench_fused_cnn's six shapes and small ragged
@@ -109,6 +115,11 @@ ROOT = Path(__file__).resolve().parent
 # bars: the JAX package's own tests (tests/test_pallas_cnn2.py,
 # tests/test_pallas_gru.py, tests/test_model_parity.py)
 BAR_CNN_LIVE, BAR_CNN_STD, BAR_GRU, BAR_LOGITS = 2e-4, 2e-3, 1e-4, 1e-3
+# K1's f32 build against its plain version, live and standardized: between
+# its 3xTF32 split's error and one TF32 pass's
+# (tests/test_torch_roi_cnn_tc.py holds the emulated split at least 10x
+# inside these bars and one pass outside them)
+BAR_K1_LIVE, BAR_K1_STD = 2e-6, 1e-5
 # K3: max |d| / max |ref| per gradient tensor (tests/test_fused_train.py);
 # train step: loss, gradients and post-Adam parameters
 # (tests/test_fused_train.py:180-189, tests/test_train.py:94-113)
@@ -142,6 +153,7 @@ MODES = {"f32": ({}, "roi_cnn"),
 # the CUDA cores, bf16 and int8 on the tensor cores, and HBM bandwidth
 PEAK_F32_FLOPS, PEAK_BYTES_S = 67e12, 3.35e12
 PEAK_BF16_FLOPS, PEAK_INT8_OPS = 989e12, 1979e12
+PEAK_TF32_FLOPS = 495e12
 # multiply-adds per frame: the ROI CNN forward (convs + fc at emb=32) and
 # what K3 adds to recompute it (fc and d feat, conv3 weight grads and
 # transposed conv, conv2 and conv1 grads over the routed cells only)
@@ -209,10 +221,16 @@ FRONT_KERNELS = {
 # runs 104 patch rows, but rows 102 and 103 of the patch are zero and add
 # nothing; csrc/roi_parity.cu sums r < 102)
 PARITY_MACS = 12 * 4 * 3 * 2 * 102 * 128
-# multiply-adds a frame up to each of K1's debug stops (conv0, conv1, conv2)
+# multiply-adds a frame up to each of K1's debug stops
 STOP_MACS = {"load": 0, "norm": 0, "conv1": 48 * 96 * 8 * 9,
              "conv2": 48 * 96 * 8 * 9 + 24 * 48 * 16 * 8 * 9,
              "conv3": CNN_FWD_MACS}
+# how K1 (csrc/roi_cnn.cu) splits its work between the card's units; a
+# note beside its rows, not their bound
+K1_SPLIT = {False: "conv1 and the fc on the f32 FMAs, conv2 and conv3 on "
+                   "the tensor cores as 3xTF32",
+            True: "conv1 and the fc on the f32 FMAs, conv2 and conv3 on "
+                  "the tensor cores in bf16"}
 
 # the forward rate probes (silent_speech_tpu_torch/scripts): the JAX
 # scripts' problems, nothing cut; kernel: (source, the TPU kernel's
@@ -281,6 +299,28 @@ def bound_ms(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS
     bytes over the memory rate."""
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k1_bound(N: int, macs: int, nbytes: float,
+             bf16: bool = False) -> tuple[float, str]:
+    """K1's least time for N frames of ``macs`` multiply-adds a frame,
+    whichever unit does them. bf16 build: every product at the bf16 rate
+    (its operands are bf16). f32 build: the work split between the f32
+    FMAs and the tensor cores as 3xTF32 (three TF32 products a
+    multiply-add) so that both finish together, i.e. at the sum of the two
+    rates; the kernel's own split (K1_SPLIT) can only take longer."""
+    return bound_ms(2 * N * macs, nbytes, PEAK_BF16_FLOPS if bf16 else
+                    PEAK_F32_FLOPS + PEAK_TF32_FLOPS / 3)
+
+
+def check_bound(name: str, ms: float, bound: float) -> float:
+    """The share of its bound a row reaches; over 100% fails (the kernel
+    did less work than the function needs)."""
+    share = bound / ms
+    if share > 1.0:
+        fail(f"{name}: {ms:.4f} ms is {share:.1%} of its bound {bound:.4f} "
+             "ms: it did less work than the function needs")
+    return share
 
 
 def k3_parts(flat: torch.Tensor, emb: int) -> dict:
@@ -535,6 +575,113 @@ def check_serving_kernels(p_cnn, packs, gen, dev) -> dict:
     print("  roi_cnn_q8: frames 0:1, 5:6, 3:17, 20:33, 31:33 alone are "
           "bitwise the same frames in a batch of 33")
     return errs
+
+
+def check_k1(p_cnn, flat, packs, gen, dev) -> dict:
+    """K1 and K1-bf16 (csrc/roi_cnn.cu: persistent blocks, conv2 and conv3
+    on the tensor cores) against their plain versions (TF32 off; f32 within
+    BAR_K1_LIVE / BAR_K1_STD, which one TF32 pass would miss) at the
+    edges of the kernel's own wave (roi_cnn_plan: a wave, a frame either
+    side of it, two waves and a frame), standardize off and on; then
+    bitwise: two launches on two waves and a frame are equal, and frames
+    0:1, 5:6, 3:17, 31:33 and the last three launched alone equal the same
+    rows of that batch (other blocks, at other steps of their walk, took
+    them there). Returns each build's largest error; raises on a
+    failure."""
+    from silent_speech_tpu_torch.infer.predictor import full_f32
+    from silent_speech_tpu_torch.ops import cuda_cnn
+
+    builds = {
+        "roi_cnn": (lambda r, std: cuda_cnn.roi_cnn_fused(
+            r, p_cnn, standardize=std, impl="kernel", flat=flat),
+            cuda_cnn.roi_cnn_plain, False),
+        "roi_cnn_bf16": (lambda r, std: cuda_cnn.roi_cnn_bf16(
+            r, p_cnn, standardize=std, impl="kernel",
+            flat=packs["roi_cnn_bf16"]), cuda_cnn.roi_cnn_bf16_plain, True)}
+    errs = {}
+    for name, (kfn, pfn, bf16) in builds.items():
+        pl = cuda_cnn.plan(bf16=bf16)
+        w = pl.wave
+        print(f"  {name}: {pl.threads} threads and {pl.smem} B of shared "
+              f"memory a block, {pl.blocks_per_sm} blocks an SM on "
+              f"{pl.sms} SMs: a wave of {w} blocks (roi_cnn_plan)")
+        roi = torch.randint(0, 256, (2 * w + 1, 48, 96), generator=gen,
+                            dtype=torch.uint8)
+        roi[32] = 255  # a constant frame among the first 33
+        roi = roi.to(dev)
+        err = 0.0
+        for N in (w - 1, w, w + 1, 2 * w + 1):
+            for std in (False, True):
+                got = kfn(roi[:N], std)
+                with full_f32():
+                    ref = pfn(roi[:N], p_cnn, std)
+                label = f"{name} N={N} standardize={std}"
+                err = max(err, check_bf16(label, got, ref, roi[:N]) if bf16
+                          else check_close(label, got, ref, BAR_K1_STD if std
+                                           else BAR_K1_LIVE))
+        for std in (False, True):
+            big = kfn(roi, std)
+            if not torch.equal(big, kfn(roi, std)):
+                fail(f"{name} standardize={std}: two launches differ")
+            for lo, hi in ((0, 1), (5, 6), (3, 17), (31, 33),
+                           (2 * w - 2, 2 * w + 1)):
+                if not torch.equal(kfn(roi[lo:hi].contiguous(), std),
+                                   big[lo:hi]):
+                    fail(f"{name} standardize={std}: frames {lo}:{hi} alone "
+                         f"differ from the same frames in a batch of {2 * w + 1}")
+        print(f"  {name}: two launches on {2 * w + 1} frames bitwise equal; "
+              f"frames 0:1, 5:6, 3:17, 31:33 and {2 * w - 2}:{2 * w + 1} "
+              "alone bitwise the same rows, standardize off and on")
+        errs[name] = err
+    return errs
+
+
+def time_k1(p_cnn, flat, packs, roi, dev, card: str) -> dict:
+    """K1 and K1-bf16 at N=8192 (the serving batch), 5,760 (the sweep's) and
+    32 (B=1): the kernel (the host's launches held out,
+    ``proto_parity_cnn.device_ms``), its plain version (TF32 off) and its
+    bound (:func:`k1_bound`; a row over 100% of it fails); K1 at N=8192 also on
+    the official init (the model's TinyROICNN, seed 0) beside the kernel
+    row's weights. Returns {(name, N): row}."""
+    from silent_speech_tpu_torch.infer.predictor import full_f32
+    from silent_speech_tpu_torch.ops import cuda_cnn
+    from silent_speech_tpu_torch.scripts import proto_parity_cnn as harness
+    from silent_speech_tpu_torch.scripts import proto_parity_e2e
+
+    builds = {"roi_cnn": (flat, cuda_cnn.roi_cnn_fused,
+                          cuda_cnn.roi_cnn_plain, False),
+              "roi_cnn_bf16": (packs["roi_cnn_bf16"], cuda_cnn.roi_cnn_bf16,
+                               cuda_cnn.roi_cnn_bf16_plain, True)}
+    rows = {}
+    for name, (fl, kfn, pfn, bf16) in builds.items():
+        for N in (B_SERVE * T_SERVE, B_SWEEP * 90, T_SERVE):
+            r = roi[:N]
+            hold = harness.Args(N, dev, 20 if N > T_SERVE else 200)
+            ms = harness.device_ms(
+                lambda: kfn(r, p_cnn, impl="kernel", flat=fl), hold)
+            with full_f32():
+                plain = cuda_ms(lambda: pfn(r, p_cnn), 5)
+            b_ms, b_by = k1_bound(N, CNN_FWD_MACS + 24 * 32,
+                                  N * (48 * 96 + 4 * 32)
+                                  + fl.element_size() * fl.numel(), bf16)
+            share = check_bound(f"{name} N={N}", ms, b_ms)
+            rows[name, N] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                             "bound_by": b_by, "share_of_bound": share,
+                             "kernel_split": K1_SPLIT[bf16]}
+            print(f"  {name} N={N}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by}), {share:.1%} of it; no "
+                  f"single PyTorch call computes it {card}")
+    N = B_SERVE * T_SERVE
+    official = {k: {n: t.to(dev) for n, t in v.items()}
+                for k, v in proto_parity_e2e.tiny_roi_cnn().items()}
+    oflat = cuda_cnn.flat_weights(official)
+    ms = harness.device_ms(lambda: cuda_cnn.roi_cnn_fused(
+        roi[:N], official, impl="kernel", flat=oflat), harness.Args(N, dev, 20))
+    rows["roi_cnn", N]["ms_official_init"] = ms
+    print(f"  roi_cnn N={N} on the official init (the model's TinyROICNN, "
+          f"seed 0): {ms:.4f} ms; on the kernel row's weights "
+          f"{rows['roi_cnn', N]['ms']:.4f} ms {card}")
+    return rows
 
 
 def write_train_corpus(out_dir: Path, words: list[str], per_word: int,
@@ -1126,7 +1273,7 @@ def check_cnn_front(dev) -> dict:
         with full_f32():
             ref = cuda_cnn.roi_cnn_plain(roi, p, std)
         check_close(f"roi_cnn debug_stop=None N={FRONT_N} standardize={std}",
-                    got, ref, BAR_CNN_STD if std else BAR_CNN_LIVE)
+                    got, ref, BAR_K1_STD if std else BAR_K1_LIVE)
     return errs
 
 
@@ -1247,19 +1394,20 @@ def time_cnn_front(dev, card: str) -> dict:
         roi, p, impl="kernel", flat=pflat), "operations")
     io = in_bytes + 4 * N * 32 + 4 * pflat.numel()
     for stop in cuda_cnn.DEBUG_STOPS:
-        b_ms, b_by = bound_ms(2 * N * STOP_MACS[stop], io)
+        b_ms, b_by = k1_bound(N, STOP_MACS[stop], io)
         r[f"bound_ms_{stop}"], r[f"bound_by_{stop}"] = b_ms, b_by
         r[f"ms_{stop}"] = timed(
             lambda: cuda_cnn.roi_cnn_fused(roi, p, impl="kernel", flat=pflat,
                                            debug_stop=stop), b_by)
+        r[f"share_of_bound_{stop}"] = check_bound(
+            f"roi_cnn_debug stop={stop}", r[f"ms_{stop}"], b_ms)
     with full_f32():
         r["plain_ms"] = timed(lambda: cuda_cnn.roi_cnn_debug_plain(
             roi, p, False, "load"), "bytes")
     r["ms"], r["bound_ms"], r["bound_by"] = \
         r["ms_load"], r["bound_ms_load"], r["bound_by_load"]
     r["library_ms"] = None
-    print(f"  K1 N={N}: {r['k1_ms']:.4f} ms (PERF.md section 6: 5.3285 ms); "
-          "debug stops " + ", ".join(
+    print(f"  K1 N={N}: {r['k1_ms']:.4f} ms; debug stops " + ", ".join(
               f"{s} {r['ms_' + s]:.4f} (bound {r['bound_ms_' + s]:.4f}, "
               f"{r['bound_by_' + s]})" for s in cuda_cnn.DEBUG_STOPS)
           + f" ms (cold L2 where bound by bytes); plain stop=load "
@@ -1606,7 +1754,7 @@ def main() -> int:
     for N in (B_SERVE * T_SERVE, 1000):
         roi = torch.randint(0, 256, (N, 48, 96), generator=gen,
                             dtype=torch.uint8).to(dev)
-        for std, bar in ((False, BAR_CNN_LIVE), (True, BAR_CNN_STD)):
+        for std, bar in ((False, BAR_K1_LIVE), (True, BAR_K1_STD)):
             got = cuda_cnn.roi_cnn_fused(roi, p_cnn, standardize=std,
                                          impl="kernel", flat=flat)
             torch.cuda.synchronize()
@@ -1639,6 +1787,8 @@ def main() -> int:
     packs = mode_packs(p_cnn)
     mode_errs = check_serving_kernels(
         p_cnn, packs, torch.Generator().manual_seed(SEED + 4), dev)
+    k1_errs = check_k1(p_cnn, flat, packs,
+                       torch.Generator().manual_seed(SEED + 11), dev)
 
     # ---- 4. the serving path, full width, random weights from the seed
     work = ROOT / "build" / "chip_smoke"
@@ -1848,17 +1998,8 @@ def main() -> int:
     print(f"timings {card}:")
     roi = torch.randint(0, 256, (B_SERVE * T_SERVE, 48, 96), generator=gen,
                         dtype=torch.uint8).to(dev)
-    cnn_ms = cuda_ms(lambda: cuda_cnn.roi_cnn_fused(roi, p_cnn, impl="kernel",
-                                                    flat=flat), 20)
-    with full_f32():
-        cnn_plain_ms = cuda_ms(lambda: cuda_cnn.roi_cnn_plain(roi, p_cnn),
-                               20)
     N = roi.shape[0]
-    cnn_bound, cnn_by = bound_ms(2 * N * (CNN_FWD_MACS + 24 * 32),
-                                 N * (48 * 96 + 4 * 32) + 4 * flat.numel())
-    print(f"  roi_cnn N={N}: kernel {cnn_ms:.4f} ms, plain "
-          f"{cnn_plain_ms:.4f} ms, bound {cnn_bound:.4f} ms "
-          f"({cnn_by}) {card}")
+    k1 = time_k1(p_cnn, flat, packs, roi, dev, card)
     dE = torch.randn(N, 32, generator=gen).to(dev)
     k3_ms = cuda_ms(lambda: cuda_cnn.roi_cnn_weight_grads(
         roi, dE, flat, standardize=True), 10)
@@ -1873,11 +2014,6 @@ def main() -> int:
           f"single PyTorch call computes it {card}")
     from silent_speech_tpu_torch.ops import cuda_cnn_im2col, cuda_cnn_q8
     mode_fns = {  # kernel, plain version, peak rate of the kernel's type
-        "roi_cnn_bf16": (
-            lambda r: cuda_cnn.roi_cnn_bf16(r, p_cnn, impl="kernel",
-                                            flat=packs["roi_cnn_bf16"]),
-            lambda r: cuda_cnn.roi_cnn_bf16_plain(r, p_cnn),
-            PEAK_BF16_FLOPS, 4 * packs["roi_cnn_bf16"].numel()),
         "roi_cnn_q8": (
             lambda r: cuda_cnn_q8.roi_cnn_q8(r, p_cnn, impl="kernel",
                                              packed=packs["roi_cnn_q8"]),
@@ -1893,7 +2029,7 @@ def main() -> int:
     for kname, (kfn, pfn, peak, wbytes) in mode_fns.items():
         for Nm in (B_SWEEP * 90, N):
             r = roi[:Nm]
-            k_ms = cuda_ms(lambda: kfn(r), 10)
+            k_ms = held_ms(lambda: kfn(r), dev)
             with full_f32():
                 p_ms = cuda_ms(lambda: pfn(r), 3, warmup=1)
             b_ms, b_by = bound_ms(2 * Nm * (CNN_FWD_MACS + 24 * 32),
@@ -2020,13 +2156,21 @@ def main() -> int:
           f"calls a row {card}:")
     _, bwd_ms = run_bwd_dot_scripts(card)
 
+    def k1_row(kname, launches, err):
+        by_n = {str(Nk): r for (name, Nk), r in k1.items() if name == kname}
+        return {"name": kname, "route": "cuda",
+                "source": "silent_speech_tpu_torch/csrc/roi_cnn.cu",
+                "replaces": "silent_speech_tpu/ops/pallas_cnn2.py:1018",
+                "launches": launches, "max_abs_err": err,
+                **by_n[str(N)], "library_ms": None,
+                **{k + "_sweep_shape": by_n[str(B_SWEEP * 90)][k]
+                   for k in ("ms", "plain_ms", "bound_ms")},
+                "by_frames": by_n}
+
     result = {"kernels": [
-        {"name": "roi_cnn", "route": "cuda",
-         "source": "silent_speech_tpu_torch/csrc/roi_cnn.cu",
-         "replaces": "silent_speech_tpu/ops/pallas_cnn2.py:1018",
-         "launches": counts["roi_cnn"], "max_abs_err": cnn_err,
-         "ms": cnn_ms, "plain_ms": cnn_plain_ms, "bound_ms": cnn_bound,
-         "bound_by": cnn_by, "library_ms": None},
+        k1_row("roi_cnn", counts["roi_cnn"], max(cnn_err, k1_errs["roi_cnn"])),
+        k1_row("roi_cnn_bf16", sweep["bf16"]["launches"],
+               max(mode_errs["roi_cnn_bf16"], k1_errs["roi_cnn_bf16"])),
         {"name": "gru_seq", "route": "cuda",
          "source": "silent_speech_tpu_torch/csrc/gru_seq.cu",
          "replaces": "silent_speech_tpu/ops/pallas_gru.py:165",
@@ -2065,16 +2209,15 @@ def main() -> int:
          "max_rel_err": k3_rel, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
     ]}
+    result["kernels"][1]["eval_dataset_clips_s"] = sweep["bf16"]["clips_s"]
     for kname, mode, replaces in (
-            ("roi_cnn_bf16", "bf16", "silent_speech_tpu/ops/pallas_cnn2.py:1018"),
             ("roi_cnn_q8", "q8", "silent_speech_tpu/ops/pallas_cnn2.py:937"),
             ("roi_cnn_im2col", "im2col", "silent_speech_tpu/ops/pallas_cnn.py:328")):
         k_ms, p_ms, b_ms, b_by = mode_ms[kname, N]
         k_sweep, p_sweep, b_sweep, _ = mode_ms[kname, B_SWEEP * 90]
-        source = "roi_cnn.cu" if kname == "roi_cnn_bf16" else f"{kname}.cu"
         result["kernels"].append({
             "name": kname, "route": "cuda",
-            "source": f"silent_speech_tpu_torch/csrc/{source}",
+            "source": f"silent_speech_tpu_torch/csrc/{kname}.cu",
             "replaces": replaces, "launches": sweep[mode]["launches"],
             "max_abs_err": mode_errs[kname], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,

@@ -1,7 +1,7 @@
 // Micro-kernels of the ROI CNN's input front for Hopper (sm_90a), at the
-// block geometry of the port's K1 (csrc/roi_cnn.cu): one 288-thread block
-// a frame, one 16-byte load a thread, a (50 x 98) zero-haloed f32 image in
-// shared memory, per-frame standardization in two passes.
+// block geometry of K1's first design (csrc/roi_cnn.cu): one 288-thread
+// block a frame, one 16-byte load a thread, a (50 x 98) zero-haloed f32
+// image in shared memory, per-frame standardization in two passes.
 //
 // Replaces scripts/probe_front.py::_probe_kernel (built by ::build), the
 // TPU's probe of the shipped K1 front at its own block geometry ((M, 384)

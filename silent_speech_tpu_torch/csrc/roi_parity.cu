@@ -36,7 +36,7 @@
 // columns [WE | WO] on the CUDA cores, with no patch matrix.
 // - One block of 288 threads a SM walks frames (grid-stride), so WE and WO
 //   (106,496 bytes) are loaded into shared memory once a block, not once a
-//   frame: they do not fit the 64 KB constant bank K1 uses.
+//   frame: they do not fit the 64 KB constant bank.
 // - Each frame's image is rebuilt from the four class arrays (one 16-byte
 //   load a thread, prefetched one frame ahead) into shared memory as three
 //   zero-haloed, transposed copies, one per dy: xT[dy][L][h'] =

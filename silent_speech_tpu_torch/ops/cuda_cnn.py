@@ -23,6 +23,12 @@ The bf16 mode (:func:`roi_cnn_bf16`, serving only) stores the activations
 and the three convs' weights in bf16 and accumulates in f32, rounding where
 the Pallas kernel rounds; :func:`roi_cnn_bf16_plain` lists the points.
 
+The forward kernel (csrc/roi_cnn.cu) runs conv2 and conv3 on the tensor
+cores (3xTF32 in f32, bf16 in the bf16 build) in persistent blocks, one
+wave of them, each packing the flat weights into shared memory once and
+walking frames; :func:`plan` reports the wave the kernel sizes itself to
+on a card.
+
 ``roi_cnn_fused(..., debug_stop=...)`` runs the f32 kernel truncated after a
 stage (:data:`DEBUG_STOPS`), the port of the Pallas kernel's perf-debug knob
 ``_DEBUG_STOP_AFTER`` (ops/pallas_cnn2.py:78), an explicit argument where
@@ -35,7 +41,7 @@ check.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -69,6 +75,39 @@ BWD_KERNEL = _kernels.Kernel(
      _P, _P,          # partial sums, out
      _I, _I, _I, _I,  # n, emb, standardize, blocks
      _P])             # stream
+
+
+class Plan(NamedTuple):
+    """The forward kernel's launch on a card, as ``roi_cnn_plan`` in
+    csrc/roi_cnn.cu sizes it: ``threads`` and ``smem`` bytes a block,
+    ``blocks_per_sm`` resident at once
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), ``sms`` and the
+    ``wave``: the grid of a launch of at least ``wave`` frames (a smaller
+    launch takes one block a frame)."""
+
+    threads: int
+    smem: int
+    blocks_per_sm: int
+    sms: int
+    wave: int
+
+
+def plan(bf16: bool = False, device=None) -> Plan:
+    """The forward kernel's launch (the f32 build, or the bf16 build) on a
+    card, the current one by default, as the kernel sizes it (card only;
+    ``roi_cnn_plan`` asks the card once per device and build)."""
+    device = torch.device("cuda" if device is None else device)
+    lib = _kernels.library()
+    fn = lib.roi_cnn_plan
+    fn.argtypes = [_I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        err = fn(int(bool(bf16)), out)
+    if err:
+        raise RuntimeError(f"roi_cnn_plan(bf16={bf16}): CUDA error {err}: "
+                           f"{lib.sst_cuda_error_string(err).decode()}")
+    return Plan(*out)
 
 
 def standardize_frames(r: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,9 @@
 """Micro-kernels of the ROI CNN's input front (csrc/roi_front_probe.cu) and
 their plain versions: the port of the Pallas probe kernels of
 scripts/probe_front.py (``_probe_kernel``, built by ``build``), at the
-block geometry of the port's K1 (one 288-thread block a frame, one 16-byte
-load a thread, a (50 x 98) zero-haloed image in shared memory), not the
-TPU's.
+block geometry of K1's first design (one 288-thread block a frame, one
+16-byte load a thread, a (50 x 98) zero-haloed image in shared memory), not
+the TPU's.
 
 ``front_widen`` and ``front_classes`` are the port's copies of the JAX
 package's ``ops/pallas_cnn2._front_widen`` and ``_front_classes`` (:348,

@@ -31,8 +31,8 @@ the probe's function, so the row has no library time). With no argument,
   kernels, f32 and bf16. ``matmul_precision='parity'`` has no counterpart:
   the f32 rows run in f32 with TF32 off.
 
-``ftile`` (``sweep_f_tile``): K1 runs one frame a block, so ``f_tile`` has
-no counterpart: each (variant, f_tile) row says so, and K1 and the live
+``ftile`` (``sweep_f_tile``): a K1 block takes one frame at a time, so
+``f_tile`` has no counterpart: each (variant, f_tile) row says so, and K1 and the live
 forward are timed once. A row's ``ms`` on the card is the device time of a
 call with the host's launches held out (``proto_parity_cnn.device_ms``).
 On the CPU (``device=cpu``) a run is a check of the code through the plain
@@ -60,7 +60,7 @@ BAR_CNN_LIVE = 2e-4  # K1 vs the plain CNN (tests/test_pallas_cnn2.py)
 MXU_ITERS = 2  # timed calls a shape after the warm-up (the JAX probe: 1)
 NO_COUNTERPART = ("the port's K1 computes this variant's function (one "
                   "kernel, tiled3): no separate counterpart")
-NO_F_TILE = "K1 runs one frame a block: f_tile has no counterpart"
+NO_F_TILE = "a K1 block takes one frame at a time: f_tile has no counterpart"
 
 
 def parse(argv: Sequence[str], what: str) -> harness.Args:
@@ -227,7 +227,7 @@ def sweep_f_tile(argv: Optional[Sequence[str]] = None) -> dict:
                                                      flat=flat),
                               cuda_cnn.roi_cnn_plain(roi[:256], cnn))
         harness.check("K1 vs the plain CNN", err, BAR_CNN_LIVE)
-        rows.append(harness.row("standalone K1 (one frame a block)",
+        rows.append(harness.row("standalone K1 (a frame at a time a block)",
                                 lambda: cuda_cnn.roi_cnn_fused(roi, cnn,
                                                                flat=flat),
                                 args, err))

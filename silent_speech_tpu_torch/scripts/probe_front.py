@@ -5,8 +5,8 @@ scripts/probe_front.py).
         [device=cuda] [iters=30]
 
 Micro-kernels (csrc/roi_front_probe.cu, ops/cuda_front_probe.py) at the
-block geometry of the port's K1 (one 288-thread block a frame, one 16-byte
-load a thread, a (50 x 98) haloed image in shared memory), read as a
+block geometry of K1's first design (one 288-thread block a frame, one
+16-byte load a thread, a (50 x 98) haloed image in shared memory), read as a
 cumulative ladder: ``dma`` the load alone; ``widen`` + u8 -> f32 and /255;
 ``front`` + the zero-haloed shared-memory store (the live front);
 ``front_std`` + K1's per-frame standardization (the training front). Then:

@@ -134,6 +134,109 @@ def test_roi_cnn_kernel_rejects_what_it_does_not_take(dev):
             cuda_cnn.roi_cnn_fused(roi, p, flat=bad)
 
 
+# K1 and K1-bf16 (csrc/roi_cnn.cu: persistent blocks, conv2 and conv3 on
+# the tensor cores) against their plain versions (TF32 off). f32: the 3xTF32
+# bars of chip_smoke.py (BAR_K1_LIVE / BAR_K1_STD), which sit between the
+# split's error and one TF32 pass's (tests/test_torch_roi_cnn_tc.py holds
+# both, emulated, on either side of them). bf16: chip_smoke's BAR_BF16
+# (BAR_BF16_CONST on constant frames, where one bf16 crossing moves a whole
+# map)
+_K1_BARS = {"f32": (2e-6, 1e-5), "bf16": (1e-4, 1e-4)}
+
+
+def _k1_call(build, roi, p, standardize, impl="kernel"):
+    if build == "bf16":
+        return cuda_cnn.roi_cnn_bf16(roi, p, standardize=standardize,
+                                     impl=impl)
+    return cuda_cnn.roi_cnn_fused(roi, p, standardize=standardize, impl=impl)
+
+
+def _k1_check(build, roi, p, standardize):
+    before = _kernels.launch_counts()
+    got = _k1_call(build, roi, p, standardize)
+    torch.cuda.synchronize()
+    after = _kernels.launch_counts()
+    assert [k for k in after if after[k] != before[k]] == \
+        [{"f32": "roi_cnn", "bf16": "roi_cnn_bf16"}[build]]
+    ref = _k1_call(build, roi, p, standardize, impl="plain")
+    N = roi.shape[0]
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    const = roi.reshape(N, -1).amin(1) == roi.reshape(N, -1).amax(1)
+    bar = _K1_BARS[build][standardize]
+    if build == "bf16":
+        torch.testing.assert_close(got[const], ref[const],
+                                   atol=_BF16_CONST_BAR, rtol=0)
+        got, ref = got[~const], ref[~const]
+    torch.testing.assert_close(got, ref, atol=bar, rtol=0)
+
+
+@pytest.mark.parametrize("build", ["f32", "bf16"])
+def test_roi_cnn_plan_is_one_wave_of_resident_blocks(dev, build):
+    """The kernel's own sizing (roi_cnn_plan): 288 threads, at least two
+    blocks resident an SM, the wave that many on every SM."""
+    pl = cuda_cnn.plan(bf16=build == "bf16")
+    props = torch.cuda.get_device_properties(dev)
+    assert pl.threads == 288 and pl.smem <= 232448
+    assert pl.blocks_per_sm >= 2 and pl.sms == props.multi_processor_count
+    assert pl.wave == pl.blocks_per_sm * pl.sms
+
+
+@pytest.mark.parametrize("standardize", [False, True])
+@pytest.mark.parametrize("N", ["1", "2", "33", "8192", "wave-1", "wave",
+                               "wave+1", "2*wave-1", "2*wave+1"])
+@pytest.mark.parametrize("build", ["f32", "bf16"])
+def test_roi_cnn_kernels_match_plain_across_waves(dev, build, N, standardize):
+    """Batches of one frame a block, one wave, and a wave and a frame:
+    the frames a block walks past its first."""
+    wave = cuda_cnn.plan(bf16=build == "bf16").wave
+    n = eval(N, {"wave": wave})
+    g = torch.Generator().manual_seed(n)
+    roi = torch.randint(0, 256, (n, 48, 96), generator=g, dtype=torch.uint8)
+    _k1_check(build, roi.to(dev), _cnn_params(dev, n % 97), standardize)
+
+
+@pytest.mark.parametrize("standardize", [False, True])
+@pytest.mark.parametrize("build", ["f32", "bf16"])
+def test_roi_cnn_kernels_on_constant_frames(dev, build, standardize):
+    roi = _const_frames((0, 255, 0, 255, 255)).to(dev)
+    _k1_check(build, roi, _cnn_params(dev, 11), standardize)
+
+
+@pytest.mark.parametrize("standardize", [False, True])
+@pytest.mark.parametrize("emb", [1, 32, 64])
+@pytest.mark.parametrize("build", ["f32", "bf16"])
+def test_roi_cnn_kernels_embedding_widths(dev, build, emb, standardize):
+    roi = torch.randint(0, 256, (40, 48, 96), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(emb))
+    _k1_check(build, roi.to(dev), _cnn_params(dev, emb, emb), standardize)
+
+
+@pytest.mark.parametrize("standardize", [False, True])
+@pytest.mark.parametrize("build", ["f32", "bf16"])
+def test_roi_cnn_kernels_rows_do_not_depend_on_the_launch(dev, build,
+                                                          standardize):
+    """Bitwise: two launches on the same frames are equal, and frames
+    launched alone equal the same frames in a batch of 33 and in a batch
+    of two waves and a frame (where another block, at another step of its
+    walk, takes them)."""
+    wave = cuda_cnn.plan(bf16=build == "bf16").wave
+    g = torch.Generator().manual_seed(21)
+    roi = torch.randint(0, 256, (2 * wave + 1, 48, 96), generator=g,
+                        dtype=torch.uint8)
+    roi[32] = 255
+    roi, p = roi.to(dev), _cnn_params(dev, 21)
+    big = _k1_call(build, roi, p, standardize)
+    again = _k1_call(build, roi, p, standardize)
+    assert torch.equal(big, again)
+    whole = _k1_call(build, roi[:33].contiguous(), p, standardize)
+    assert torch.equal(whole, big[:33])
+    for lo, hi in ((0, 1), (5, 6), (3, 17), (31, 33)):
+        part = _k1_call(build, roi[lo:hi].contiguous(), p, standardize)
+        assert torch.equal(part, whole[lo:hi]), (lo, hi)
+    tail = _k1_call(build, roi[-3:].contiguous(), p, standardize)
+    assert torch.equal(tail, big[-3:])
+
+
 @pytest.mark.parametrize("B,T,D,H", [(1, 1, 4, 8), (9, 5, 13, 40),
                                      (17, 33, 212, 192)])
 @pytest.mark.parametrize("reverse", [False, True])
