@@ -11,7 +11,9 @@ prints no result line):
 3. each kernel against its plain PyTorch version on the card, at the
    serving and training shapes, TF32 off for the plain version; the ROI CNN
    backward (K3) also against the plain version evaluated in float64, and
-   twice on the same inputs (bitwise-equal); the serving modes' ROI CNN
+   twice on the same inputs (bitwise-equal), and K3's recomputed conv3
+   means bitwise K1's at the edges of K3's own wave (roi_cnn_bwd_plan),
+   constant tie frames among them; the serving modes' ROI CNN
    kernels (K1-bf16, K4 int8, K5 im2col) at N=8192, a ragged N=33, N=1 and
    on all-0 and all-255 frames, and K4 on sub-batches (bitwise-equal rows);
    K1 and K1-bf16 at the edges of the kernel's own wave (roi_cnn_plan: a
@@ -29,7 +31,9 @@ prints no result line):
    batch 16, lr 1e-3, on a synthetic corpus (10 words x 8 clips of 20..90
    frames), with the kernels' launch counts over that run, then ``predict``
    on its checkpoint; and one train step (B=16, T=90, no dropout or
-   augmentation) through the kernels against the plain path;
+   augmentation) through the kernels against the plain path (its ROI CNN
+   along K1's route, which may differ from the plain forward's own only at
+   near-ties; the loss and gradients also against the plain path's own);
 5b. the serving modes: the ``eval-dataset`` CLI with that checkpoint over a
    second synthetic corpus (10 words x 32 clips of 20..90 frames, batch 64)
    in four modes: f32 kernels, bf16, int8 (tiled3_q8) and im2col, with
@@ -41,7 +45,10 @@ prints no result line):
    bound; K1 and K1-bf16 at N=8192, 5,760 and 32 with the host's launches
    held out, each beside its bound (the bf16 build at the bf16 rate; the
    f32 build at the f32 FMAs and the tensor cores' 3xTF32 together; a row
-   over 100% of its bound fails), and K1 on the official init beside it; K2 (one bidirectional layer, D=212, T=32) at B=1, 256 and 1024:
+   over 100% of its bound fails), and K1 on the official init beside it;
+   K3 at N=8192 and 1,440 (the protocol's train step) with the host's
+   launches held out, beside its bound at the same rates as K1 f32 (over
+   100% fails), and at N=8192 by stage (its check entry's stops); K2 (one bidirectional layer, D=212, T=32) at B=1, 256 and 1024:
    the layer and each of its two kernels with the host's launches held
    out, beside torch.nn.GRU and torch.addmm, with its plan (C, BT, the
    route of Wh) and bounds (a time under its bound fails); the serving
@@ -120,7 +127,9 @@ BAR_CNN_LIVE, BAR_CNN_STD, BAR_GRU, BAR_LOGITS = 2e-4, 2e-3, 1e-4, 1e-3
 # (tests/test_torch_roi_cnn_tc.py holds the emulated split at least 10x
 # inside these bars and one pass outside them)
 BAR_K1_LIVE, BAR_K1_STD = 2e-6, 1e-5
-# K3: max |d| / max |ref| per gradient tensor (tests/test_fused_train.py);
+# K3: max |d| / max |ref| per gradient tensor (tests/test_fused_train.py;
+# tests/test_torch_roi_cnn_bwd_tc.py holds K3's emulated 3xTF32 gradients
+# at least 10x inside it and one TF32 pass outside it);
 # train step: loss, gradients and post-Adam parameters
 # (tests/test_fused_train.py:180-189, tests/test_train.py:94-113)
 BAR_K3, BAR_LOSS, BAR_GRAD, BAR_PARAM = 5e-5, 1e-5, 1e-4, 3e-4
@@ -128,6 +137,14 @@ BAR_K3, BAR_LOSS, BAR_GRAD, BAR_PARAM = 5e-5, 1e-5, 1e-4, 3e-4
 # pool windows to different inputs; the f32 plain version itself lies up to
 # 2.4e-4 from its float64 evaluation there (PERF.md, section 6)
 BAR_K3_ROUTING = 5e-4
+# K3 differentiates the branch of K1's forward (the route its check entry
+# reports): it is held at BAR_K3 to the plain version along that route, and
+# the route may differ from the float64 plain forward's own only at
+# near-ties: a pool window's max minus the value taken, or a ReLU input's
+# |value| where the two disagree on its sign, under this share of the
+# layer's largest magnitude in the frame (K1's f32 error is about 1e-6 of
+# it; a window routed to another element shows a gap of the layer's scale)
+ROUTE_TOL = 1e-5
 # the serving modes' ROI CNN kernels against their plain versions: bf16
 # differs where an f32 sum, taken in another order, crosses a bf16 rounding
 # boundary (one bf16 step of one activation, about 1e-6 of the output); on
@@ -419,21 +436,42 @@ def device_breakdown(fn, calls: int = 3) -> dict:
             "device_ms": by_cat or None}
 
 
-def plain_cnn_grads(roi, dE, p_cnn, standardize, dtype):
+def plain_cnn_grads(roi, dE, p_cnn, standardize, dtype, route=None):
     """The plain version's weight gradients of sum(out * dE), autograd
-    through the plain ROI CNN in ``dtype`` (TF32 off), as a flat vector in
-    the kernels' layout."""
+    through the plain ROI CNN in ``dtype`` (TF32 off), or along ``route``
+    (cuda_cnn_check.roi_cnn_plain_routed), as a flat vector in the
+    kernels' layout."""
     from silent_speech_tpu_torch.infer.predictor import full_f32
-    from silent_speech_tpu_torch.ops import cuda_cnn
+    from silent_speech_tpu_torch.ops import cuda_cnn, cuda_cnn_check
 
     leaves = {k: {n: t.detach().to(dtype).requires_grad_(True)
                   for n, t in v.items()} for k, v in p_cnn.items()}
     with full_f32():
-        out = cuda_cnn.roi_cnn_train_plain(roi, leaves, standardize)
+        out = (cuda_cnn.roi_cnn_train_plain(roi, leaves, standardize)
+               if route is None else
+               cuda_cnn_check.roi_cnn_plain_routed(roi, leaves, standardize,
+                                                   route))
         flat_leaves = [t for v in leaves.values() for t in v.values()]
         grads = iter(torch.autograd.grad(out, flat_leaves, dE.to(dtype)))
     return cuda_cnn.flat_weights({k: {n: next(grads) for n in v}
                                   for k, v in leaves.items()})
+
+
+def route_check(label: str, roi, p_cnn, standardize, route) -> str:
+    """Where K1's route differs from the float64 plain forward's own: a
+    summary line; fails unless every difference is a near-tie (a gap under
+    ROUTE_TOL of the layer's largest magnitude in the frame) and none lies
+    at an exact tie (where the first max, and ReLU'(0) = 0, decide)."""
+    from silent_speech_tpu_torch.ops import cuda_cnn_check
+
+    p64 = {k: {n: t.double() for n, t in v.items()} for k, v in p_cnn.items()}
+    gaps = cuda_cnn_check.route_gaps(roi, p64, standardize, route)
+    text = ("K1's route differs from the f64 plain forward's at " + ", ".join(
+        f"{k} {g.diffs} (largest gap {g.gap:.1e}, {g.at_ties} at exact ties)"
+        for k, g in gaps.items()) + f" (bar {ROUTE_TOL:g}, none at ties)")
+    if not cuda_cnn_check.near_ties_only(gaps, ROUTE_TOL):
+        fail(f"{label}: {text}")
+    return text
 
 
 def check_k3(p_cnn, flat, gen, dev) -> tuple[float, float]:
@@ -444,8 +482,15 @@ def check_k3(p_cnn, flat, gen, dev) -> tuple[float, float]:
     K3 must be within BAR_K3 of the f32 plain version. At N=1000 and 8192,
     where two f32 implementations route some near-tied pool windows
     differently, it must be within BAR_K3_ROUTING of both the f32 plain
-    version and its float64 evaluation."""
-    from silent_speech_tpu_torch.ops import cuda_cnn
+    version and its float64 evaluation. In every case K3 must also be
+    within BAR_K3 of the f32 plain version along the route K3's check entry
+    reports (K1's forward branch), and that route must differ from the
+    float64 plain forward's own only at near-ties (gaps under ROUTE_TOL)
+    and never at an exact tie. Then K3's recompute against K1: the conv3
+    means K3's check entry writes must be bitwise K1's (emb=24 identity
+    fc) on random frames with the constant tie frames, standardize off and
+    on, N a frame either side of K3's wave."""
+    from silent_speech_tpu_torch.ops import cuda_cnn, cuda_cnn_check
 
     emb = p_cnn["fc"]["b"].shape[0]
     rand = lambda n: torch.randint(0, 256, (n, 48, 96), generator=gen,
@@ -492,6 +537,44 @@ def check_k3(p_cnn, flat, gen, dev) -> tuple[float, float]:
             if not ok:
                 fail(f"{label} {k}: rel err {e_k32[k]:.2e} vs plain, "
                      f"{e_k64[k]:.2e} vs f64 (plain f32 {e_p64[k]:.2e})")
+        again, _, route = cuda_cnn_check.roi_cnn_bwd_check(
+            roi, dE, flat, standardize=std)
+        if not torch.equal(again, got):
+            fail(f"{label}: the check entry's gradients differ")
+        e_r = rel_errs(got, plain_cnn_grads(roi, dE, p_cnn, std,
+                                            torch.float32, route), emb)
+        gaps = route_check(label, roi, p_cnn, std, route)
+        print(f"    along K1's route (bar {BAR_K3:g}): " + ", ".join(
+            f"{k} {v:.1e}" for k, v in e_r.items()) + f"; {gaps}")
+        bad = [k for k, v in e_r.items() if not v < BAR_K3]
+        if bad:
+            fail(f"{label}: rel err along K1's route over {BAR_K3:g} for "
+                 f"{bad}: {e_r}")
+    pl = cuda_cnn.bwd_plan()
+    print(f"  roi_cnn_bwd: {pl.threads} threads and {pl.smem} B of shared "
+          f"memory a block, {pl.blocks_per_sm} blocks an SM on {pl.sms} SMs: "
+          f"a wave of {pl.wave} blocks (roi_cnn_bwd_plan)")
+    eye = dict(p_cnn, fc={"w": torch.eye(24, device=dev),
+                          "b": torch.zeros(24, device=dev)})
+    flat24 = cuda_cnn.flat_weights(eye)
+    for N in (pl.wave - 1, pl.wave + 1):
+        roi = torch.cat([rand(N - 4), const([0, 37, 128, 255])]).to(dev)
+        for std in (False, True):
+            _, feat, _ = cuda_cnn_check.roi_cnn_bwd_check(
+                roi, torch.randn(N, 24, generator=gen).to(dev), flat24,
+                standardize=std)
+            k1 = cuda_cnn.roi_cnn_fused(roi, eye, standardize=std,
+                                        impl="kernel", flat=flat24)
+            torch.cuda.synchronize()
+            bad = (feat != k1).any(dim=1)
+            if bad.any():
+                fail(f"roi_cnn_bwd N={N} standardize={std}: the recomputed "
+                     f"conv3 means differ from K1's on {int(bad.sum())} of "
+                     f"{N} frames (max |d| "
+                     f"{(feat - k1).abs().max().item():.3e})")
+            print(f"  roi_cnn_bwd N={N} standardize={std}: the recomputed "
+                  "conv3 means are bitwise K1's on every frame (4 of them "
+                  "constant tie frames)")
     return max_abs, max_rel
 
 
@@ -684,6 +767,55 @@ def time_k1(p_cnn, flat, packs, roi, dev, card: str) -> dict:
     return rows
 
 
+# K3's timed batches: the serving batch's frames and the reference
+# protocol's train step (B=16, T=90)
+K3_STEP_N = B_TRAIN * T_TRAIN
+
+
+def time_k3(p_cnn, flat, roi, dE, dev, card: str) -> dict:
+    """K3 (standardize on, as training) at N=8192 and at the protocol
+    step's 1,440 frames: the kernel (the host's launches held out), its
+    plain version (autograd through cuDNN, TF32 off, forward included) and
+    its bound: the recompute's and the gradients' multiply-adds (CNN_FWD_MACS
+    + CNN_BWD_MACS + the fc's) at the f32 FMAs and 3xTF32 tensor cores
+    together, as K1's f32 build (a row over 100% of it fails); at N=8192
+    also by stage, each frame ended at the check entry's stops
+    (cuda_cnn.BWD_STOPS). Returns {N: row}."""
+    from silent_speech_tpu_torch.ops import cuda_cnn
+
+    rows = {}
+    for N in (roi.shape[0], K3_STEP_N):
+        r, d = roi[:N], dE[:N]
+        ms = held_ms(lambda: cuda_cnn.roi_cnn_weight_grads(
+            r, d, flat, standardize=True), dev)
+        plain = cuda_ms(lambda: plain_cnn_grads(r, d, p_cnn, True,
+                                                torch.float32), 5)
+        b_ms, b_by = k1_bound(N, CNN_FWD_MACS + CNN_BWD_MACS + 3 * 24 * 32,
+                              N * (48 * 96 + 4 * 32) + 2 * 4 * flat.numel())
+        share = check_bound(f"roi_cnn_bwd N={N}", ms, b_ms)
+        rows[N] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                   "bound_by": b_by, "share_of_bound": share}
+        print(f"  roi_cnn_bwd N={N} standardize=True: kernel {ms:.4f} ms, "
+              f"plain (autograd through cuDNN, forward included) "
+              f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {share:.1%} of "
+              f"it; no single PyTorch call computes it {card}")
+    # where the time goes: each frame ended at a stop of the check entry
+    t = {s: held_ms(lambda: cuda_cnn.roi_cnn_bwd_entry(
+        roi, dE, flat, True, stop=s), dev)
+        for s in cuda_cnn.BWD_STOPS}
+    t["all"] = rows[roi.shape[0]]["ms"]
+    order = list(t)
+    stages = {s: t[s] - (t[order[i - 1]] if i else 0.0)
+              for i, s in enumerate(order)}
+    rows[roi.shape[0]]["stage_ms"] = stages
+    print(f"  roi_cnn_bwd N={roi.shape[0]} by stage (each frame ended at a "
+          f"stop): recompute {stages['forward']:.4f}, fc + dW3 + db3 "
+          f"{stages['dw3']:.4f}, d p2 + db2 {stages['dp2']:.4f}, dW2 "
+          f"{stages['dw2']:.4f}, d p1 + dW1 + db1 {stages['all']:.4f} ms "
+          f"{card}")
+    return rows
+
+
 def write_train_corpus(out_dir: Path, words: list[str], per_word: int,
                        seed: int = SEED) -> None:
     """Synthetic clips of 20..90 frames through the port's data/synthetic.py,
@@ -717,25 +849,56 @@ def train_batch(cfg, B: int, T: int, rng, dev):
 
 def train_step_parity(params, cfg, batch, dev) -> None:
     """One train step (forward, loss, backward, clip, Adam) from the same
-    weights through the kernels and through the plain path; raises unless
-    the loss, every gradient and every post-step parameter agree and every
-    gradient is nonzero."""
+    weights through the kernels and through the plain path, on the plain
+    path's own route and along K1's (the branch the kernels' forward took:
+    the plain ROI CNN is cuda_cnn_check.roi_cnn_plain_routed on the route
+    K3's check entry reports): raises unless the loss, every gradient and
+    every post-step parameter agree with both, K1's route differs from the
+    plain forward's own only at near-ties (route_check), and every
+    gradient is nonzero.
+
+    Adam's first step moves a parameter by lr g / (|g| + eps), about lr
+    sign(g). On the plain path's own route a near-tie taken the other way
+    moves a few gradient entries by about 1e-7, and where such an entry is
+    near 0 its sign can change, so the parameter moves by up to 2 lr the
+    other way. So, on its own route only, an entry whose gradient has
+    opposite signs in the two runs while lying within BAR_K3 of its
+    tensor's largest |g| in both (its sign is below the kernels' own
+    accuracy) is held at 2 lr; every other entry, and every entry along
+    K1's route, at BAR_PARAM."""
     from silent_speech_tpu_torch.infer.predictor import full_f32
     from silent_speech_tpu_torch.models.bigru import BiGRUClassifier
-    from silent_speech_tpu_torch.ops import _kernels
+    from silent_speech_tpu_torch.ops import _kernels, cuda_cnn, cuda_cnn_check
     from silent_speech_tpu_torch.train.step import (make_optimizer,
                                                     smoothed_cross_entropy)
 
     X, L, R, y = batch
+    lr = 3e-4
+    routes = []
+
+    def along_k1(roi_u8, p, standardize):
+        with torch.no_grad():
+            emb = p["fc"]["b"].shape[0]
+            _, _, route = cuda_cnn_check.roi_cnn_bwd_check(
+                roi_u8.contiguous(), torch.zeros(roi_u8.shape[0], emb,
+                                                 device=roi_u8.device),
+                cuda_cnn.flat_weights(p), standardize=standardize)
+        routes.append((roi_u8, {k: {n: t.detach().clone()  # before Adam
+                                    for n, t in v.items()}
+                                for k, v in p.items()}, standardize, route))
+        return cuda_cnn_check.roi_cnn_plain_routed(roi_u8, p, standardize,
+                                                   route)
+
     res = {}
-    for impl in ("kernel", "plain"):
+    for run in ("kernel", "plain", "routed"):
+        impl = "kernel" if run == "kernel" else "plain"
         model = BiGRUClassifier.from_jax_params(params, cfg).to(dev)
-        opt = make_optimizer(model, 3e-4)
+        opt = make_optimizer(model, lr)
         before = _kernels.launch_counts()
         with full_f32():
             logits = model.train_forward(
                 X, L, R, generator=torch.Generator(device=dev),
-                roi_impl=impl)
+                roi_impl=impl, train_cnn=along_k1 if run == "routed" else None)
             loss = smoothed_cross_entropy(logits, y, cfg.num_classes, 0.05)
             opt.zero_grad()
             loss.backward()
@@ -751,22 +914,45 @@ def train_step_parity(params, cfg, batch, dev) -> None:
         zero = [n for n, g in grads.items() if not g.abs().max() > 0]
         if zero:
             fail(f"train step roi_impl={impl}: zero gradient for {zero}")
-        res[impl] = (loss.item(), grads,
-                     {n: p.detach().clone()
-                      for n, p in model.named_parameters()})
-    (lk, gk, pk), (lp, gp, pp) = res["kernel"], res["plain"]
-    diff = {"loss": abs(lk - lp),
-            "grad": max((gk[n] - gp[n]).abs().max().item() for n in gk),
-            "param": max((pk[n] - pp[n]).abs().max().item() for n in pk)}
-    print(f"  train step B={X.shape[0]} T={X.shape[1]} kernels vs plain: "
-          f"loss {lk:.6f} vs {lp:.6f} (|d| {diff['loss']:.2e}, bar "
-          f"{BAR_LOSS:g}), grads max |d| {diff['grad']:.2e} (bar "
-          f"{BAR_GRAD:g}), params after Adam max |d| {diff['param']:.2e} "
-          f"(bar {BAR_PARAM:g}); every gradient nonzero")
-    for key, bar in (("loss", BAR_LOSS), ("grad", BAR_GRAD),
-                     ("param", BAR_PARAM)):
-        if not diff[key] <= bar:
-            fail(f"train step {key} differs by {diff[key]:.2e} > {bar:g}")
+        res[run] = (loss.item(), grads,
+                    {n: p.detach().clone()
+                     for n, p in model.named_parameters()})
+    roi, p_roi, std, route = routes[0]
+    gaps = route_check("train step", roi, p_roi, std, route)
+    lk, gk, pk = res["kernel"]
+    below = lambda g: g.abs() <= BAR_K3 * g.abs().max()
+    for run in ("routed", "plain"):
+        lp, gp, pp = res[run]
+        flip = {n: (gk[n] * gp[n] < 0) & below(gk[n]) & below(gp[n])
+                if run == "plain" else torch.zeros_like(gk[n], dtype=bool)
+                for n in gk}
+        dp = {n: (pk[n] - pp[n]).abs() for n in pk}
+        diff = {"loss": abs(lk - lp),
+                "grad": max((gk[n] - gp[n]).abs().max().item() for n in gk),
+                "param": max((dp[n][~flip[n]].max().item() for n in pk
+                              if not flip[n].all()), default=0.0)}
+        n_flip = sum(int(f.sum()) for f in flip.values())
+        d_flip = max((dp[n][flip[n]].max().item() for n in pk
+                      if flip[n].any()), default=0.0)
+        route_name = "along K1's" if run == "routed" else "on its own"
+        print(f"  train step B={X.shape[0]} T={X.shape[1]} kernels vs plain "
+              f"{route_name} route: "
+              f"loss {lk:.6f} vs {lp:.6f} (|d| {diff['loss']:.2e}, bar "
+              f"{BAR_LOSS:g}), grads max |d| {diff['grad']:.2e} (bar "
+              f"{BAR_GRAD:g}), params after Adam max |d| {diff['param']:.2e} "
+              f"(bar {BAR_PARAM:g})"
+              + (f"; {n_flip} entries whose gradient changes sign within "
+                 f"BAR_K3 of its tensor's largest: max |d| {d_flip:.2e} "
+                 f"(bar 2 lr = {2 * lr:g})" if run == "plain" else ""))
+        for key, bar in (("loss", BAR_LOSS), ("grad", BAR_GRAD),
+                         ("param", BAR_PARAM)):
+            if not diff[key] <= bar:
+                fail(f"train step ({run}) {key} differs by {diff[key]:.2e} "
+                     f"> {bar:g}")
+        if not d_flip <= 2 * lr:
+            fail(f"train step ({run}): a parameter whose gradient changes "
+                 f"sign differs by {d_flip:.2e} > {2 * lr:g}")
+    print(f"    {gaps}; every gradient nonzero")
 
 
 def train_step_fn(params, cfg, batch, dev, impl):
@@ -2001,17 +2187,7 @@ def main() -> int:
     N = roi.shape[0]
     k1 = time_k1(p_cnn, flat, packs, roi, dev, card)
     dE = torch.randn(N, 32, generator=gen).to(dev)
-    k3_ms = cuda_ms(lambda: cuda_cnn.roi_cnn_weight_grads(
-        roi, dE, flat, standardize=True), 10)
-    k3_plain_ms = cuda_ms(lambda: plain_cnn_grads(roi, dE, p_cnn, True,
-                                                  torch.float32), 5)
-    k3_bound, k3_by = bound_ms(
-        2 * N * (CNN_FWD_MACS + CNN_BWD_MACS + 3 * 24 * 32),
-        N * (48 * 96 + 4 * 32) + 2 * 4 * flat.numel())
-    print(f"  roi_cnn_bwd N={N} standardize=True: kernel {k3_ms:.4f} ms, "
-          f"plain (autograd through cuDNN, forward included) "
-          f"{k3_plain_ms:.4f} ms, bound {k3_bound:.4f} ms ({k3_by}); no "
-          f"single PyTorch call computes it {card}")
+    k3 = time_k3(p_cnn, flat, roi, dE, dev, card)
     from silent_speech_tpu_torch.ops import cuda_cnn_im2col, cuda_cnn_q8
     mode_fns = {  # kernel, plain version, peak rate of the kernel's type
         "roi_cnn_q8": (
@@ -2206,8 +2382,10 @@ def main() -> int:
          "source": "silent_speech_tpu_torch/csrc/roi_cnn_bwd.cu",
          "replaces": "silent_speech_tpu/ops/pallas_cnn2_grad.py:319",
          "launches": train_counts["roi_cnn_bwd"], "max_abs_err": k3_abs,
-         "max_rel_err": k3_rel, "ms": k3_ms, "plain_ms": k3_plain_ms,
-         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
+         "max_rel_err": k3_rel, **k3[N], "library_ms": None,
+         **{k + "_protocol_step": k3[K3_STEP_N][k]
+            for k in ("ms", "plain_ms", "bound_ms", "share_of_bound")},
+         "plan": cuda_cnn.bwd_plan()._asdict()},
     ]}
     result["kernels"][1]["eval_dataset_clips_s"] = sweep["bf16"]["clips_s"]
     for kname, mode, replaces in (

@@ -31,7 +31,7 @@ different logits on the two.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Optional
+from typing import Callable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -115,20 +115,24 @@ def init_params(cfg: BiGRUConfig, generator: torch.Generator) -> dict:
 
 def roi_embedding(p_roi: dict, roi: torch.Tensor, *, standardize: bool,
                   roi_impl: str = "auto", roi_pack: str = "roi_cnn",
-                  packed=None, differentiable: bool = False) -> torch.Tensor:
+                  packed=None, differentiable: bool = False,
+                  train_cnn: Optional[Callable] = None) -> torch.Tensor:
     """TinyROICNN embedding: (B, T, H, W) uint8 -> (B, T, emb) f32, through
     the ROI CNN kernel ``roi_pack`` (a ROI_PACKS name, ``roi_pack_name`` of
     the serving mode) or its plain version (``roi_impl``). ``packed``: the
     kernel's weights in its layout (``ROI_PACKS[roi_pack](p_roi)``), for
     inference. ``differentiable``: the training CNN
     (``cuda_cnn.roi_cnn_fused_train``, the f32 'roi_cnn' only), whose
-    gradient reaches ``p_roi``."""
+    gradient reaches ``p_roi``, or ``train_cnn(frames, p_roi,
+    standardize)`` in its place where given."""
     if roi.dtype != torch.uint8:
         raise ValueError(f"the ROI embedding takes raw uint8 frames, got "
                          f"{roi.dtype}")
     B, T = roi.shape[:2]
     frames = roi.reshape(B * T, *roi.shape[2:])
-    if differentiable:
+    if differentiable and train_cnn is not None:
+        emb = train_cnn(frames, p_roi, standardize)
+    elif differentiable:
         emb = cuda_cnn.roi_cnn_fused_train(frames, p_roi,
                                            standardize=standardize,
                                            impl=roi_impl)
@@ -313,13 +317,16 @@ class BiGRUClassifier(nn.Module):
                 roi_standardize: bool = True, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 roi_impl: str = "auto", gru_impl: str = "auto",
-                roi_variant: str = "tiled3", compute_dtype: str = "float32"
-                ) -> torch.Tensor:
+                roi_variant: str = "tiled3", compute_dtype: str = "float32",
+                train_cnn: Optional[Callable] = None) -> torch.Tensor:
         """X: (B, T, D) f32; lengths: (B,); roi: (B, T, H, W) uint8 or None.
         Returns logits (B, num_classes) f32. ``roi_impl`` / ``gru_impl``:
         'auto' | 'kernel' | 'plain' (ops._kernels). ``roi_variant`` and
         ``compute_dtype``: the serving modes (module docstring); the
         differentiable forward takes only 'tiled3' and 'float32'.
+        ``train_cnn``: the differentiable forward's ROI CNN, (frames,
+        params, standardize) -> embeddings, in place of
+        ``roi_cnn_fused_train`` (a check's reference).
 
         ``train``: GRU inter-layer and head dropout, drawn from
         ``generator`` (on X's device). The forward is differentiable when
@@ -364,7 +371,8 @@ class BiGRUClassifier(nn.Module):
             roi_e = roi_embedding(p["roi_cnn"], roi, standardize=roi_standardize,
                                   roi_impl=roi_impl, roi_pack=pack,
                                   packed=kw.get(pack),
-                                  differentiable=differentiable)
+                                  differentiable=differentiable,
+                                  train_cnn=train_cnn)
             if bf16:
                 roi_e = cuda_cnn.round_bf16(roi_e)
             Z = torch.cat([X, roi_e], dim=-1)
@@ -395,11 +403,12 @@ class BiGRUClassifier(nn.Module):
 
     def train_forward(self, X, lengths, roi=None, *, train: bool = True,
                       generator: Optional[torch.Generator] = None,
-                      roi_impl: str = "auto", gru_impl: str = "auto"
-                      ) -> torch.Tensor:
+                      roi_impl: str = "auto", gru_impl: str = "auto",
+                      train_cnn: Optional[Callable] = None) -> torch.Tensor:
         """The training-path forward (per-frame ROI standardization,
         train_model_official.py:279-310); ``train`` adds dropout drawn from
-        ``generator``."""
+        ``generator``; ``train_cnn`` as in :meth:`forward`."""
         return self.forward(X, lengths, roi, roi_standardize=True,
                             train=train, generator=generator,
-                            roi_impl=roi_impl, gru_impl=gru_impl)
+                            roi_impl=roi_impl, gru_impl=gru_impl,
+                            train_cnn=train_cnn)

@@ -27,7 +27,14 @@ The forward kernel (csrc/roi_cnn.cu) runs conv2 and conv3 on the tensor
 cores (3xTF32 in f32, bf16 in the bf16 build) in persistent blocks, one
 wave of them, each packing the flat weights into shared memory once and
 walking frames; :func:`plan` reports the wave the kernel sizes itself to
-on a card.
+on a card. The backward kernel (csrc/roi_cnn_bwd.cu) recomputes each
+frame's forward through the forward's own stage code
+(csrc/roi_cnn_stages.cuh), so its pool argmaxes and ReLU masks are those
+of the forward that made the loss, and forms the GEMM-shaped gradient
+products as 3xTF32 on the tensor cores, in persistent blocks of its own
+wave (:func:`bwd_plan`) and a fixed summation order;
+its check instantiation (:func:`roi_cnn_bwd_entry`; ops/cuda_cnn_check.py
+holds the checks) also writes the means it recomputed and its route.
 
 ``roi_cnn_fused(..., debug_stop=...)`` runs the f32 kernel truncated after a
 stage (:data:`DEBUG_STOPS`), the port of the Pallas kernel's perf-debug knob
@@ -75,11 +82,22 @@ BWD_KERNEL = _kernels.Kernel(
      _P, _P,          # partial sums, out
      _I, _I, _I, _I,  # n, emb, standardize, blocks
      _P])             # stream
+# the backward kernel's check instantiation (ops/cuda_cnn_check.py)
+BWD_CHECK_KERNEL = _kernels.Kernel(
+    "roi_cnn_bwd_check", "roi_cnn_backward_check",
+    [_P, _P, _P, _P, _P,  # as BWD_KERNEL, then
+     _P, _P,              # feat (n, 24) f32, route (n, ROUTE_BYTES) uint8
+     _I,                  # stop
+     _I, _I, _I, _I, _P])
+# its stops (csrc/roi_cnn_bwd.cu Stop): each frame ends after the
+# recompute, after fc, dW3 and db3, after d p2 and db2, or after dW2
+BWD_STOPS = {"forward": 1, "dw3": 2, "dp2": 3, "dw2": 4}
 
 
 class Plan(NamedTuple):
-    """The forward kernel's launch on a card, as ``roi_cnn_plan`` in
-    csrc/roi_cnn.cu sizes it: ``threads`` and ``smem`` bytes a block,
+    """A persistent kernel's launch on a card, as the kernel sizes it
+    (``roi_cnn_plan`` in csrc/roi_cnn.cu, ``roi_cnn_bwd_plan`` in
+    csrc/roi_cnn_bwd.cu): ``threads`` and ``smem`` bytes a block,
     ``blocks_per_sm`` resident at once
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor), ``sms`` and the
     ``wave``: the grid of a launch of at least ``wave`` frames (a smaller
@@ -92,22 +110,33 @@ class Plan(NamedTuple):
     wave: int
 
 
+def _ask_plan(symbol: str, args: tuple, n_out: int, device) -> list:
+    device = torch.device("cuda" if device is None else device)
+    lib = _kernels.library()
+    fn = getattr(lib, symbol)
+    fn.argtypes = [_I] * len(args) + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * n_out)()
+    with torch.cuda.device(device):
+        err = fn(*args, out)
+    if err:
+        raise RuntimeError(f"{symbol}{args}: CUDA error {err}: "
+                           f"{lib.sst_cuda_error_string(err).decode()}")
+    return list(out)
+
+
 def plan(bf16: bool = False, device=None) -> Plan:
     """The forward kernel's launch (the f32 build, or the bf16 build) on a
     card, the current one by default, as the kernel sizes it (card only;
     ``roi_cnn_plan`` asks the card once per device and build)."""
-    device = torch.device("cuda" if device is None else device)
-    lib = _kernels.library()
-    fn = lib.roi_cnn_plan
-    fn.argtypes = [_I, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
-    out = (ctypes.c_int * 5)()
-    with torch.cuda.device(device):
-        err = fn(int(bool(bf16)), out)
-    if err:
-        raise RuntimeError(f"roi_cnn_plan(bf16={bf16}): CUDA error {err}: "
-                           f"{lib.sst_cuda_error_string(err).decode()}")
-    return Plan(*out)
+    return Plan(*_ask_plan("roi_cnn_plan", (int(bool(bf16)),), 5, device))
+
+
+def bwd_plan(device=None) -> Plan:
+    """The backward kernel's launch on a card, the current one by default,
+    as ``roi_cnn_bwd_plan`` in csrc/roi_cnn_bwd.cu sizes it (card only; it
+    asks the card once per device)."""
+    return Plan(*_ask_plan("roi_cnn_bwd_plan", (), 5, device))
 
 
 def standardize_frames(r: torch.Tensor) -> torch.Tensor:
@@ -383,13 +412,11 @@ def roi_cnn_bf16(roi_u8: torch.Tensor, params: dict, *,
     return _forward_kernel(roi_u8, flat, emb, standardize, BF16_KERNEL)
 
 
-def roi_cnn_weight_grads(roi_u8: torch.Tensor, dE: torch.Tensor,
-                         flat: torch.Tensor, *,
-                         standardize: bool) -> torch.Tensor:
-    """The backward kernel: the gradient of sum(out * dE) with respect to
-    the flat weight buffer, where out is the forward of ``roi_u8`` with
-    ``flat``. roi_u8: (N, 48, 96) uint8 on a CUDA device; dE: (N, emb) f32.
-    Returns a vector shaped as ``flat``."""
+def _backward_kernel(roi_u8: torch.Tensor, dE: torch.Tensor,
+                     flat: torch.Tensor, standardize: bool,
+                     check: Optional[tuple] = None) -> torch.Tensor:
+    """The backward kernel, or with ``check`` = (feat or None, route or
+    None, stop) its check instantiation."""
     _check_frames(roi_u8)
     if not roi_u8.is_cuda:
         raise ValueError(f"the ROI CNN backward kernel needs a CUDA tensor, "
@@ -401,16 +428,51 @@ def roi_cnn_weight_grads(roi_u8: torch.Tensor, dE: torch.Tensor,
         raise ValueError(f"dE must be ({N}, {emb}) f32 on {roi_u8.device}, "
                          f"got {tuple(dE.shape)} {dE.dtype} on {dE.device}")
     dE = dE.contiguous()
-    blocks = max(1, min(N, torch.cuda.get_device_properties(
-        roi_u8.device).multi_processor_count))  # one block fits an SM
+    blocks = max(1, min(N, bwd_plan(roi_u8.device).wave))
     partial = torch.empty((blocks, flat.numel()), dtype=torch.float32,
                           device=roi_u8.device)
     out = torch.empty_like(flat)
-    BWD_KERNEL.launch(_kernels.ptr(roi_u8), _kernels.ptr(dE),
-                      _kernels.ptr(flat), _kernels.ptr(partial),
-                      _kernels.ptr(out), N, emb, int(standardize), blocks,
-                      _kernels.stream_ptr(roi_u8.device))
+    args = (_kernels.ptr(roi_u8), _kernels.ptr(dE), _kernels.ptr(flat),
+            _kernels.ptr(partial), _kernels.ptr(out))
+    tail = (N, emb, int(standardize), blocks,
+            _kernels.stream_ptr(roi_u8.device))
+    if check is None:
+        BWD_KERNEL.launch(*args, *tail)
+    else:
+        feat, raw, stop = check
+        BWD_CHECK_KERNEL.launch(*args, *(ctypes.c_void_p(0) if t is None
+                                         else _kernels.ptr(t)
+                                         for t in (feat, raw)), stop, *tail)
     return out
+
+
+def roi_cnn_weight_grads(roi_u8: torch.Tensor, dE: torch.Tensor,
+                         flat: torch.Tensor, *,
+                         standardize: bool) -> torch.Tensor:
+    """The backward kernel: the gradient of sum(out * dE) with respect to
+    the flat weight buffer, where out is the forward of ``roi_u8`` with
+    ``flat``. roi_u8: (N, 48, 96) uint8 on a CUDA device; dE: (N, emb) f32.
+    Returns a vector shaped as ``flat``."""
+    return _backward_kernel(roi_u8, dE, flat, standardize)
+
+
+def roi_cnn_bwd_entry(roi_u8: torch.Tensor, dE: torch.Tensor,
+                      flat: torch.Tensor, standardize: bool,
+                      feat: Optional[torch.Tensor] = None,
+                      route: Optional[torch.Tensor] = None,
+                      stop: Optional[str] = None) -> torch.Tensor:
+    """:func:`roi_cnn_weight_grads` through the backward kernel's check
+    instantiation, which writes each frame's recomputed conv3 means to
+    ``feat`` ((N, 24) f32) and its route to ``route`` ((N, ROUTE_BYTES)
+    uint8, ops/cuda_cnn_check.py), each unless None, and with ``stop``
+    (:data:`BWD_STOPS`) ends each frame there, to time the stages: it then
+    returns the gradient entries of the stages done, bitwise those of
+    :func:`roi_cnn_weight_grads`, and zeros elsewhere."""
+    if stop is not None and stop not in BWD_STOPS:
+        raise ValueError(f"unknown stop {stop!r}; the kernel takes "
+                         f"{tuple(BWD_STOPS)}")
+    return _backward_kernel(roi_u8, dE, flat, standardize,
+                            (feat, route, BWD_STOPS.get(stop, 0)))
 
 
 class _FusedTrain(torch.autograd.Function):

@@ -29,35 +29,12 @@ from silent_speech_tpu.ops.pallas_cnn2 import pack_roi_cnn_fused, roi_cnn_fused
 from silent_speech_tpu_torch.models.bigru import init_roi_cnn as torch_init
 from silent_speech_tpu_torch.ops import cuda_cnn
 from silent_speech_tpu_torch.ops.nn import conv2d_nhwc, dense, max_pool_2x2
+from tc_emulation import conv_tc, split_tf32, tf32_rna
 
 N_FRAMES = 6
 # the f32 kernel's bars on the card, live and standardized (chip_smoke.py
 # BAR_K1_LIVE / BAR_K1_STD, tests/test_torch_cuda.py _K1_BARS["f32"])
 CARD_BARS = (2e-6, 1e-5)
-
-
-def tf32_rna(x: torch.Tensor) -> torch.Tensor:
-    """f32 -> the nearest TF32 value (10 mantissa bits), ties away from
-    zero: half a TF32 ulp added to the magnitude bits, the 13 low bits
-    cleared (the sign bit is untouched)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    hi = tf32_rna(x)
-    return hi, tf32_rna(x - hi)  # x - hi is exact in f32
-
-
-def conv_tc(x: torch.Tensor, w: torch.Tensor, passes: int) -> torch.Tensor:
-    """SAME conv of f32 x (N, H, W, Ci) by HWIO w as the tensor cores form
-    it: 3 passes (3xTF32) or 1 (hi * hi), summed in float64, then f32."""
-    (xh, xl), (wh, wl) = split_tf32(x), split_tf32(w)
-    conv = lambda a, b: conv2d_nhwc(a.double(), {"w": b.double()})
-    y = conv(xh, wh)
-    if passes == 3:
-        y = y + conv(xh, wl) + conv(xl, wh)
-    return y.float()
 
 
 def roi_cnn_tc(roi_u8: torch.Tensor, p: dict, standardize: bool,
