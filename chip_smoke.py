@@ -14,8 +14,11 @@ prints no result line):
    twice on the same inputs (bitwise-equal), and K3's recomputed conv3
    means bitwise K1's at the edges of K3's own wave (roi_cnn_bwd_plan),
    constant tie frames among them; the serving modes' ROI CNN
-   kernels (K1-bf16, K4 int8, K5 im2col) at N=8192, a ragged N=33, N=1 and
-   on all-0 and all-255 frames, and K4 on sub-batches (bitwise-equal rows);
+   kernels (K1-bf16, K4 int8, K5 im2col) at N=8192, a ragged N=33, N=1,
+   a frame past K4's and K5's waves (their plans) and on all-0 and all-255
+   frames (K5 at K1's f32 bars), K4 and K5 on sub-batches (bitwise-equal
+   rows), K5's debug stops and K4's check entry (its stops; stage 1 as
+   scalar integers, bitwise the same) against their plain versions;
    K1 and K1-bf16 at the edges of the kernel's own wave (roi_cnn_plan: a
    wave, a frame either side, two waves and a frame), twice on the same
    frames and on sub-batches (bitwise-equal rows);
@@ -51,9 +54,11 @@ prints no result line):
    100% fails), and at N=8192 by stage (its check entry's stops); K2 (one bidirectional layer, D=212, T=32) at B=1, 256 and 1024:
    the layer and each of its two kernels with the host's launches held
    out, beside torch.nn.GRU and torch.addmm, with its plan (C, BT, the
-   route of Wh) and bounds (a time under its bound fails); the serving
-   modes' kernels at the sweep's shape (64 x 90 = 5,760
-   frames) and at N=8192, and their forward at B=64, T=90; serving clips/s
+   route of Wh) and bounds (a time under its bound fails); K4 and K5 at
+   the sweep's shape (64 x 90 = 5,760 frames) and at N=8192 beside their
+   bounds (K5 at K1's, beside K1's time at the same N; K4 at the int8
+   rate; over 100% fails), by stage at N=8192 (their stops), K4 with stage
+   1 on either route, and the modes' forward at B=64, T=90; serving clips/s
    at B=256 and B=1024 (T=32), p50 latency at B=1; train steps at B=16,
    T=90 and B=256, T=32;
 7. a torch.profiler pass over ``predict_batch`` at B=1, 256 and 1024
@@ -153,7 +158,9 @@ ROUTE_TOL = 1e-5
 # of the output), hence the second bar, for constant frames only; int8 is
 # bitwise its plain version up to the last ReLU, so only the mean and the
 # fc reassociate (a requantization level moved by one f32 bit would show as
-# about 1e-4); im2col computes K1's function (K1's bars)
+# about 1e-4); im2col computes K1's function as 3xTF32 (K1's f32 bars,
+# BAR_K1_LIVE / BAR_K1_STD: tests/test_torch_roi_cnn_im2col_tc.py holds its
+# emulated split at least 10x inside them and one TF32 pass outside them)
 BAR_BF16, BAR_BF16_CONST, BAR_Q8 = 1e-4, 2e-3, 1e-6
 LOGIT_TOL = 0.15  # the serving modes vs f32 (tests/test_bf16_parity.py)
 B_SERVE, T_SERVE = 256, 32
@@ -603,11 +610,15 @@ def mode_packs(p_cnn: dict) -> dict:
 
 def check_serving_kernels(p_cnn, packs, gen, dev) -> dict:
     """K1-bf16, K4 and K5 against their plain versions (TF32 off) at
-    N=8192, on a ragged N=33 with frames of 0 and 255, at N=1 and on
-    constant frames only; with and without the standardization, except K4
-    (serving only). Then K4 on sub-batches of 33 frames: each row bitwise
-    the row of the whole batch. Returns each kernel's largest error; raises
-    on a failure."""
+    N=8192, on a ragged N=33 with frames of 0 and 255, at N=1, at one frame
+    past K4's and K5's waves (cuda_cnn_q8.plan, cuda_cnn_im2col.plan) and
+    on constant frames only; with and without the standardization, except
+    K4 (serving only); K5 within K1's f32 bars. Then K4 and K5 on
+    sub-batches of 33 frames and of two K5 waves and a frame: each row
+    bitwise the row of the whole batch; K5's debug stops and K4's check
+    entry (its stops, and stage 1 as scalar integers, bitwise the same)
+    against their plain versions. Returns each kernel's largest error;
+    raises on a failure."""
     from silent_speech_tpu_torch.infer.predictor import full_f32
     from silent_speech_tpu_torch.ops import (cuda_cnn, cuda_cnn_im2col,
                                              cuda_cnn_q8)
@@ -616,11 +627,19 @@ def check_serving_kernels(p_cnn, packs, gen, dev) -> dict:
                                    dtype=torch.uint8)
     const = lambda vals: torch.tensor(vals, dtype=torch.uint8)[
         :, None, None].expand(len(vals), 48, 96)
+    plans = {"roi_cnn_q8": cuda_cnn_q8.plan(),
+             "roi_cnn_im2col": cuda_cnn_im2col.plan()}
+    for name, pl in plans.items():
+        print(f"  {name}: {pl.threads} threads and {pl.smem} B of shared "
+              f"memory a block, {pl.blocks_per_sm} blocks an SM on "
+              f"{pl.sms} SMs: a wave of {pl.wave} blocks")
+    wave = max(pl.wave for pl in plans.values())
     cases = [("N=8192", rand(B_SERVE * T_SERVE)),
              ("N=33 (frames 0, 255 at the end)",
               torch.cat([rand(31), const([0, 255])])),
-             ("N=1", rand(1)), ("N=4 constant 0, 0, 255, 255",
-                                const([0, 0, 255, 255]))]
+             ("N=1", rand(1)), (f"N={wave + 1} (a wave and a frame)",
+                                rand(wave + 1)),
+             ("N=4 constant 0, 0, 255, 255", const([0, 0, 255, 255]))]
     errs = {"roi_cnn_bf16": 0.0, "roi_cnn_q8": 0.0, "roi_cnn_im2col": 0.0}
     for label, roi in cases:
         roi = roi.contiguous().to(dev)
@@ -639,24 +658,68 @@ def check_serving_kernels(p_cnn, packs, gen, dev) -> dict:
                 ref = cuda_cnn.roi_cnn_plain(roi, p_cnn, std)
             errs["roi_cnn_im2col"] = max(errs["roi_cnn_im2col"], check_close(
                 f"roi_cnn_im2col {label} standardize={std}", got, ref,
-                BAR_CNN_STD if std else BAR_CNN_LIVE))
+                BAR_K1_STD if std else BAR_K1_LIVE))
         got = cuda_cnn_q8.roi_cnn_q8(roi, p_cnn, impl="kernel",
                                      packed=packs["roi_cnn_q8"])
         ref = cuda_cnn_q8.roi_cnn_q8_plain(roi, packs["roi_cnn_q8"])
         errs["roi_cnn_q8"] = max(errs["roi_cnn_q8"], check_close(
             f"roi_cnn_q8 {label}", got, ref, BAR_Q8))
-    roi = torch.cat([rand(31), const([0, 255])]).to(dev)
-    whole = cuda_cnn_q8.roi_cnn_q8(roi, p_cnn, impl="kernel",
-                                   packed=packs["roi_cnn_q8"])
-    for lo, hi in ((0, 1), (5, 6), (3, 17), (20, 33), (31, 33)):
-        part = cuda_cnn_q8.roi_cnn_q8(roi[lo:hi].contiguous(), p_cnn,
-                                      impl="kernel",
-                                      packed=packs["roi_cnn_q8"])
-        if not torch.equal(part, whole[lo:hi]):
-            fail(f"roi_cnn_q8: frames {lo}:{hi} alone differ from the same "
-                 "frames in a batch of 33")
-    print("  roi_cnn_q8: frames 0:1, 5:6, 3:17, 20:33, 31:33 alone are "
-          "bitwise the same frames in a batch of 33")
+    w = plans["roi_cnn_im2col"].wave
+    roi = torch.cat([rand(31), const([0, 255]), rand(2 * w - 32)]).to(dev)
+    calls = {"roi_cnn_q8": lambda r, std: cuda_cnn_q8.roi_cnn_q8(
+                 r, p_cnn, impl="kernel", packed=packs["roi_cnn_q8"]),
+             "roi_cnn_im2col": lambda r, std: cuda_cnn_im2col.roi_cnn_im2col(
+                 r, p_cnn, standardize=std, impl="kernel",
+                 packed=packs["roi_cnn_im2col"])}
+    for name, call in calls.items():
+        for std in (False, True) if name == "roi_cnn_im2col" else (False,):
+            for n in (33, 2 * w + 1):
+                whole = call(roi[:n], std)
+                for lo, hi in ((0, 1), (5, 6), (3, 17), (20, 33), (31, 33),
+                               (n - 3, n)):
+                    if not torch.equal(call(roi[lo:hi].contiguous(), std),
+                                       whole[lo:hi]):
+                        fail(f"{name} standardize={std}: frames {lo}:{hi} "
+                             f"alone differ from the same frames in a batch "
+                             f"of {n}")
+        print(f"  {name}: frames 0:1, 5:6, 3:17, 20:33, 31:33 and the last "
+              f"three alone are bitwise the same frames in batches of 33 "
+              f"and {2 * w + 1}")
+    # the stops: moments of each stage, within BAR_STOP_REL of each
+    # moment's sum of |terms|
+    r = roi[:40].contiguous()
+    q = packs["roi_cnn_q8"]
+    stops = [("roi_cnn_im2col", stop, std,
+              lambda stop=stop, std=std: cuda_cnn_im2col.roi_cnn_im2col(
+                  r, p_cnn, standardize=std, impl="kernel",
+                  packed=packs["roi_cnn_im2col"], debug_stop=stop),
+              lambda stop=stop, std=std, a=False: cuda_cnn.roi_cnn_debug_plain(
+                  r, p_cnn, std, stop, absolute=a))
+             for stop in cuda_cnn.DEBUG_STOPS for std in (False, True)]
+    stops += [("roi_cnn_q8", stop, False,
+               lambda stop=stop: cuda_cnn_q8.roi_cnn_q8_entry(
+                   r, p_cnn, q, stop=stop),
+               lambda stop=stop, std=False, a=False:
+               cuda_cnn_q8.roi_cnn_q8_debug_plain(r, q, stop, absolute=a))
+              for stop in cuda_cnn_q8.STOPS]
+    for name, stop, std, kfn, pfn in stops:
+        got = kfn()
+        with full_f32():
+            ref, bar = pfn(), BAR_STOP_REL * pfn(a=True)
+        err = (got - ref).abs()
+        if not torch.isfinite(got).all() or (err > bar).any():
+            fail(f"{name} stop={stop} standardize={std}: max abs err "
+                 f"{err.max().item():.3e} off its plain version")
+    print(f"  roi_cnn_im2col debug stops {tuple(cuda_cnn.DEBUG_STOPS)} and "
+          f"roi_cnn_q8 stops {tuple(cuda_cnn_q8.STOPS)} within "
+          f"{BAR_STOP_REL:g} of each moment's sum of |terms|")
+    for n in (33, 2 * w + 1):
+        if not torch.equal(cuda_cnn_q8.roi_cnn_q8_entry(roi[:n], p_cnn, q),
+                           calls["roi_cnn_q8"](roi[:n], False)):
+            fail(f"roi_cnn_q8 check entry N={n}: not bitwise the serving "
+                 "kernel")
+    print("  roi_cnn_q8 check entry without a stop: bitwise the serving "
+          "kernel")
     return errs
 
 
@@ -764,6 +827,76 @@ def time_k1(p_cnn, flat, packs, roi, dev, card: str) -> dict:
     print(f"  roi_cnn N={N} on the official init (the model's TinyROICNN, "
           f"seed 0): {ms:.4f} ms; on the kernel row's weights "
           f"{rows['roi_cnn', N]['ms']:.4f} ms {card}")
+    return rows
+
+
+def time_modes(p_cnn, packs, roi, k1: dict, dev, card: str) -> dict:
+    """K4 and K5 at the sweep's N=5,760 and at N=8192 (the host's launches
+    held out): the kernel, its plain version (TF32 off) and its bound (a
+    row over 100% of it fails): K5 at K1's (:func:`k1_bound`, the FMAs and
+    3xTF32 together over the function's multiply-adds), beside K1's time at
+    the same N from :func:`time_k1`'s rows ``k1``; K4 at the int8 rate. At
+    N=8192 also by stage: K5's debug stops and K4's check entry's stops.
+    Returns {(name, N): row}."""
+    from silent_speech_tpu_torch.infer.predictor import full_f32
+    from silent_speech_tpu_torch.ops import (cuda_cnn, cuda_cnn_im2col,
+                                             cuda_cnn_q8)
+
+    q, w5 = packs["roi_cnn_q8"], packs["roi_cnn_im2col"]
+    macs = CNN_FWD_MACS + 24 * 32
+    io = lambda N: N * (48 * 96 + 4 * 32)
+    rows = {}
+    for N in (B_SWEEP * 90, roi.shape[0]):
+        r = roi[:N]
+        fns = {
+            "roi_cnn_im2col": (
+                lambda: cuda_cnn_im2col.roi_cnn_im2col(
+                    r, p_cnn, impl="kernel", packed=w5),
+                lambda: cuda_cnn.roi_cnn_plain(r, p_cnn),
+                k1_bound(N, macs, io(N) + 4 * w5.numel())),
+            "roi_cnn_q8": (
+                lambda: cuda_cnn_q8.roi_cnn_q8(r, p_cnn, impl="kernel",
+                                               packed=q),
+                lambda: cuda_cnn_q8.roi_cnn_q8_plain(r, q),
+                bound_ms(2 * N * macs, io(N) + 4 * (q["qi"].numel()
+                                                   + q["qf"].numel()),
+                         PEAK_INT8_OPS))}
+        for kname, (kfn, pfn, (b_ms, b_by)) in fns.items():
+            ms = held_ms(kfn, dev)
+            with full_f32():
+                p_ms = cuda_ms(pfn, 3, warmup=1)
+            share = check_bound(f"{kname} N={N}", ms, b_ms)
+            rows[kname, N] = {"ms": ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                              "bound_by": b_by, "share_of_bound": share}
+            print(f"  {kname} N={N}: kernel {ms:.4f} ms, plain {p_ms:.4f} "
+                  f"ms, bound {b_ms:.4f} ms ({b_by}), {share:.1%} of it; no "
+                  f"single PyTorch call computes it {card}")
+        k5 = rows["roi_cnn_im2col", N]
+        k5["ms_over_k1"] = k5["ms"] / k1["roi_cnn", N]["ms"]
+        print(f"  roi_cnn_im2col / roi_cnn (K5 / K1) N={N}, the same frames "
+              f"and weights: {k5['ms_over_k1']:.3f} {card}")
+    N = roi.shape[0]
+    # where the time goes: each frame ended at a stop (cumulative), then
+    # the differences
+    t5 = {s: held_ms(lambda: cuda_cnn_im2col.roi_cnn_im2col(
+        roi, p_cnn, impl="kernel", packed=w5, debug_stop=s), dev)
+        for s in cuda_cnn.DEBUG_STOPS}
+    t4 = {s: held_ms(lambda: cuda_cnn_q8.roi_cnn_q8_entry(
+        roi, p_cnn, q, stop=s), dev) for s in cuda_cnn_q8.STOPS}
+    for kname, t in (("roi_cnn_im2col", t5), ("roi_cnn_q8", t4)):
+        # each stop's time less the one before (the last stop's moments
+        # cost more than the kernel's own means and fc: the whole kernel
+        # is its own row)
+        order = list(t)
+        rows[kname, N]["stop_ms"] = dict(t)
+        rows[kname, N]["stage_ms"] = {
+            s: t[s] - (t[order[i - 1]] if i else 0.0)
+            for i, s in enumerate(order)}
+        print(f"  {kname} N={N} by stage (each frame ended at a stop, less "
+              f"the stop before): " + ", ".join(
+                  f"{s} {v:.4f}" for s, v in
+                  rows[kname, N]["stage_ms"].items())
+              + f" ms; the whole kernel {rows[kname, N]['ms']:.4f} ms {card}")
     return rows
 
 
@@ -2188,32 +2321,7 @@ def main() -> int:
     k1 = time_k1(p_cnn, flat, packs, roi, dev, card)
     dE = torch.randn(N, 32, generator=gen).to(dev)
     k3 = time_k3(p_cnn, flat, roi, dE, dev, card)
-    from silent_speech_tpu_torch.ops import cuda_cnn_im2col, cuda_cnn_q8
-    mode_fns = {  # kernel, plain version, peak rate of the kernel's type
-        "roi_cnn_q8": (
-            lambda r: cuda_cnn_q8.roi_cnn_q8(r, p_cnn, impl="kernel",
-                                             packed=packs["roi_cnn_q8"]),
-            lambda r: cuda_cnn_q8.roi_cnn_q8_plain(r, packs["roi_cnn_q8"]),
-            PEAK_INT8_OPS, 4 * (packs["roi_cnn_q8"]["qi"].numel()
-                                + packs["roi_cnn_q8"]["qf"].numel())),
-        "roi_cnn_im2col": (
-            lambda r: cuda_cnn_im2col.roi_cnn_im2col(
-                r, p_cnn, impl="kernel", packed=packs["roi_cnn_im2col"]),
-            lambda r: cuda_cnn.roi_cnn_plain(r, p_cnn),
-            PEAK_F32_FLOPS, 4 * packs["roi_cnn_im2col"].numel())}
-    mode_ms = {}
-    for kname, (kfn, pfn, peak, wbytes) in mode_fns.items():
-        for Nm in (B_SWEEP * 90, N):
-            r = roi[:Nm]
-            k_ms = held_ms(lambda: kfn(r), dev)
-            with full_f32():
-                p_ms = cuda_ms(lambda: pfn(r), 3, warmup=1)
-            b_ms, b_by = bound_ms(2 * Nm * (CNN_FWD_MACS + 24 * 32),
-                                  Nm * (48 * 96 + 4 * 32) + wbytes, peak)
-            mode_ms[kname, Nm] = (k_ms, p_ms, b_ms, b_by)
-            print(f"  {kname} N={Nm}: kernel {k_ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); no single "
-                  f"PyTorch call computes it {card}")
+    mode_ms = time_modes(p_cnn, packs, roi, k1, dev, card)
     Xf, Lf, Rf = Xs_[:B_SWEEP], Ls_[:B_SWEEP], Rs_[:B_SWEEP]
     for mode, pr in mode_pred.items():
         ms = cuda_ms(lambda: pr.predict_batch(Xf, Lf, Rf), 10)
@@ -2388,19 +2496,21 @@ def main() -> int:
          "plan": cuda_cnn.bwd_plan()._asdict()},
     ]}
     result["kernels"][1]["eval_dataset_clips_s"] = sweep["bf16"]["clips_s"]
-    for kname, mode, replaces in (
-            ("roi_cnn_q8", "q8", "silent_speech_tpu/ops/pallas_cnn2.py:937"),
-            ("roi_cnn_im2col", "im2col", "silent_speech_tpu/ops/pallas_cnn.py:328")):
-        k_ms, p_ms, b_ms, b_by = mode_ms[kname, N]
-        k_sweep, p_sweep, b_sweep, _ = mode_ms[kname, B_SWEEP * 90]
+    from silent_speech_tpu_torch.ops import cuda_cnn_im2col, cuda_cnn_q8
+    for kname, mode, replaces, plan in (
+            ("roi_cnn_q8", "q8", "silent_speech_tpu/ops/pallas_cnn2.py:937",
+             cuda_cnn_q8.plan),
+            ("roi_cnn_im2col", "im2col",
+             "silent_speech_tpu/ops/pallas_cnn.py:328", cuda_cnn_im2col.plan)):
+        sw = mode_ms[kname, B_SWEEP * 90]
         result["kernels"].append({
             "name": kname, "route": "cuda",
             "source": f"silent_speech_tpu_torch/csrc/{kname}.cu",
             "replaces": replaces, "launches": sweep[mode]["launches"],
-            "max_abs_err": mode_errs[kname], "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "ms_sweep_shape": k_sweep, "plain_ms_sweep_shape": p_sweep,
-            "bound_ms_sweep_shape": b_sweep,
+            "max_abs_err": mode_errs[kname], **mode_ms[kname, N],
+            "library_ms": None,
+            **{k + "_sweep_shape": sw[k] for k in sw},
+            "plan": plan()._asdict(),
             "eval_dataset_clips_s": sweep[mode]["clips_s"]})
     for kname, (source, replaces, script, count) in PROBE_KERNELS.items():
         result["kernels"].append({

@@ -96,27 +96,6 @@ namespace {
 enum Stop { STOP_NONE = 0, STOP_LOAD = 1, STOP_NORM = 2, STOP_CONV1 = 3,
             STOP_CONV2 = 4, STOP_CONV3 = 5 };
 
-// a debug stop's moments of its values: the sum, the sum of squares and
-// the sum weighted by the value's index i in the plain version's order,
-// i % 31 (31 divides none of the buffers' strides)
-constexpr int POS_PERIOD = 31;
-struct Moments {
-  float s = 0.f, s2 = 0.f, sp = 0.f;
-  __device__ __forceinline__ void add(float v, int i) {
-    s += v;
-    s2 = fmaf(v, v, s2);
-    sp = fmaf((float)(i % POS_PERIOD), v, sp);
-  }
-};
-
-// a debug stop's output: the frame's moment j % 3 in entry j of its row
-__device__ void write_stop(float* out, size_t n, int emb, Moments m,
-                           float* red) {
-  const float t[3] = {block_sum(m.s, red), block_sum(m.s2, red),
-                      block_sum(m.sp, red)};
-  if ((int)threadIdx.x < emb) out[n * emb + threadIdx.x] = t[threadIdx.x % 3];
-}
-
 template <typename T, int STOP = STOP_NONE>
 __global__ void __launch_bounds__(THREADS, min_blocks<T>())
 roi_cnn_kernel(const uint8_t* __restrict__ roi, const float* __restrict__ w,

@@ -1,5 +1,5 @@
 // Int8 TinyROICNN forward for Hopper (sm_90a), the serving-only quantized
-// mode.
+// mode: its integer dots on the tensor cores (s8 mma.sync).
 //
 // Replaces the TPU kernel silent_speech_tpu/ops/pallas_cnn2.py::
 // _roi_fused_q8_kernel (variant 'tiled3_q8', reached through
@@ -18,54 +18,69 @@
 //   then the mean over 12x24 and the fc, in f32.
 //
 // Every stage's |dot| < 2^24, so the s32 sums and their corrections are
-// exact in f32 too. The f32 steps use __fmul_rn / __fadd_rn, which nvcc
-// never contracts into an FMA: an FMA would round once where the Pallas
-// kernel rounds twice, and one bit at a requantization boundary moves a
-// level. Up to the stage-3 ReLU the kernel is bitwise its plain version
-// (cuda_cnn_q8.roi_cnn_q8_plain); only the mean and the fc sum in another
-// order.
+// exact in f32 too, and the tensor cores' s32 sums are exact in any order.
+// The f32 steps use __fmul_rn / __fadd_rn, which nvcc never contracts into
+// an FMA: an FMA would round once where the Pallas kernel rounds twice, and
+// one bit at a requantization boundary moves a level. Up to the stage-3
+// ReLU the kernel is bitwise its plain version (cuda_cnn_q8.
+// roi_cnn_q8_plain); only the mean and the fc sum in another order.
 //
-// What bounds it on the H100: the int8 rate. A frame is about 2.65 M
-// multiply-adds (1,979 TOPS int8 on the tensor cores), against 4,608 input
-// bytes. This first version runs them on the CUDA cores: stage 1 as scalar
-// integer multiply-adds (one input channel), stages 2 and 3 as dp4a (four
-// s8 x s8 products a lane per instruction) over channel-last s8 maps.
+// What bounds it on the H100: the int8 rate, 2.65 M multiply-adds a frame
+// (1,979 TOPS on the tensor cores) against 4,608 input bytes; in practice
+// the f32 work around the dots (dequantization, pools, the frame maxima and
+// requantization), which no tensor core does. The design:
+// - The three dots are implicit GEMMs on m16n8k32 s8 mma.sync, an M tile 2
+//   output rows x 8 columns (K1's tiling, roi_cnn.cu), so a thread's two
+//   accumulator rows are vertically adjacent and the horizontal neighbour
+//   sits in lane ^ 4: the pools are one fmaxf and one shuffle. A thread's
+//   4 consecutive k slots are 4 channels of one pixel of the channel-last
+//   s8 maps (one 32-bit load). K is (tap, ci), padded to a multiple of 32
+//   with zero weights: stage 2 72 -> 96 (4 taps a k32 block), stage 3
+//   144 -> 160 (2 taps a block); the pad slots' activations are 0 and add
+//   nothing; the colsum corrections cover the real taps only. Stage 1 (one
+//   input channel) is a pooled tiling of its own: A row g and g + 8 are
+//   the two output rows of a pool window, k slot 4 ky + c the window's
+//   image column c of kernel row ky (12 of 32 slots; its A words from two
+//   aligned loads and a funnel shift), and N column 2 j + p channel 2 j +
+//   nt at the window's column p, so a thread holds whole windows: 288 MMAs
+//   a frame, no shuffle.
+// - Every dequantization is monotone non-decreasing in its integer sum (its
+//   scales are positive), so stages 1 and 2 take the 2x2 max on the s32
+//   sums and dequantize only the pooled one: the Pallas kernel's values,
+//   with a quarter of its f32 steps.
+// - Persistent blocks: the grid is one wave of resident blocks
+//   (roi_cnn_q8_plan, asked of the card once per device); each block of 288
+//   threads packs the s8 weights into shared memory in fragment order once
+//   (cuda_cnn_q8.fragment_weights is its test model), sets the halos to
+//   -128 once, then walks frames n = blockIdx.x, + gridDim.x, ...,
+//   prefetching the next frame with cp.async. The scales are per frame, so
+//   a frame's output is bitwise the same in any batch and any block.
+// - Shared memory 72 KB a block (the centered input, the f32 stage-1 and
+//   stage-2 outputs, whose frame maximum sets the scale before they are
+//   quantized, the s8 maps and the weights): three blocks an SM, so that
+//   one block's barriers overlap another's work.
 //
-// The design, per frame as K1 (csrc/roi_cnn.cu): one block of 288 threads
-// holds one frame for the whole network in about 60 KB of shared memory:
-// the centered input, the f32 stage-1 and stage-2 outputs (their frame
-// maximum sets the scale before they are quantized), the s8 maps with
-// halos, and the weights, copied from the device buffer once per block (no
-// constant bank, so nothing orders launches against each other). The
-// scales are per frame, so a frame's output does not depend on what else
-// is in the batch. Only (N, emb) f32 goes back to device memory.
+// The check entry (roi_cnn_q8_check_forward, the STOP template) ends each
+// frame after a stage and writes three moments of its ReLU output in the
+// plain version's order (cuda_cnn_q8.roi_cnn_q8_debug_plain).
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "roi_cnn_stages.cuh"
 
 namespace {
 
-constexpr int H0 = 48, W0 = 96;
-constexpr int C1 = 8, C2 = 16, C3 = 24;
-constexpr int H1 = 24, W1 = 48;
-constexpr int H2 = 12, W2 = 24;
-constexpr int MAX_EMB = 64;
-constexpr int THREADS = H2 * W2;  // 288: one stage-2/3 position per thread
-constexpr int NWARPS = THREADS / 32;
-static_assert(H0 * W0 == THREADS * 16, "one 16-byte load per thread");
-static_assert((H1 * W1) % THREADS == 0, "stage-1 positions per thread");
+// the check entry's stops: after stage 1, 2 or 3 (STOP_NONE: all of it)
+enum Stop { STOP_NONE = 0, STOP_STAGE1 = 1, STOP_STAGE2 = 2,
+            STOP_STAGE3 = 3 };
 
-// int32 weight buffer: stage-1 s8 taps one per word [co][9]; stage-2 and 3
-// taps packed four input channels a word, [co][tap][C/4]; then the
-// activation zero-point corrections 128 * colsum(wq) per output channel
+// int32 weight buffer (quantize_roi_cnn's qi): stage-1 s8 taps one per
+// word [co][9]; stage-2 and 3 taps packed four input channels a word,
+// [co][tap][C/4]; then the zero-point corrections 128 * colsum(wq) of
+// stage 2, then of stage 3
 constexpr int QI_W1 = 0;
 constexpr int QI_W2 = QI_W1 + C1 * 9;
 constexpr int QI_W3 = QI_W2 + C2 * 9 * (C1 / 4);
 constexpr int QI_CQ2 = QI_W3 + C3 * 9 * (C2 / 4);
-constexpr int QI_CQ3 = QI_CQ2 + C2;
-constexpr int QI_SIZE = QI_CQ3 + C3;
-// f32 buffer: d1, cf1, b1, sw2, b2, sw3, b3, fc w (emb, 24), fc b (emb)
+// f32 buffer (qf): d1, cf1, b1, sw2, b2, sw3, b3, fc w (emb, 24), fc b
 constexpr int QF_D1 = 0;
 constexpr int QF_CF1 = QF_D1 + C1;
 constexpr int QF_B1 = QF_CF1 + C1;
@@ -74,27 +89,51 @@ constexpr int QF_B2 = QF_SW2 + C2;
 constexpr int QF_SW3 = QF_B2 + C2;
 constexpr int QF_B3 = QF_SW3 + C3;
 constexpr int QF_FC = QF_B3 + C3;
-constexpr int QF_MAX = QF_FC + MAX_EMB * C3 + MAX_EMB;
 
-// shared memory, in bytes
-constexpr int XQ_W = W0 + 2, XQ_SIZE = (H0 + 2) * XQ_W;            // s8
-constexpr int P1_W = W1 + 2, P1_SIZE = (H1 + 2) * P1_W * C1;       // s8
-constexpr int P2_W = W2 + 2, P2_SIZE = (H2 + 2) * P2_W * C2;       // s8
-constexpr int ACT_BYTES = H1 * W1 * C1 * 4;  // f32 c1, then c2
-static_assert(H2 * W2 * C2 * 4 <= ACT_BYTES, "c2 fits where c1 was");
-constexpr int Q_BYTES = P1_SIZE > XQ_SIZE ? P1_SIZE : XQ_SIZE;
-static_assert(P2_SIZE <= Q_BYTES, "p2q fits where p1q was");
-constexpr int RED_FLOATS = NWARPS * C3 + C3;
-constexpr int OFF_Q = ACT_BYTES;
-constexpr int OFF_RED = OFF_Q + ((Q_BYTES + 15) / 16) * 16;
-constexpr int OFF_QI = OFF_RED + RED_FLOATS * 4;
-constexpr int OFF_QF = OFF_QI + QI_SIZE * 4;
-constexpr size_t SMEM_BYTES = (size_t)OFF_QF + QF_MAX * 4;
+// k32 blocks of stages 2 and 3, and the M tiles (2 rows x 8 columns)
+constexpr int KB2 = 3, KB3 = 5;
+// (stages 2 and 3: roi_cnn_stages.cuh's M2_TILES, M3_TILES, as K1's);
+// stage 1's tiles are 8 pooled outputs
+constexpr int M1_COLS = W1 / 8, M1_TILES = H1 * M1_COLS;  // 6, 144
+static_assert(M1_TILES % NWARPS == 0 && M2_TILES % NWARPS == 0 &&
+                  M3_TILES == 2 * NWARPS,
+              "whole tiles a warp");
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// xq's rows: 144 bytes, the image's 96 from byte 16 (16-byte aligned, one
+// store a thread), its halo bytes 15 and 112; 144 = 36 words, so the rows
+// that the lanes t of a stage-1 fragment read lie 4 banks apart
+constexpr int XQ_ROW = 144, XQ_X0 = 16;
+static_assert(XQ_ROW % 16 == 0 && (XQ_ROW / 4) % 32 == 4, "xq rows");
+
+// shared memory, byte offsets: the s8 maps are zero-haloed (-128), channel
+// last: xq [50][144], p1q [26][50][8], p2q [14][26][16]
+struct SmemQ {
+  static constexpr size_t RAW = 0;                            // the frame
+  static constexpr size_t XQ = RAW + FRAME;
+  static constexpr size_t ACT = XQ + (H0 + 2) * XQ_ROW;       // f32 c1, c2
+  static constexpr size_t P1Q = ACT + H1 * W1 * C1 * 4;
+  static constexpr size_t P2Q = P1Q + align16(P1_PIX * C1);
+  static constexpr size_t WF1 = P2Q + align16(P2_PIX * C2);   // [lane][nt]
+  static constexpr size_t WF2 = WF1 + 32 * 2 * 4;             // [kb][nt][lane]
+  static constexpr size_t WF3 = WF2 + KB2 * 2 * 32 * 8;
+  static constexpr size_t PF = WF3 + KB3 * 3 * 32 * 8;        // qf[:QF_FC]
+  static constexpr size_t CQ = PF + QF_FC * 4;                // cq2, cq3
+  static constexpr size_t RED = CQ + (C2 + C3) * 4;           // [NWARPS+1]
+  static constexpr size_t RED3 = RED + 16 * 4;                // [NWARPS][C3]
+  static constexpr size_t MEAN = RED3 + NWARPS * C3 * 4;
+  static constexpr size_t BYTES = MEAN + C3 * 4;
+};
+static_assert(H2 * W2 * C2 <= H1 * W1 * C1, "c2 fits where c1 was");
+static_assert(SmemQ::BYTES + 1024 <= 233472 / 3, "three blocks an SM");
+
+// d += a b: m16n8k32, s8 x s8 -> s32
+__device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // The maximum of v over the block (exact in any order); `red` holds NWARPS
@@ -130,189 +169,383 @@ __device__ __forceinline__ uint32_t quant(float v, float rv) {
   return (uint32_t)(q & 0xff);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// an s8 weight (held in an int32 word) as byte b of a word
+__device__ __forceinline__ uint32_t byte_at(int32_t v, int b) {
+  return ((uint32_t)v & 0xffu) << (8 * b);
+}
+
+// The weights into shared memory, once a block. B fragments of m16n8k32
+// (lane g, t: b0 holds k slots 4t..4t+3, b1 slots 16+4t..16+4t+3, of N
+// column g): stage 1 (column g of n tile nt: channel 2 (g / 2) + nt at
+// window column p = g % 2) slot 4 ky + c is tap (ky, c - p) where
+// 0 <= c - p < 3 (the rest zero, b1 zero); stages 2 and 3 column g is
+// output channel 8 nt + g; stage 2 block kb: slots 4t.. are tap
+// 4 kb + t/2, channels 4 (t & 1)..; slots 16+4t.. tap 4 kb + 2 + t/2;
+// stage 3 block kb: b0 tap 2 kb, b1 tap 2 kb + 1, channels 4t..; taps from
+// 9 on are zero. Also the f32 scales and biases and the colsum
+// corrections.
+__device__ void pack_weights_q8(const int32_t* __restrict__ qi,
+                                const float* __restrict__ qf,
+                                unsigned char* smem) {
+  using S = SmemQ;
+  const int tid = threadIdx.x;
+  if (tid < 64) {
+    const int lane = tid & 31, nt = tid >> 5, g = lane >> 2, t = lane & 3;
+    const int co = 2 * (g >> 1) + nt, p = g & 1;
+    uint32_t b = 0;
+    if (t < 3)
+      for (int kx = 0; kx < 3; ++kx)
+        b |= byte_at(qi[QI_W1 + co * 9 + 3 * t + kx], kx + p);
+    reinterpret_cast<uint32_t*>(smem + S::WF1)[2 * lane + nt] = b;
+  }
+  uint2* wf2 = reinterpret_cast<uint2*>(smem + S::WF2);
+  for (int i = tid; i < KB2 * 2 * 32; i += THREADS) {
+    const int lane = i & 31, nt = (i >> 5) & 1, kb = i >> 6;
+    const int g = lane >> 2, t = lane & 3, co = 8 * nt + g;
+    const int tap0 = 4 * kb + (t >> 1), tap1 = tap0 + 2;
+    wf2[i] = make_uint2(
+        tap0 < 9 ? (uint32_t)qi[QI_W2 + (co * 9 + tap0) * 2 + (t & 1)] : 0u,
+        tap1 < 9 ? (uint32_t)qi[QI_W2 + (co * 9 + tap1) * 2 + (t & 1)] : 0u);
+  }
+  uint2* wf3 = reinterpret_cast<uint2*>(smem + S::WF3);
+  for (int i = tid; i < KB3 * 3 * 32; i += THREADS) {
+    const int lane = i & 31, nt = (i >> 5) % 3, kb = i / 96;
+    const int g = lane >> 2, t = lane & 3, co = 8 * nt + g;
+    const int tap0 = 2 * kb, tap1 = tap0 + 1;
+    wf3[i] = make_uint2(
+        (uint32_t)qi[QI_W3 + (co * 9 + tap0) * 4 + t],
+        tap1 < 9 ? (uint32_t)qi[QI_W3 + (co * 9 + tap1) * 4 + t] : 0u);
+  }
+  float* pf = reinterpret_cast<float*>(smem + S::PF);
+  for (int i = tid; i < QF_FC; i += THREADS) pf[i] = qf[i];
+  int32_t* cq = reinterpret_cast<int32_t*>(smem + S::CQ);
+  for (int i = tid; i < C2 + C3; i += THREADS) cq[i] = qi[QI_CQ2 + i];
+}
+
+// Stage 1 on the tensor cores into act (f32 [H1*W1][C1]); returns this
+// thread's largest output. Tile mt is 8 pooled outputs: pooled row
+// py = mt / 6, pooled columns px = 8 (mt % 6) + g. A row g is output row
+// 2 py, row g + 8 output row 2 py + 1, each over the 4 image columns that
+// the pool window's taps read (k slot 4 ky + c: column 2 px - 1 + c of row
+// + ky). N column 2 j + p of n tile nt is channel 2 j + nt at window column
+// 2 px + p, so a thread's 4 sums of an n tile are one window of channel
+// 2t + nt. The dequantization y * d1 + cf1 (d1 > 0) is monotone
+// non-decreasing in the integer sum y: the max is taken on the sums and
+// only the pooled one is dequantized, the same value.
+__device__ __forceinline__ float stage1_mma(const unsigned char* smem,
+                                            float* act, int warp, int lane) {
+  using S = SmemQ;
+  const uint32_t* xw = reinterpret_cast<const uint32_t*>(smem + S::XQ);
+  const float* pf = reinterpret_cast<const float*>(smem + S::PF);
+  const uint2 b = reinterpret_cast<const uint2*>(smem + S::WF1)[lane];
+  const int g = lane >> 2, t = lane & 3;
+  float d1[2], cf1[2], b1[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    d1[e] = pf[QF_D1 + 2 * t + e];
+    cf1[e] = pf[QF_CF1 + 2 * t + e];
+    b1[e] = pf[QF_B1 + 2 * t + e];
+  }
+  const int ky = t < 3 ? t : 0;  // lane t holds kernel row t (t = 3: none)
+  float vmax = 0.f;
+#pragma unroll 2
+  for (int mt = warp; mt < M1_TILES; mt += NWARPS) {
+    const int py = mt / M1_COLS, px = 8 * (mt % M1_COLS) + g;
+    // the 4 bytes from two aligned words and a funnel shift
+    const int at = (2 * py + ky) * XQ_ROW + 2 * px + XQ_X0 - 1;
+    const uint32_t sh = 8 * (at & 3);
+    const uint32_t* w0 = xw + (at >> 2);
+    const uint32_t* w1 = w0 + XQ_ROW / 4;
+    uint32_t a0 = 0, a1 = 0;
+    if (t < 3) {
+      a0 = __funnelshift_r(w0[0], w0[1], sh);
+      a1 = __funnelshift_r(w1[0], w1[1], sh);
+    }
+    float o[2];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      int d[4] = {0, 0, 0, 0};
+      mma_s8(d, a0, a1, 0u, 0u, nt ? b.y : b.x, 0u);
+      const int m = max(max(d[0], d[1]), max(d[2], d[3]));
+      o[nt] = fmaxf(__fadd_rn(__fadd_rn(__fmul_rn((float)m, d1[nt]), cf1[nt]),
+                              b1[nt]),
+                    0.f);
+    }
+    *reinterpret_cast<float2*>(act + (py * W1 + px) * C1 + 2 * t) =
+        make_float2(o[0], o[1]);
+    vmax = fmaxf(vmax, fmaxf(o[0], o[1]));
+  }
+  return vmax;
+}
+
+// act (f32, [h][w][C], ReLU outputs) quantized at rv into the interior of
+// the haloed s8 map q ([h+2][w+2][C], C/4 words a pixel)
+template <int C>
+__device__ __forceinline__ void quantize_map(const float* act, uint32_t* q,
+                                             int h, int w, float rv) {
+  for (int i = threadIdx.x; i < h * w; i += THREADS) {
+    const int y = i / w, x = i % w;
+    const float* c = act + i * C;
+    uint32_t* dst = q + ((y + 1) * (w + 2) + x + 1) * (C / 4);
+#pragma unroll
+    for (int k = 0; k < C / 4; ++k) {
+      const float4 v = reinterpret_cast<const float4*>(c)[k];
+      dst[k] = quant(v.x, rv) | quant(v.y, rv) << 8 | quant(v.z, rv) << 16 |
+               quant(v.w, rv) << 24;
+    }
+  }
+}
+
+// Stage 2: s8 p1q against the stage-2 weights at scale a2, pooled, + b2,
+// ReLU into act (f32 [H2*W2][C2]); returns this thread's largest output.
+__device__ __forceinline__ float stage2_mma(const unsigned char* smem,
+                                            float* act, float a2, int warp,
+                                            int lane) {
+  using S = SmemQ;
+  const uint32_t* p1q = reinterpret_cast<const uint32_t*>(smem + S::P1Q);
+  const uint2* wf2 = reinterpret_cast<const uint2*>(smem + S::WF2);
+  const float* pf = reinterpret_cast<const float*>(smem + S::PF);
+  const int32_t* cq2 = reinterpret_cast<const int32_t*>(smem + S::CQ);
+  const int g = lane >> 2, t = lane & 3;
+  float vmax = 0.f;
+#pragma unroll 1
+  for (int mt = warp; mt < M2_TILES; mt += NWARPS) {
+    const int y0 = 2 * (mt / M2_COLS), x = 8 * (mt % M2_COLS) + g;
+    int d[2][4] = {};
+#pragma unroll
+    for (int kb = 0; kb < KB2; ++kb) {
+      uint32_t a[4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {  // a0/a1: slots 4t.., a2/a3: 16 + 4t..
+        const int tap = 4 * kb + 2 * r + (t >> 1);
+        const int px = (y0 + tap / 3) * P1_W + x + tap % 3;
+        a[2 * r] = tap < 9 ? p1q[px * 2 + (t & 1)] : 0u;
+        a[2 * r + 1] = tap < 9 ? p1q[(px + P1_W) * 2 + (t & 1)] : 0u;
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const uint2 b = wf2[(kb * 2 + nt) * 32 + lane];
+        mma_s8(d[nt], a[0], a[1], a[2], a[3], b.x, b.y);
+      }
+    }
+    // ((dot + cq2) * sw2) * a2 (sw2, a2 > 0) is monotone non-decreasing in
+    // the dot: the 2x2 max on the dots, then one dequantization
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      int m[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = max(d[nt][e], d[nt][e + 2]);
+        m[e] = max(c, __shfl_xor_sync(0xffffffffu, c, 4));
+      }
+      if ((g & 1) == 0) {
+        float o[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int co = 8 * nt + 2 * t + e;
+          const float y = __fmul_rn(
+              __fmul_rn((float)(m[e] + cq2[co]), pf[QF_SW2 + co]), a2);
+          o[e] = fmaxf(__fadd_rn(y, pf[QF_B2 + co]), 0.f);
+        }
+        *reinterpret_cast<float2*>(act + ((y0 / 2) * W2 + x / 2) * C2 +
+                                   8 * nt + 2 * t) = make_float2(o[0], o[1]);
+        vmax = fmaxf(vmax, fmaxf(o[0], o[1]));
+      }
+    }
+  }
+  return vmax;
+}
+
+// Stage 3: s8 p2q against the stage-3 weights at scale a3, + b3, ReLU,
+// each output handed to emit(nt, j, value, y, x) as it is formed (tile
+// warp + NWARPS mi: row (y0 + j / 2, x), x = 8 (mt % 3) + g, channel
+// 8 nt + 2t + j % 2), so that no tile's outputs stay live past it.
+template <typename Emit>
+__device__ __forceinline__ void stage3_mma(const unsigned char* smem,
+                                           float a3, int warp, int lane,
+                                           Emit&& emit) {
+  using S = SmemQ;
+  const uint32_t* p2q = reinterpret_cast<const uint32_t*>(smem + S::P2Q);
+  const uint2* wf3 = reinterpret_cast<const uint2*>(smem + S::WF3);
+  const float* pf = reinterpret_cast<const float*>(smem + S::PF);
+  const int32_t* cq3 = reinterpret_cast<const int32_t*>(smem + S::CQ) + C2;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll 1
+  for (int mi = 0; mi < 2; ++mi) {
+    const int mt = warp + NWARPS * mi;
+    const int y0 = 2 * (mt / M3_COLS), x = 8 * (mt % M3_COLS) + g;
+    int d[3][4] = {};
+#pragma unroll
+    for (int kb = 0; kb < KB3; ++kb) {
+      uint32_t a[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // a0/a1: tap 2kb, a2/a3: tap 2kb + 1
+        const int tap = 2 * kb + h;
+        const int px = (y0 + tap / 3) * P2_W + x + tap % 3;
+        a[2 * h] = tap < 9 ? p2q[px * 4 + t] : 0u;
+        a[2 * h + 1] = tap < 9 ? p2q[(px + P2_W) * 4 + t] : 0u;
+      }
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt) {
+        const uint2 b = wf3[(kb * 3 + nt) * 32 + lane];
+        mma_s8(d[nt], a[0], a[1], a[2], a[3], b.x, b.y);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int co = 8 * nt + 2 * t + (j & 1);
+        const float y3 = __fmul_rn(
+            __fmul_rn((float)(d[nt][j] + cq3[co]), pf[QF_SW3 + co]), a3);
+        emit(nt, j, fmaxf(__fadd_rn(y3, pf[QF_B3 + co]), 0.f), y0 + (j >> 1),
+             x);
+      }
+  }
+}
+
+template <int STOP>
+__global__ void __launch_bounds__(THREADS, 3)
 roi_cnn_q8_kernel(const uint8_t* __restrict__ roi,
                   const int32_t* __restrict__ qi,
                   const float* __restrict__ qf, float* __restrict__ out,
-                  int emb) {
-  extern __shared__ float4 smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(smem_raw);
-  float* act = reinterpret_cast<float*>(smem);  // c1 [H1*W1][C1], c2 [288][C2]
-  int8_t* xq = reinterpret_cast<int8_t*>(smem + OFF_Q);     // [H0+2][W0+2]
-  uint32_t* p1q = reinterpret_cast<uint32_t*>(smem + OFF_Q);  // [26][50][2]
-  uint32_t* p2q = p1q;                                      // [14][26][4]
-  float* red = reinterpret_cast<float*>(smem + OFF_RED);
-  int32_t* wi = reinterpret_cast<int32_t*>(smem + OFF_QI);
-  float* wf = reinterpret_cast<float*>(smem + OFF_QF);
-  const int tid = threadIdx.x;
-  const size_t n = blockIdx.x;
-  const int nf = QF_FC + emb * C3 + emb;
+                  int n_frames, int emb) {
+  using S = SmemQ;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* raw = reinterpret_cast<uint4*>(smem + S::RAW);
+  uint8_t* xq = smem + S::XQ;
+  float* act = reinterpret_cast<float*>(smem + S::ACT);
+  float* red = reinterpret_cast<float*>(smem + S::RED);
+  float* red3 = reinterpret_cast<float*>(smem + S::RED3);
+  float* mean = reinterpret_cast<float*>(smem + S::MEAN);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
 
-  for (int i = tid; i < QI_SIZE; i += THREADS) wi[i] = qi[i];
-  for (int i = tid; i < nf; i += THREADS) wf[i] = qf[i];
-  // ---- input: x - 128 as s8 (x ^ 0x80), halo -128
-  for (int i = tid; i < XQ_SIZE; i += THREADS) {
-    const int y = i / XQ_W, x = i % XQ_W;
-    if (y == 0 || y == H0 + 1 || x == 0 || x == W0 + 1) xq[i] = -128;
-  }
-  {
-    const uint4 q = reinterpret_cast<const uint4*>(roi + n * (H0 * W0))[tid];
-    const uint32_t words[4] = {q.x ^ 0x80808080u, q.y ^ 0x80808080u,
-                               q.z ^ 0x80808080u, q.w ^ 0x80808080u};
-    const int y = (tid * 16) / W0, x0 = (tid * 16) % W0;
-#pragma unroll
-    for (int k = 0; k < 16; ++k)
-      xq[(y + 1) * XQ_W + x0 + 1 + k] =
-          (int8_t)((words[k >> 2] >> (8 * (k & 3))) & 0xffu);
-  }
+  cp_async16(raw + tid, roi + (size_t)blockIdx.x * FRAME + 16 * tid);
+  // the s8 maps' halos hold -128 (0x80) from here on; only their interiors
+  // are written
+  for (int i = tid; i < (int)((S::WF1 - S::XQ) / 4); i += THREADS)
+    reinterpret_cast<uint32_t*>(smem + S::XQ)[i] = 0x80808080u;
+  pack_weights_q8(qi, qf, smem);
   __syncthreads();
 
-  // ---- stage 1: exact integer conv1, dequantized, pool, + b1, ReLU
-  float vmax = 0.f;
-  for (int i = tid; i < H1 * W1; i += THREADS) {
-    const int py = i / W1, px = i % W1;
-    int a[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) a[r][c] = xq[(2 * py + r) * XQ_W + 2 * px + c];
-#pragma unroll
-    for (int co = 0; co < C1; ++co) {
-      const float d1 = wf[QF_D1 + co], cf1 = wf[QF_CF1 + co];
-      float m = -INFINITY;
-#pragma unroll
-      for (int dy = 0; dy < 2; ++dy)
-#pragma unroll
-        for (int dx = 0; dx < 2; ++dx) {
-          int s = 0;
-#pragma unroll
-          for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-            for (int kx = 0; kx < 3; ++kx)
-              s += wi[QI_W1 + co * 9 + ky * 3 + kx] * a[dy + ky][dx + kx];
-          m = fmaxf(m, __fadd_rn(__fmul_rn((float)s, d1), cf1));
-        }
-      const float c = fmaxf(__fadd_rn(m, wf[QF_B1 + co]), 0.f);
-      act[i * C1 + co] = c;
-      vmax = fmaxf(vmax, c);
-    }
-  }
-  float a2, rv2;
-  frame_scale(block_max(vmax, red), &a2, &rv2);  // syncs: xq is dead after
-
-  // ---- quantize c1 into the haloed channel-last s8 map p1q
-  for (int i = tid; i < (H1 + 2) * P1_W; i += THREADS) {
-    const int y = i / P1_W - 1, x = i % P1_W - 1;
-    uint32_t w[2] = {0x80808080u, 0x80808080u};
-    if (y >= 0 && y < H1 && x >= 0 && x < W1) {
-      const float* c = act + (y * W1 + x) * C1;
-#pragma unroll
-      for (int k = 0; k < C1; ++k)
-        w[k >> 2] = (k & 3) ? w[k >> 2] | (quant(c[k], rv2) << (8 * (k & 3)))
-                            : quant(c[k], rv2);
-    }
-    p1q[2 * i] = w[0];
-    p1q[2 * i + 1] = w[1];
-  }
-  __syncthreads();
-
-  const int py = tid / W2, px = tid % W2;  // stage 2 and 3 position
-
-  // ---- stage 2: dp4a conv2, dequantized, pool, + b2, ReLU
-  {
-    float m[C2];
-#pragma unroll
-    for (int co = 0; co < C2; ++co) m[co] = -INFINITY;
 #pragma unroll 1
-    for (int d = 0; d < 4; ++d) {
-      const int y = 2 * py + (d >> 1), x = 2 * px + (d & 1);
-      int a[9][2];
+  for (int n = blockIdx.x; n < n_frames; n += gridDim.x) {
+    const int next = n + gridDim.x;
+    // ---- input: x - 128 as s8 (x ^ 0x80) into the haloed xq, one
+    // 16-byte store a thread
+    cp_async_wait_all();
+    {
+      const uint4 q = raw[tid];
+      const int y = (tid * 16) / W0, x0 = (tid * 16) % W0;
+      *reinterpret_cast<uint4*>(xq + (y + 1) * XQ_ROW + XQ_X0 + x0) =
+          make_uint4(q.x ^ 0x80808080u, q.y ^ 0x80808080u,
+                     q.z ^ 0x80808080u, q.w ^ 0x80808080u);
+    }
+    __syncthreads();
+    if (next < n_frames)
+      cp_async16(raw + tid, roi + (size_t)next * FRAME + 16 * tid);
+
+    // ---- stage 1: exact integer conv1, dequantized, pool, + b1, ReLU
+    const float v1 = stage1_mma(smem, act, warp, lane);
+    if constexpr (STOP == STOP_STAGE1) {  // i: CHW
+      __syncthreads();
+      Moments m;
+      for (int e = tid; e < H1 * W1 * C1; e += THREADS)
+        m.add(act[e], (e % C1) * (H1 * W1) + e / C1);
+      write_stop(out, n, emb, m, red);
+      continue;
+    }
+    float a2, rv2;
+    frame_scale(block_max(v1, red), &a2, &rv2);  // syncs: act is complete
+    quantize_map<C1>(act, reinterpret_cast<uint32_t*>(smem + S::P1Q), H1, W1,
+                     rv2);
+    __syncthreads();
+
+    // ---- stage 2: s8 conv2, dequantized, pool, + b2, ReLU
+    const float v2 = stage2_mma(smem, act, a2, warp, lane);
+    if constexpr (STOP == STOP_STAGE2) {
+      __syncthreads();
+      Moments m;
+      for (int e = tid; e < H2 * W2 * C2; e += THREADS)
+        m.add(act[e], (e % C2) * (H2 * W2) + e / C2);
+      write_stop(out, n, emb, m, red);
+      continue;
+    }
+    float a3, rv3;
+    frame_scale(block_max(v2, red), &a3, &rv3);
+    quantize_map<C2>(act, reinterpret_cast<uint32_t*>(smem + S::P2Q), H2, W2,
+                     rv3);
+    __syncthreads();
+
+    // ---- stage 3: s8 conv3, dequantized, + b3, ReLU, summed for the mean
+    if constexpr (STOP == STOP_STAGE3) {  // i: co * 288 + y * 24 + x
+      Moments m;
+      stage3_mma(smem, a3, warp, lane,
+                 [&](int nt, int j, float v, int y, int x) {
+                   m.add(v, (8 * nt + 2 * t + (j & 1)) * (H2 * W2) + y * W2 +
+                                x);
+                 });
+      write_stop(out, n, emb, m, red);
+      continue;
+    }
+    // the 24 channel sums in a fixed order: a thread's tiles and rows,
+    // then g, then the warps
+    float zc[3][2] = {};
+    stage3_mma(smem, a3, warp, lane,
+               [&](int nt, int j, float v, int, int) { zc[nt][j & 1] += v; });
 #pragma unroll
-      for (int k = 0; k < 9; ++k) {
-        const int p = (y + k / 3) * P1_W + x + k % 3;
-        a[k][0] = (int)p1q[2 * p];
-        a[k][1] = (int)p1q[2 * p + 1];
+    for (int nt = 0; nt < 3; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float s = zc[nt][e];
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (g == 0) red3[warp * C3 + 8 * nt + 2 * t + e] = s;
       }
-#pragma unroll
-      for (int co = 0; co < C2; ++co) {
-        int s = 0;
-#pragma unroll
-        for (int k = 0; k < 9; ++k) {
-          s = __dp4a(a[k][0], wi[QI_W2 + (co * 9 + k) * 2], s);
-          s = __dp4a(a[k][1], wi[QI_W2 + (co * 9 + k) * 2 + 1], s);
-        }
-        const float y2 = __fmul_rn(
-            __fmul_rn((float)(s + wi[QI_CQ2 + co]), wf[QF_SW2 + co]), a2);
-        m[co] = fmaxf(m[co], y2);
-      }
+    __syncthreads();
+    if (tid < C3) {
+      float z = 0.f;
+      for (int w = 0; w < NWARPS; ++w) z += red3[w * C3 + tid];
+      mean[tid] = z / (float)(H2 * W2);
     }
-    vmax = 0.f;  // c1 is dead since p1q was written: c2 takes its place
-#pragma unroll
-    for (int co = 0; co < C2; ++co) {
-      const float c = fmaxf(__fadd_rn(m[co], wf[QF_B2 + co]), 0.f);
-      act[tid * C2 + co] = c;
-      vmax = fmaxf(vmax, c);
-    }
-  }
-  float a3, rv3;
-  frame_scale(block_max(vmax, red), &a3, &rv3);  // syncs: p1q is dead after
+    __syncthreads();
 
-  // ---- quantize c2 into the haloed channel-last s8 map p2q
-  for (int i = tid; i < (H2 + 2) * P2_W; i += THREADS) {
-    const int y = i / P2_W - 1, x = i % P2_W - 1;
-    uint32_t w[4] = {0x80808080u, 0x80808080u, 0x80808080u, 0x80808080u};
-    if (y >= 0 && y < H2 && x >= 0 && x < W2) {
-      const float* c = act + (y * W2 + x) * C2;
+    // ---- fc 24 -> emb (torch layout: weight (emb, 24)), from the buffer
+    if (tid < emb) {
+      float z = 0.f;
 #pragma unroll
-      for (int k = 0; k < C2; ++k)
-        w[k >> 2] = (k & 3) ? w[k >> 2] | (quant(c[k], rv3) << (8 * (k & 3)))
-                            : quant(c[k], rv3);
+      for (int c = 0; c < C3; ++c)
+        z = fmaf(mean[c], __ldg(qf + QF_FC + tid * C3 + c), z);
+      out[(size_t)n * emb + tid] = z + __ldg(qf + QF_FC + emb * C3 + tid);
     }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) p2q[4 * i + k] = w[k];
   }
-  __syncthreads();
+  cp_async_wait_all();
+}
 
-  // ---- stage 3: dp4a conv3, dequantized, + b3, ReLU, summed for the mean
-  const int lane = tid & 31, warp = tid >> 5;
-  {
-    int a[9][4];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      const int p = (py + k / 3) * P2_W + px + k % 3;
-#pragma unroll
-      for (int w = 0; w < 4; ++w) a[k][w] = (int)p2q[4 * p + w];
-    }
-#pragma unroll 4
-    for (int co = 0; co < C3; ++co) {
-      int s = 0;
-#pragma unroll
-      for (int k = 0; k < 9; ++k)
-#pragma unroll
-        for (int w = 0; w < 4; ++w)
-          s = __dp4a(a[k][w], wi[QI_W3 + (co * 9 + k) * 4 + w], s);
-      const float y3 = __fmul_rn(
-          __fmul_rn((float)(s + wi[QI_CQ3 + co]), wf[QF_SW3 + co]), a3);
-      const float r = warp_sum(fmaxf(__fadd_rn(y3, wf[QF_B3 + co]), 0.f));
-      if (lane == 0) red[warp * C3 + co] = r;
-    }
-  }
-  __syncthreads();
-  float* mean = red + NWARPS * C3;
-  if (tid < C3) {
-    float s = 0.f;
-    for (int w = 0; w < NWARPS; ++w) s += red[w * C3 + tid];
-    mean[tid] = s / (float)(H2 * W2);
-  }
-  __syncthreads();
+template <int STOP> struct TagQ {};
 
-  // ---- fc 24 -> emb (torch layout: weight (emb, 24))
-  if (tid < emb) {
-    float s = 0.f;
-#pragma unroll
-    for (int c = 0; c < C3; ++c) s = fmaf(mean[c], wf[QF_FC + tid * C3 + c], s);
-    out[n * emb + tid] = s + wf[QF_FC + emb * C3 + tid];
-  }
+template <int STOP>
+cudaError_t get_plan(Plan* p) {
+  return plan_for<TagQ<STOP>>((const void*)roi_cnn_q8_kernel<STOP>,
+                              (int)SmemQ::BYTES, p);
+}
+
+template <int STOP = STOP_NONE>
+int launch(const void* roi, const void* qi, const void* qf, void* out, int n,
+           int emb, void* stream) {
+  if (emb < 1 || emb > MAX_EMB || n < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  Plan p;
+  cudaError_t e = get_plan<STOP>(&p);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = n < p.wave ? n : p.wave;
+  roi_cnn_q8_kernel<STOP><<<grid, THREADS, p.smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(roi), static_cast<const int32_t*>(qi),
+      static_cast<const float*>(qf), static_cast<float*>(out), n, emb);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -324,14 +557,40 @@ roi_cnn_q8_kernel(const uint8_t* __restrict__ roi,
 extern "C" int roi_cnn_q8_forward(const void* roi, const void* qi,
                                   const void* qf, void* out, int n, int emb,
                                   void* stream) {
-  if (emb < 1 || emb > MAX_EMB || n < 0) return (int)cudaErrorInvalidValue;
-  if (n == 0) return 0;
-  cudaError_t e = cudaFuncSetAttribute(
-      roi_cnn_q8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
+  return launch(roi, qi, qf, out, n, emb, stream);
+}
+
+// The check entry: the arguments of roi_cnn_q8_forward and stop (0 none,
+// 1-3 after that stage: out's entry j of a frame's row then holds the
+// stage's ReLU output's moment j % 3, in CHW order).
+extern "C" int roi_cnn_q8_check_forward(const void* roi, const void* qi,
+                                        const void* qf, void* out, int n,
+                                        int emb, int stop, void* stream) {
+  switch (stop) {
+    case STOP_NONE:
+      return launch<STOP_NONE>(roi, qi, qf, out, n, emb, stream);
+    case STOP_STAGE1:
+      return launch<STOP_STAGE1>(roi, qi, qf, out, n, emb, stream);
+    case STOP_STAGE2:
+      return launch<STOP_STAGE2>(roi, qi, qf, out, n, emb, stream);
+    case STOP_STAGE3:
+      return launch<STOP_STAGE3>(roi, qi, qf, out, n, emb, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The serving kernel's launch on the current device: out[0..4] = threads a
+// block, dynamic shared memory bytes a block, blocks resident an SM, SMs,
+// and the wave. Returns the first failing cudaError_t.
+extern "C" int roi_cnn_q8_plan(int* out) {
+  Plan p;
+  const cudaError_t e = get_plan<STOP_NONE>(&p);
   if (e != cudaSuccess) return (int)e;
-  roi_cnn_q8_kernel<<<n, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
-      static_cast<const uint8_t*>(roi), static_cast<const int32_t*>(qi),
-      static_cast<const float*>(qf), static_cast<float*>(out), emb);
-  return (int)cudaGetLastError();
+  out[0] = p.threads;
+  out[1] = p.smem;
+  out[2] = p.per_sm;
+  out[3] = p.sms;
+  out[4] = p.wave;
+  return 0;
 }

@@ -1,5 +1,9 @@
 // The fused TinyROICNN forward's per-frame stages, shared by the forward
-// (roi_cnn.cu, K1) and its weight-gradient kernel (roi_cnn_bwd.cu, K3).
+// (roi_cnn.cu, K1) and its weight-gradient kernel (roi_cnn_bwd.cu, K3);
+// the im2col forward (roi_cnn_im2col.cu, K5) takes the input stages, conv1
+// and the TF32 helpers over its own layout (the template parameter S), and
+// the int8 forward (roi_cnn_q8.cu, K4) the copies, the debug moments and
+// the launch plan.
 //
 // K3 recomputes the forward through these same functions, so its
 // activations, pool argmaxes, ReLU masks and conv3 means are bitwise K1's
@@ -82,6 +86,7 @@ struct Smem {
   static constexpr size_t RAW = 0;                     // the frame's bytes
   static constexpr size_t XP = RAW + FRAME;            // [50][98]
   static constexpr size_t P1 = XP + align16(XP_SIZE * sizeof(T));  // [1300][8]
+  static constexpr int P1_RS = P1_W * C1;  // p1 elements a haloed row
   static constexpr size_t P2 = P1 + align16(P1_PIX * C1 * sizeof(T));
   static constexpr size_t W1S = P2 + align16(P2_PIX * C2 * sizeof(T));
   // conv1: [co][12]: 9 taps, b1, 2 zeros
@@ -292,26 +297,25 @@ __device__ __forceinline__ float packed_w3(const unsigned char* smem, int co,
 // The next frame's bytes, this thread's 16 of them (row y, columns x0..
 // x0+15), scaled in f32 (the bf16 build multiplies by the rounded 1/255,
 // as the Pallas kernel).
-template <typename T>
+template <typename T, typename S = Smem<T>>
 __device__ __forceinline__ void load_frame(const unsigned char* smem,
                                            float (&v)[16]) {
   cp_async_wait_all();
-  const uint4 q = reinterpret_cast<const uint4*>(smem + Smem<T>::RAW)[threadIdx.x];
+  const uint4 q = reinterpret_cast<const uint4*>(smem + S::RAW)[threadIdx.x];
   const uint32_t words[4] = {q.x, q.y, q.z, q.w};
 #pragma unroll
   for (int k = 0; k < 16; ++k) {
     const float b = (float)((words[k >> 2] >> (8 * (k & 3))) & 0xffu);
-    v[k] = Smem<T>::BF16 ? b * (1.0f / 255.0f) : b / 255.0f;
+    v[k] = S::BF16 ? b * (1.0f / 255.0f) : b / 255.0f;
   }
 }
 
 // The scaled values, standardized when asked (two passes, as
 // standardize_frames: mean, then var), into the haloed image.
-template <typename T>
+template <typename T, typename S = Smem<T>>
 __device__ __forceinline__ void normalize_store(unsigned char* smem,
                                                 float (&v)[16],
                                                 int standardize) {
-  using S = Smem<T>;
   float* red = reinterpret_cast<float*>(smem + S::RED);
   T* xp = reinterpret_cast<T*>(smem + S::XP);
   if (standardize) {
@@ -338,12 +342,11 @@ __device__ __forceinline__ void normalize_store(unsigned char* smem,
 // relu(max_i(s_i) + b) == max_i(relu(s_i + b)) exactly. KEEP (f32) also
 // stores each pooled cell's first-argmax codes (2 bits a channel, the
 // window's row-major position) in codes1 and its ReLU mask (bit co set if
-// p1 > 0) in mask1, both [H1 * W1].
-template <typename T, bool KEEP = false>
+// p1 > 0) in mask1, both [H1 * W1]. S::P1_RS is p1's row stride.
+template <typename T, bool KEEP = false, typename S = Smem<T>>
 __device__ __forceinline__ void conv1_stage(unsigned char* smem,
                                             uint16_t* codes1 = nullptr,
                                             uint8_t* mask1 = nullptr) {
-  using S = Smem<T>;
   using A = Act<T>;
   constexpr bool BF16 = S::BF16;
   static_assert(!(KEEP && BF16), "the backward takes the f32 build");
@@ -411,7 +414,7 @@ __device__ __forceinline__ void conv1_stage(unsigned char* smem,
     }
 #pragma unroll
     for (int q = 0; q < C1_PX; ++q) {
-      T* dst = p1 + ((py + 1) * P1_W + px + q + 1) * C1;
+      T* dst = p1 + (py + 1) * S::P1_RS + (px + q + 1) * C1;
       const float* v = o[q];
       if constexpr (BF16) {
         *reinterpret_cast<uint4*>(dst) =
@@ -712,6 +715,30 @@ __device__ __forceinline__ void conv3_means(unsigned char* smem, int warp,
     mean[tid] = z / (float)(H2 * W2);
   }
   __syncthreads();
+}
+
+// The forward kernels' debug stops (K1's and K5's, each kernel's Stop)
+// write, for each frame, three moments of what a stage computed.
+
+// a debug stop's moments of its values: the sum, the sum of squares and
+// the sum weighted by the value's index i in the plain version's order,
+// i % 31 (31 divides none of the buffers' strides)
+constexpr int POS_PERIOD = 31;
+struct Moments {
+  float s = 0.f, s2 = 0.f, sp = 0.f;
+  __device__ __forceinline__ void add(float v, int i) {
+    s += v;
+    s2 = fmaf(v, v, s2);
+    sp = fmaf((float)(i % POS_PERIOD), v, sp);
+  }
+};
+
+// a debug stop's output: the frame's moment j % 3 in entry j of its row
+__device__ void write_stop(float* out, size_t n, int emb, Moments m,
+                           float* red) {
+  const float t[3] = {block_sum(m.s, red), block_sum(m.s2, red),
+                      block_sum(m.sp, red)};
+  if ((int)threadIdx.x < emb) out[n * emb + threadIdx.x] = t[threadIdx.x % 3];
 }
 
 // A persistent kernel's launch: threads and dynamic shared memory bytes a

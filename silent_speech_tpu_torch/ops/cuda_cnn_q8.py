@@ -21,6 +21,13 @@ last ReLU it is bitwise the kernel; only the mean and the fc sum in another orde
 integer dots run as float64 convolutions rounded back to integers (exact:
 every |dot| < 2^24). The standardized (training-path) input has no int8
 contract and raises, as in the JAX package.
+
+The kernel runs the three dots on s8 tensor-core MMAs (m16n8k32) in
+persistent blocks (:func:`plan`), its weights packed into shared memory in
+fragment order once a block (:func:`fragment_weights` is a test model of
+that layout, with its K pad). Its check entry (:func:`roi_cnn_q8_entry`)
+ends each frame after a stage (:data:`STOPS`; :func:`roi_cnn_q8_debug_plain`
+gives the plain moments).
 """
 
 from __future__ import annotations
@@ -32,7 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _kernels
-from .cuda_cnn import CHANNELS, ROI_H, ROI_W, _check_frames, _check_params
+from .cuda_cnn import (CHANNELS, ROI_H, ROI_W, Plan, _ask_plan, _check_frames,
+                       _check_params, stage_moments)
 from .nn import dense, max_pool_2x2
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -41,6 +49,13 @@ KERNEL = _kernels.Kernel(
     [_P, _P, _P, _P,  # roi, int32 weights, f32 weights, out
      _I, _I,          # n, emb
      _P])             # stream
+CHECK_KERNEL = _kernels.Kernel(
+    "roi_cnn_q8_check", "roi_cnn_q8_check_forward",
+    [_P, _P, _P, _P, _I, _I,  # as KERNEL, then
+     _I, _P])                 # stop, stream
+# the check entry's stops (csrc/roi_cnn_q8.cu Stop): each frame ends after
+# that stage's ReLU output
+STOPS = {"stage1": 1, "stage2": 2, "stage3": 3}
 INV255 = 1.0 / 255.0
 # csrc/roi_cnn_q8.cu QI_SIZE and QF_FC
 QI_SIZE = CHANNELS[0] * 9 + 9 * CHANNELS[0] * CHANNELS[1] // 4 \
@@ -98,6 +113,64 @@ def quantize_roi_cnn(params: dict) -> dict:
     return q
 
 
+def plan(device=None) -> Plan:
+    """The kernel's launch on a card, the current one by default, as
+    ``roi_cnn_q8_plan`` in csrc/roi_cnn_q8.cu sizes it (card only; it asks
+    the card once per device)."""
+    return Plan(*_ask_plan("roi_cnn_q8_plan", (), 5, device))
+
+
+def fragment_weights(q: dict) -> dict:
+    """The kernel's s8 weights as it packs them into shared memory: m16n8k32
+    B fragments, (k32 blocks, n8 tiles, 32 lanes, 2 registers, 4 bytes)
+    int8; lane 4g + t, register r, byte b holds k slot 16 r + 4 t + b of N
+    column g. Stage 1, one block: column g of tile nt is channel
+    2 (g // 2) + nt at pool-window column p = g % 2, and slot 4 ky + c
+    holds tap (ky, c - p) where 0 <= c - p < 3, else zero (register 1
+    zero). Stages 2 and 3: column g is channel 8 nt + g; stage 2 block kb,
+    register r, slots 4t.. are tap 4 kb + 2 r + t // 2, channels
+    4 (t % 2) + b; stage 3 tap 2 kb + r, channels 4 t + b. Taps from 9 on
+    (the K pad) are zero. Built from ``qi`` (the kernel's input) alone.
+
+    A test model of the layout: the kernel does not read it, it packs the
+    same bytes itself (``pack_weights_q8`` in csrc/roi_cnn_q8.cu), so a
+    change there must be made here too; the CPU tests hold this model to
+    ``quantize_roi_cnn``, and the card tests hold the kernel to its plain
+    version."""
+    qi = q["qi"].cpu()
+    c1, c2, c3 = CHANNELS
+    w1 = qi[:9 * c1].to(torch.int8).reshape(c1, 3, 3)  # [co][ky][kx]
+    o = 9 * c1
+    w2 = qi[o:o + 9 * c2 * c1 // 4].view(torch.int8).reshape(c2, 9, c1)
+    o += w2.numel() // 4
+    w3 = qi[o:o + 9 * c3 * c2 // 4].view(torch.int8).reshape(c3, 9, c2)
+    f1 = torch.zeros((1, 2, 32, 2, 4), dtype=torch.int8)
+    for nt in range(2):
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            if t < 3:
+                p = g % 2
+                f1[0, nt, lane, 0, p:p + 3] = w1[2 * (g // 2) + nt, t]
+    out = {"stage1": f1}
+    for name, w, kb_n, ci in (("stage2", w2, 3, c1), ("stage3", w3, 5, c2)):
+        co = w.shape[0]
+        f = torch.zeros((kb_n, co // 8, 32, 2, 4), dtype=torch.int8)
+        for kb in range(kb_n):
+            for nt in range(co // 8):
+                for lane in range(32):
+                    g, t = divmod(lane, 4)
+                    for r in range(2):
+                        if ci == 8:  # 8 channels: two taps a register
+                            tap, c0 = 4 * kb + 2 * r + t // 2, 4 * (t % 2)
+                        else:
+                            tap, c0 = 2 * kb + r, 4 * t
+                        if tap < 9:
+                            f[kb, nt, lane, r] = w[8 * nt + g, tap,
+                                                   c0:c0 + 4]
+        out[name] = f
+    return out
+
+
 def _int_conv(x: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """Exact integer SAME conv of centered s8 activations (N, H, W, C) with
     s8 HWIO weights, the halo -128: float64, rounded to integers."""
@@ -116,10 +189,9 @@ def _requant(v: torch.Tensor):
     return (v * rv + 0.5).to(torch.int32) - 128, a
 
 
-def roi_cnn_q8_plain(roi_u8: torch.Tensor, q: dict) -> torch.Tensor:
-    """Plain version of the int8 mode: (N, 48, 96) uint8 -> (N, emb) f32,
-    on the operands of :func:`quantize_roi_cnn`, in the kernel's order of
-    f32 operations."""
+def _stages(roi_u8: torch.Tensor, q: dict) -> list[torch.Tensor]:
+    """The three stages' ReLU outputs (N, H, W, C), in the kernel's order
+    of f32 operations."""
     x = roi_u8.to(torch.int32).unsqueeze(-1) - 128
     y = _int_conv(x, q["w1q"]).to(torch.float32) * q["d1"] + q["cf1"]
     c1 = torch.relu(max_pool_2x2(y) + q["b1"])
@@ -128,8 +200,43 @@ def roi_cnn_q8_plain(roi_u8: torch.Tensor, q: dict) -> torch.Tensor:
     c2 = torch.relu(max_pool_2x2(y) + q["b2"])
     x, a3 = _requant(c2)
     y = (_int_conv(x, q["w3q"]) + q["cq3"]).to(torch.float32) * q["sw3"] * a3
-    c3 = torch.relu(y + q["b3"])
-    return dense(c3.mean(dim=(1, 2)), q["fc"])
+    return [c1, c2, torch.relu(y + q["b3"])]
+
+
+def roi_cnn_q8_plain(roi_u8: torch.Tensor, q: dict) -> torch.Tensor:
+    """Plain version of the int8 mode: (N, 48, 96) uint8 -> (N, emb) f32,
+    on the operands of :func:`quantize_roi_cnn`, in the kernel's order of
+    f32 operations."""
+    return dense(_stages(roi_u8, q)[2].mean(dim=(1, 2)), q["fc"])
+
+
+def roi_cnn_q8_debug_plain(roi_u8: torch.Tensor, q: dict, stop: str,
+                           absolute: bool = False) -> torch.Tensor:
+    """What the check entry's stop ``stop`` writes: (N, emb), entry j of a
+    row the frame's ``cuda_cnn.stage_moments`` j % 3 of that stage's ReLU
+    output in CHW order; ``absolute`` as there."""
+    if stop not in STOPS:
+        raise ValueError(f"unknown stop {stop!r}; the kernel takes "
+                         f"{tuple(STOPS)}")
+    c = _stages(roi_u8, q)[STOPS[stop] - 1]
+    m = stage_moments(c.permute(0, 3, 1, 2).flatten(1), absolute)
+    emb = q["fc"]["b"].shape[0]
+    return m[:, torch.arange(emb, device=m.device) % 3].contiguous()
+
+
+def _check_kernel_inputs(roi_u8: torch.Tensor, params: dict,
+                         packed: dict) -> int:
+    emb = _check_params(roi_u8, params)
+    qi, qf = packed["qi"], packed["qf"]
+    if not roi_u8.is_contiguous() or roi_u8.data_ptr() % 16:
+        raise ValueError("roi_u8 must be contiguous and 16-byte aligned")
+    if qi.dtype != torch.int32 or qi.numel() != QI_SIZE or \
+            qf.dtype != torch.float32 or qf.numel() != QF_FC + 25 * emb or \
+            qi.device != roi_u8.device or qf.device != roi_u8.device or \
+            not (qi.is_contiguous() and qf.is_contiguous()):
+        raise ValueError(f"packed must be quantize_roi_cnn of emb={emb} "
+                         f"weights on {roi_u8.device}")
+    return emb
 
 
 def roi_cnn_q8(roi_u8: torch.Tensor, params: dict, *,
@@ -154,20 +261,35 @@ def roi_cnn_q8(roi_u8: torch.Tensor, params: dict, *,
             packed = quantize_roi_cnn(params)
     if not use:
         return roi_cnn_q8_plain(roi_u8, packed)
-    emb = _check_params(roi_u8, params)
-    qi, qf = packed["qi"], packed["qf"]
-    if not roi_u8.is_contiguous() or roi_u8.data_ptr() % 16:
-        raise ValueError("roi_u8 must be contiguous and 16-byte aligned")
-    if qi.dtype != torch.int32 or qi.numel() != QI_SIZE or \
-            qf.dtype != torch.float32 or qf.numel() != QF_FC + 25 * emb or \
-            qi.device != roi_u8.device or qf.device != roi_u8.device or \
-            not (qi.is_contiguous() and qf.is_contiguous()):
-        raise ValueError(f"packed must be quantize_roi_cnn of emb={emb} "
-                         f"weights on {roi_u8.device}")
+    emb = _check_kernel_inputs(roi_u8, params, packed)
     N = roi_u8.shape[0]
     out = torch.empty((N, emb), dtype=torch.float32, device=roi_u8.device)
     if N:
-        KERNEL.launch(_kernels.ptr(roi_u8), _kernels.ptr(qi), _kernels.ptr(qf),
-                      _kernels.ptr(out), N, emb,
+        KERNEL.launch(_kernels.ptr(roi_u8), _kernels.ptr(packed["qi"]),
+                      _kernels.ptr(packed["qf"]), _kernels.ptr(out), N, emb,
                       _kernels.stream_ptr(roi_u8.device))
+    return out
+
+
+def roi_cnn_q8_entry(roi_u8: torch.Tensor, params: dict, packed: dict, *,
+                     stop: Optional[str] = None) -> torch.Tensor:
+    """The kernel through its check entry (card only): with ``stop``
+    (:data:`STOPS`) each frame ends after that stage and its row holds the
+    moments :func:`roi_cnn_q8_debug_plain` gives."""
+    _check_frames(roi_u8)
+    if stop is not None and stop not in STOPS:
+        raise ValueError(f"unknown stop {stop!r}; the kernel takes "
+                         f"{tuple(STOPS)}")
+    if not roi_u8.is_cuda or tuple(roi_u8.shape[1:]) != (ROI_H, ROI_W):
+        raise ValueError(f"the check entry takes {ROI_H}x{ROI_W} frames on a "
+                         f"CUDA device, got {tuple(roi_u8.shape)} on "
+                         f"{roi_u8.device}")
+    emb = _check_kernel_inputs(roi_u8, params, packed)
+    N = roi_u8.shape[0]
+    out = torch.empty((N, emb), dtype=torch.float32, device=roi_u8.device)
+    if N:
+        CHECK_KERNEL.launch(_kernels.ptr(roi_u8), _kernels.ptr(packed["qi"]),
+                            _kernels.ptr(packed["qf"]), _kernels.ptr(out), N,
+                            emb, STOPS.get(stop, 0),
+                            _kernels.stream_ptr(roi_u8.device))
     return out

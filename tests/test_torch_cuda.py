@@ -12,7 +12,9 @@ refusing autograd;
 a train step through the kernels against the plain path; the serving
 modes' CNN kernels (K1-bf16, K4 int8, K5 im2col) on ragged and single
 frames, narrow embeddings, the inputs they refuse, and the Predictor in
-each mode against its plain path; the GRU probes' kernels (the recurrence
+each mode against its plain path; K4's and K5's plans, N at the edges of
+their waves, their rows bitwise independent of the batch, K5's debug stops
+and K4's check entry (its stops, and stage 1 on either route); the GRU probes' kernels (the recurrence
 kernel with one and two weight sets, the dual-chain kernel) in f32 and
 bf16, their launch counts, their independence of the knobs and the inputs
 they refuse; the CNN-front prototypes' kernels (the parity conv1 + pool1
@@ -718,10 +720,11 @@ def test_train_step_kernels_match_plain(dev):
 
 # chip_smoke.py's bars (live, standardized): bf16 crossings of rounding
 # boundaries after f32 reassociation; int8 bitwise up to the last ReLU;
-# im2col as K1. On a constant frame one bf16 crossing moves a whole map:
-# chip_smoke.py's BAR_BF16_CONST there.
+# im2col computes K1's function as 3xTF32, at K1's f32 bars (which one TF32
+# pass misses: tests/test_torch_roi_cnn_im2col_tc.py). On a constant frame
+# one bf16 crossing moves a whole map: chip_smoke.py's BAR_BF16_CONST there.
 _MODE_BARS = {"bf16": (1e-4, 1e-4), "q8": (1e-6, None),
-              "im2col": (2e-4, 2e-3)}
+              "im2col": _K1_BARS["f32"]}
 _BF16_CONST_BAR = 2e-3
 
 
@@ -776,6 +779,110 @@ def test_q8_kernel_rows_do_not_depend_on_the_batch(dev):
         assert torch.equal(part, whole[lo:hi])
 
 
+# K4 and K5 (csrc/roi_cnn_q8.cu, csrc/roi_cnn_im2col.cu): persistent
+# blocks, one wave sized by the kernel (cuda_cnn_q8.plan,
+# cuda_cnn_im2col.plan)
+_MODE_PLANS = {"q8": (cuda_cnn_q8.plan, 3), "im2col": (cuda_cnn_im2col.plan, 2)}
+
+
+@pytest.mark.parametrize("mode", ["q8", "im2col"])
+def test_serving_mode_plan_is_one_wave_of_resident_blocks(dev, mode):
+    plan, per_sm = _MODE_PLANS[mode]
+    pl = plan()
+    props = torch.cuda.get_device_properties(dev)
+    assert pl.threads == 288 and pl.smem <= 232448
+    assert pl.blocks_per_sm >= per_sm
+    assert pl.sms == props.multi_processor_count
+    assert pl.wave == pl.blocks_per_sm * pl.sms
+
+
+@pytest.mark.parametrize("N", ["1", "33", "wave", "wave+1", "8192"])
+@pytest.mark.parametrize("mode", ["q8", "im2col"])
+def test_serving_mode_kernels_match_plain_across_waves(dev, mode, N):
+    """A frame a block, one wave, one wave and a frame, and the serving
+    batch (where each block walks many frames), standardize off and on
+    (im2col)."""
+    n = eval(N, {"wave": _MODE_PLANS[mode][0]().wave})
+    g = torch.Generator().manual_seed(n)
+    roi = torch.randint(0, 256, (n, 48, 96), generator=g, dtype=torch.uint8)
+    roi[n // 2] = 255
+    roi, p = roi.to(dev), _cnn_params(dev, n % 89)
+    packed = {"q8": cuda_cnn_q8.quantize_roi_cnn,
+              "im2col": cuda_cnn_im2col.pack_im2col}[mode](p)
+    for std, bar in zip((False, True), _MODE_BARS[mode]):
+        if bar is None:
+            continue
+        got = _mode_call(mode, roi, p, std, packed=packed)
+        ref = _mode_call(mode, roi, p, std, impl="plain", packed=packed)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, ref, atol=bar, rtol=0)
+
+
+@pytest.mark.parametrize("standardize", [False, True])
+def test_im2col_kernel_rows_do_not_depend_on_the_batch(dev, standardize):
+    """Bitwise: frames launched alone equal the same frames in a batch of
+    two waves and a frame (other blocks, at other steps of their walk), and
+    two launches are equal."""
+    wave = cuda_cnn_im2col.plan().wave
+    roi = torch.randint(0, 256, (2 * wave + 1, 48, 96), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(8)).to(dev)
+    roi[40] = 0
+    p = _cnn_params(dev, 8)
+    w = cuda_cnn_im2col.pack_im2col(p)
+    call = lambda r: cuda_cnn_im2col.roi_cnn_im2col(
+        r.contiguous(), p, standardize=standardize, packed=w)
+    whole = call(roi)
+    assert torch.equal(whole, call(roi))
+    for lo, hi in ((0, 1), (64, 65), (10, 43), (2 * wave - 2, 2 * wave + 1)):
+        assert torch.equal(call(roi[lo:hi]), whole[lo:hi]), (lo, hi)
+
+
+@pytest.mark.parametrize("standardize", [False, True])
+@pytest.mark.parametrize("stop", ["load", "norm", "conv1", "conv2", "conv3"])
+def test_im2col_debug_stop_matches_plain(dev, stop, standardize):
+    """K5's stops write K1's moments (cuda_cnn.roi_cnn_debug_plain) of its
+    own buffers, read in the plain version's order: within 1e-5 of each
+    moment's sum of absolute terms, as K1's stops."""
+    g = torch.Generator().manual_seed(17)
+    roi = torch.randint(0, 256, (9, 48, 96), generator=g, dtype=torch.uint8)
+    roi = roi.to(dev)
+    p = _cnn_params(dev, 17)
+    before = _kernels.launch_counts()
+    got = cuda_cnn_im2col.roi_cnn_im2col(roi, p, standardize=standardize,
+                                         debug_stop=stop)
+    torch.cuda.synchronize()
+    after = _kernels.launch_counts()
+    assert {n for n in after if after[n] != before[n]} == \
+        {"roi_cnn_im2col_debug"}
+    ref = cuda_cnn.roi_cnn_debug_plain(roi, p, standardize, stop)
+    bar = 1e-5 * cuda_cnn.roi_cnn_debug_plain(roi, p, standardize, stop,
+                                              absolute=True)
+    assert torch.isfinite(got).all()
+    assert ((got - ref).abs() <= bar).all(), (got - ref).abs().max().item()
+
+
+@pytest.mark.parametrize("stop", [None, "stage1", "stage2", "stage3"])
+def test_q8_check_entry_matches_plain(dev, stop):
+    """K4's check entry: without a stop its output is bitwise the serving
+    kernel's; its stops hold the moments of each stage's ReLU output
+    (bitwise the plain version's values, f32 sums of up to 9,216 terms)
+    within 1e-5 of each moment's sum of |terms|."""
+    g = torch.Generator().manual_seed(19)
+    roi = torch.randint(0, 256, (70, 48, 96), generator=g, dtype=torch.uint8)
+    roi[3] = 255
+    roi, p = roi.to(dev), _cnn_params(dev, 19)
+    q = cuda_cnn_q8.quantize_roi_cnn(p)
+    got = cuda_cnn_q8.roi_cnn_q8_entry(roi, p, q, stop=stop)
+    if stop is None:
+        assert torch.equal(got, cuda_cnn_q8.roi_cnn_q8(roi, p, packed=q))
+        return
+    ref = cuda_cnn_q8.roi_cnn_q8_debug_plain(roi, q, stop)
+    bar = 1e-5 * cuda_cnn_q8.roi_cnn_q8_debug_plain(roi, q, stop,
+                                                     absolute=True)
+    assert torch.isfinite(got).all()
+    assert ((got - ref).abs() <= bar).all(), (got - ref).abs().max().item()
+
+
 @pytest.mark.parametrize("mode", ["bf16", "q8", "im2col"])
 def test_serving_mode_kernel_rejects_what_it_does_not_take(dev, mode):
     p = _cnn_params(dev, 3)
@@ -784,10 +891,9 @@ def test_serving_mode_kernel_rejects_what_it_does_not_take(dev, mode):
         _mode_call(mode, roi.float(), p, False)
     with pytest.raises(ValueError, match="contiguous"):
         _mode_call(mode, roi[::2], p, False)
-    if mode != "im2col":  # one 16-byte load per thread
-        off = torch.zeros(4 * 48 * 96 + 1, dtype=torch.uint8, device=dev)
-        with pytest.raises(ValueError, match="aligned"):
-            _mode_call(mode, off[1:].view(4, 48, 96), p, False)
+    off = torch.zeros(4 * 48 * 96 + 1, dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="aligned"):  # 16-byte copies
+        _mode_call(mode, off[1:].view(4, 48, 96), p, False)
     with pytest.raises(ValueError, match="48x96"):
         _mode_call(mode, torch.zeros((2, 40, 96), dtype=torch.uint8,
                                      device=dev), p, False)

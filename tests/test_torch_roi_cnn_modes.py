@@ -177,3 +177,93 @@ def test_im2col_packing_matches_pack_conv():
         o += w_tile * c_out
     np.testing.assert_array_equal(packed[o:o + 24 * 32].numpy(),
                                   params["fc"]["w"].reshape(-1))
+
+
+@pytest.mark.parametrize("conv", [0, 1, 2])
+def test_im2col_fragments_cover_the_nonzeros_once(conv):
+    """The kernel's fragment walk (cuda_cnn_im2col.nonzero_fragments)
+    covers every nonzero entry of pack_im2col's matrix exactly once, no
+    fragment it drops holds a nonzero, and each listed fragment holds the
+    (dy, dx) slice that the kernel copies once a block (tap_blocks)."""
+    params = _params(9)
+    p = _torch(params)
+    w_tile, wx_len = cuda_cnn_im2col.TILES[conv]
+    c_in, c_out = (1, 8, 16)[conv], (8, 16, 24)[conv]
+    m = cuda_cnn_im2col.pack_conv(p[f"conv{conv}"]["w"], w_tile, wx_len)
+    want = pallas_cnn._pack_conv(params[f"conv{conv}"]["w"], w_tile, wx_len,
+                                 3 * wx_len * c_in)
+    np.testing.assert_array_equal(m.numpy(), want)
+    taps = cuda_cnn_im2col.tap_blocks(cuda_cnn_im2col.pack_im2col(p),
+                                      32)[conv]
+    torch.testing.assert_close(taps, p[f"conv{conv}"]["w"], atol=0, rtol=0)
+    fk, fn = cuda_cnn_im2col.FRAG_K[conv], cuda_cnn_im2col.FRAG_N[conv]
+    count = torch.zeros(m.shape, dtype=torch.int32)
+    for r, c, dy, dx in cuda_cnn_im2col.nonzero_fragments(conv):
+        count[r:r + fk, c:c + fn] += 1
+        ci0, co0 = r % c_in, c % c_out
+        assert (r // c_in) // wx_len == dy
+        assert (r // c_in) % wx_len - c // c_out == dx
+        assert torch.equal(m[r:r + fk, c:c + fn],
+                           taps[dy, dx, ci0:ci0 + fk, co0:co0 + fn])
+    assert (count <= 1).all()
+    assert (count[m != 0] == 1).all()
+    assert (m[count == 0] == 0).all()
+    # the random weights have no zeros: the listed fragments are all of
+    # the function's taps, 9 a (w_off, output tile, input tile)
+    assert int((count == 1).sum()) == int((m != 0).sum()) == \
+        9 * w_tile * c_in * c_out
+
+
+def test_q8_fragment_weights_match_quantize_pack():
+    """The int8 kernel's s8 weights in its m16n8k32 fragment order
+    (cuda_cnn_q8.fragment_weights) hold each s8 weight of quantize_roi_cnn
+    and _quantize_pack exactly once (stage 1: once for each column of the
+    pool window), zeros in the K pad, and their column sums give the
+    zero-point corrections (the pad adds nothing)."""
+    params = _params(10)
+    pq = jax.tree.map(np.asarray,
+                      pack_roi_cnn_fused(params, variant="tiled3_q8"))
+    q = cuda_cnn_q8.quantize_roi_cnn(_torch(params))
+    frags = cuda_cnn_q8.fragment_weights(q)
+    idx = _pack_indices()
+    for key, (ci, co), jax_idx in (("1", (1, 8), idx[0]),
+                                   ("2", (8, 16), idx[3]),
+                                   ("3", (16, 24), idx[5])):
+        f = frags[f"stage{key}"]
+        w = torch.zeros((3, 3, ci, co), dtype=torch.int32)
+        seen = torch.zeros((3, 3, ci, co), dtype=torch.int32)
+        for (kb, nt, lane, r, b), v in np.ndenumerate(f.numpy()):
+            g, t = divmod(lane, 4)
+            if key == "1":  # column g: channel 2 (g // 2) + nt, window col g % 2
+                kx = b - g % 2
+                tap = 3 * t + kx if t < 3 and 0 <= kx < 3 and r == 0 else 9
+                c, col = 0, 2 * (g // 2) + nt
+            elif key == "2":
+                tap, c = 4 * kb + 2 * r + t // 2, 4 * (t % 2) + b
+            else:
+                tap, c = 2 * kb + r, 4 * t + b
+            if key != "1":
+                col = 8 * nt + g
+            if tap >= 9:
+                assert v == 0, (key, kb, nt, lane, r, b)
+                continue
+            w[tap // 3, tap % 3, c, col] = int(v)
+            seen[tap // 3, tap % 3, c, col] += 1
+        assert (seen == (2 if key == "1" else 1)).all(), key
+        assert torch.equal(w, q[f"w{key}q"].to(torch.int32)), key
+        rows, cols, flat = jax_idx
+        np.testing.assert_array_equal(pq[f"w{key}q"][rows, cols],
+                                      w.numpy().reshape(-1)[flat], key)
+        if key == "1":  # each window column's fragment column
+            for p in (0, 1):
+                colsum = torch.stack([
+                    f[:, c % 2, 4 * (2 * (c // 2) + p):4 * (2 * (c // 2) + p)
+                      + 4].to(torch.int32).sum() for c in range(co)])
+                np.testing.assert_array_equal(
+                    (128.0 * colsum.float() * q["d1"]).numpy(),
+                    q["cf1"].numpy())
+        else:
+            colsum = torch.stack([
+                f[:, nt, 4 * g:4 * g + 4].to(torch.int32).sum()
+                for nt in range(co // 8) for g in range(8)])
+            assert torch.equal(128 * colsum, q[f"cq{key}"]), key
