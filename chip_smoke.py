@@ -96,7 +96,20 @@ prints no result line):
    proto_bwd_dots3 at full size, with the launch counts over each, whose
    rows hold each kernel against its plain version at the scripts' shapes
    and give its time, bound (a row above 100% of it fails), and the plain
-   version's and the library call's times.
+   version's and the library call's times;
+12. the CTC family at full width (hidden 192, 3 GRU layers, emb 32, 27
+   classes, random weights from the seed; ``check_ctc``): its forward on K1
+   and K2 against the plain version at B=64, T=80 (log-probabilities within
+   1e-3, the dictionary argmax equal on every clip), one train step at
+   B=32, T=80 (K3 at N=2,560, standardize off) against the plain step at
+   the official parity's bars; the train-ctc CLI on phase 5's corpus, the
+   eval-ctc CLI over phase 5b's 320 clips in the four serving modes (each
+   mode's argmax equal to f32's on every clip), predict on a CTC clip, and
+   the official train CLI with compute_dtype=bfloat16 and host_data=true
+   (bitwise the device-resident run); the CTC train step's time, kernels
+   and plain, score_batch clips/s at B=64 against 10 and 1,000 words, the
+   device breakdowns of both and of the lattice alone, and K1, K2's three
+   layers and K3 at the CTC path's shapes beside their bounds.
 
 Then one JSON line with the kernels' results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA device;
@@ -981,14 +994,38 @@ def train_batch(cfg, B: int, T: int, rng, dev):
 
 
 def train_step_parity(params, cfg, batch, dev) -> None:
+    """The official model's one-step parity (:func:`step_parity`): the
+    training forward (standardized ROI), label-smoothed cross entropy,
+    the global-norm clip at 1, Adam at lr 3e-4."""
+    from silent_speech_tpu_torch.models.bigru import BiGRUClassifier
+    from silent_speech_tpu_torch.train.step import smoothed_cross_entropy
+
+    X, L, R, y = batch
+
+    def loss_of(model, impl, train_cnn):
+        logits = model.train_forward(
+            X, L, R, generator=torch.Generator(device=dev), roi_impl=impl,
+            train_cnn=train_cnn)
+        return smoothed_cross_entropy(logits, y, cfg.num_classes, 0.05)
+
+    step_parity(f"train step B={X.shape[0]} T={X.shape[1]}",
+                lambda: BiGRUClassifier.from_jax_params(params, cfg),
+                loss_of, 3e-4, 1.0, dev)
+
+
+def step_parity(label: str, make_model, loss_of, lr: float,
+                clip_norm: float, dev, loss_relative: bool = False) -> None:
     """One train step (forward, loss, backward, clip, Adam) from the same
-    weights through the kernels and through the plain path, on the plain
-    path's own route and along K1's (the branch the kernels' forward took:
-    the plain ROI CNN is cuda_cnn_check.roi_cnn_plain_routed on the route
-    K3's check entry reports): raises unless the loss, every gradient and
-    every post-step parameter agree with both, K1's route differs from the
-    plain forward's own only at near-ties (route_check), and every
-    gradient is nonzero.
+    weights (``make_model()``, a CPU model) through the kernels and through
+    the plain path, on the plain path's own route and along K1's (the
+    branch the kernels' forward took: the plain ROI CNN is
+    cuda_cnn_check.roi_cnn_plain_routed on the route K3's check entry
+    reports): raises unless the loss, every gradient and every post-step
+    parameter agree with both, K1's route differs from the plain forward's
+    own only at near-ties (route_check), and every gradient is nonzero.
+    ``loss_of(model, roi_impl, train_cnn)`` is the step's loss;
+    ``loss_relative``: BAR_LOSS is taken relative to the loss where it is
+    over 1 (a CTC loss is tens, and f32 holds it to about 1e-7 of itself).
 
     Adam's first step moves a parameter by lr g / (|g| + eps), about lr
     sign(g). On the plain path's own route a near-tie taken the other way
@@ -1000,13 +1037,9 @@ def train_step_parity(params, cfg, batch, dev) -> None:
     accuracy) is held at 2 lr; every other entry, and every entry along
     K1's route, at BAR_PARAM."""
     from silent_speech_tpu_torch.infer.predictor import full_f32
-    from silent_speech_tpu_torch.models.bigru import BiGRUClassifier
     from silent_speech_tpu_torch.ops import _kernels, cuda_cnn, cuda_cnn_check
-    from silent_speech_tpu_torch.train.step import (make_optimizer,
-                                                    smoothed_cross_entropy)
+    from silent_speech_tpu_torch.train.step import make_optimizer
 
-    X, L, R, y = batch
-    lr = 3e-4
     routes = []
 
     def along_k1(roi_u8, p, standardize):
@@ -1025,14 +1058,12 @@ def train_step_parity(params, cfg, batch, dev) -> None:
     res = {}
     for run in ("kernel", "plain", "routed"):
         impl = "kernel" if run == "kernel" else "plain"
-        model = BiGRUClassifier.from_jax_params(params, cfg).to(dev)
-        opt = make_optimizer(model, lr)
+        model = make_model().to(dev)
+        opt = make_optimizer(model, lr, clip_norm)
         before = _kernels.launch_counts()
         with full_f32():
-            logits = model.train_forward(
-                X, L, R, generator=torch.Generator(device=dev),
-                roi_impl=impl, train_cnn=along_k1 if run == "routed" else None)
-            loss = smoothed_cross_entropy(logits, y, cfg.num_classes, 0.05)
+            loss = loss_of(model, impl,
+                           along_k1 if run == "routed" else None)
             opt.zero_grad()
             loss.backward()
             grads = {n: p.grad.detach().clone()
@@ -1043,15 +1074,15 @@ def train_step_parity(params, cfg, batch, dev) -> None:
         launched = {k: after[k] - before[k] for k in after}
         want = 1 if impl == "kernel" else 0
         if launched["roi_cnn"] != want or launched["roi_cnn_bwd"] != want:
-            fail(f"train step roi_impl={impl}: launches {launched}")
+            fail(f"{label} roi_impl={impl}: launches {launched}")
         zero = [n for n, g in grads.items() if not g.abs().max() > 0]
         if zero:
-            fail(f"train step roi_impl={impl}: zero gradient for {zero}")
+            fail(f"{label} roi_impl={impl}: zero gradient for {zero}")
         res[run] = (loss.item(), grads,
                     {n: p.detach().clone()
                      for n, p in model.named_parameters()})
     roi, p_roi, std, route = routes[0]
-    gaps = route_check("train step", roi, p_roi, std, route)
+    gaps = route_check(label, roi, p_roi, std, route)
     lk, gk, pk = res["kernel"]
     below = lambda g: g.abs() <= BAR_K3 * g.abs().max()
     for run in ("routed", "plain"):
@@ -1068,22 +1099,22 @@ def train_step_parity(params, cfg, batch, dev) -> None:
         d_flip = max((dp[n][flip[n]].max().item() for n in pk
                       if flip[n].any()), default=0.0)
         route_name = "along K1's" if run == "routed" else "on its own"
-        print(f"  train step B={X.shape[0]} T={X.shape[1]} kernels vs plain "
-              f"{route_name} route: "
+        bar_loss = BAR_LOSS * (max(1.0, abs(lp)) if loss_relative else 1.0)
+        print(f"  {label} kernels vs plain {route_name} route: "
               f"loss {lk:.6f} vs {lp:.6f} (|d| {diff['loss']:.2e}, bar "
-              f"{BAR_LOSS:g}), grads max |d| {diff['grad']:.2e} (bar "
+              f"{bar_loss:g}), grads max |d| {diff['grad']:.2e} (bar "
               f"{BAR_GRAD:g}), params after Adam max |d| {diff['param']:.2e} "
               f"(bar {BAR_PARAM:g})"
               + (f"; {n_flip} entries whose gradient changes sign within "
                  f"BAR_K3 of its tensor's largest: max |d| {d_flip:.2e} "
                  f"(bar 2 lr = {2 * lr:g})" if run == "plain" else ""))
-        for key, bar in (("loss", BAR_LOSS), ("grad", BAR_GRAD),
+        for key, bar in (("loss", bar_loss), ("grad", BAR_GRAD),
                          ("param", BAR_PARAM)):
             if not diff[key] <= bar:
-                fail(f"train step ({run}) {key} differs by {diff[key]:.2e} "
+                fail(f"{label} ({run}) {key} differs by {diff[key]:.2e} "
                      f"> {bar:g}")
         if not d_flip <= 2 * lr:
-            fail(f"train step ({run}): a parameter whose gradient changes "
+            fail(f"{label} ({run}): a parameter whose gradient changes "
                  f"sign differs by {d_flip:.2e} > {2 * lr:g}")
     print(f"    {gaps}; every gradient nonzero")
 
@@ -2026,6 +2057,447 @@ def run_bwd_dot_scripts(card: str) -> tuple[dict, dict]:
     return counts, rates
 
 
+
+# ---- phase 12: the CTC family (slice 4) and the official trainer's options
+
+# the CTC model's full width (CTCTrainConfig(): x_dim 180, hidden 192, 3
+# layers, emb 32, 27 classes, max_t 80); serving and the sweep at B=64,
+# the trainer's batch 32
+B_CTC, B_CTC_TRAIN, T_CTC = 64, 32, 80
+# train-ctc on the phase-5 corpus (10 words x 8 clips, 70 for training):
+# at the default lr 1e-3 the model still emits mostly blanks after 30
+# epochs (every clip decodes to the shortest word); 3e-3 for 60 epochs
+CTC_EPOCHS, CTC_LR = 60, 3e-3
+CTC_BIG_DICT = 1000  # the generated dictionary of the score_batch timings
+BAR_CTC_LOGPROBS = 1e-3  # the serving bar of the official model's logits
+# the JAX CTC trainer's checkpoint metadata (train/ctc_loop.py:188-196)
+CTC_META = {"x_dim", "max_t", "vocab", "blank_id", "label_to_text",
+            "uniq_labels", "exp_len", "len_lambda", "gru_layers", "seed",
+            "roi_h", "roi_w"}
+
+
+def ctc_words(n: int, seed: int) -> list[str]:
+    """``n`` distinct random a-z words of 2..8 letters."""
+    rng = np.random.default_rng(seed)
+    words: set = set()
+    while len(words) < n:
+        k = int(rng.integers(2, 9))
+        words.add("".join(chr(97 + int(c)) for c in rng.integers(0, 26, k)))
+    return sorted(words)
+
+
+def ctc_batch(B: int, rng, dev, words: list[str]):
+    """B clips of T_CTC frames (lengths 20..80, the first 80) with uint8
+    frames, and each clip's target: one of ``words``."""
+    from silent_speech_tpu_torch.models import ctc_model
+
+    X = torch.from_numpy(rng.standard_normal((B, T_CTC, 180))
+                         .astype(np.float32)).to(dev)
+    L = torch.from_numpy(rng.integers(T_CTC // 4, T_CTC + 1, B)).to(dev)
+    L[0] = T_CTC
+    R = torch.from_numpy(rng.integers(0, 256, (B, T_CTC, 48, 96),
+                                      dtype=np.uint8)).to(dev)
+    enc = [ctc_model.encode_text(words[int(i)])
+           for i in rng.integers(0, len(words), B)]
+    y = np.zeros((B, max(map(len, enc))), np.int64)
+    for i, e in enumerate(enc):
+        y[i, :len(e)] = e
+    ylen = torch.tensor([len(e) for e in enc], device=dev)
+    return X, L, R, torch.from_numpy(y).to(dev), ylen
+
+
+def ctc_sweep_arrays(dec, files):
+    """The clips as evaluate_ctc_dataset batches them: trimmed, padded to
+    the decoder's max_t; and each clip's normalized label."""
+    from silent_speech_tpu_torch.core.schema import load_clip
+    from silent_speech_tpu_torch.infer.ctc_decode import trim_pad
+    from silent_speech_tpu_torch.models.ctc_model import normalize_label
+
+    clips = [load_clip(f).aligned() for f in files]
+    Xs, Rs, Ls = zip(*(trim_pad(c.X, c.roi, dec.max_t, **dec.trim_kw)
+                       for c in clips))
+    return (np.stack(Xs), np.stack(Rs), np.asarray(Ls, np.int32),
+            [normalize_label(c.label) for c in clips])
+
+
+def run_cli(args: list[str]) -> str:
+    """One CLI call, its standard output returned (and echoed); fails
+    unless it exits 0."""
+    from silent_speech_tpu_torch.apps import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(args)
+    text = out.getvalue()
+    print(text, end="")
+    if rc != 0:
+        fail(f"{' '.join(args[:2])} exited {rc}")
+    return text
+
+
+def breakdown_line(label: str, bd: dict, card: str) -> None:
+    """One line of a :func:`device_breakdown`: wall, device busy, idle
+    share and the categories by time."""
+    if bd["busy_ms"] is None:
+        print(f"  {label}: wall {bd['wall_ms']:.4f} ms; device time not "
+              "measured (the profiler recorded no device events)")
+        return
+    cats = ", ".join(f"{k} {v:.4f}" for k, v in
+                     sorted(bd["device_ms"].items(), key=lambda kv: -kv[1]))
+    print(f"  {label}: wall {bd['wall_ms']:.4f} ms, device busy "
+          f"{bd['busy_ms']:.4f} ms, idle share {bd['idle_share']:.4f}; "
+          f"{cats}{' ' + card if card else ''}")
+
+
+def check_ctc(p_cnn, flat, work: Path, labels: list[str], dev, card: str
+              ) -> dict:
+    """Phase 12, the CTC family at full width, random weights from SEED:
+
+    - the CTC forward on K1 and K2 against the plain version (TF32 off) at
+      B=64, T=80: log-probabilities within BAR_CTC_LOGPROBS and the
+      10-word dictionary's argmax equal on every clip;
+    - one CTC train step at B=32, T=80 (K3 at N=2,560, standardize off)
+      against the plain step, at the official step parity's bars and
+      near-tie rule (:func:`step_parity`, the loss bar relative);
+    - the CLIs: train-ctc on the phase-5 corpus (meta contract, finite and
+      falling loss, K1 and K3 every step, K1 and K2 every validation),
+      eval-ctc over the 320 sweep clips in the f32, bf16, q8 and im2col
+      modes (each mode's argmax equal to f32's on every clip), predict on
+      one clip; the official train CLI with compute_dtype=bfloat16 and with
+      host_data=true (its parameters bitwise the device-resident run's);
+    - timings: the CTC train step (kernels and plain), score_batch clips/s
+      at B=64 against 10 and 1,000 words, their device breakdowns and the
+      lattice's, K1 at N=5,120, K2's three layers at B=64, T=80, K3 at
+      N=2,560 with standardize off.
+
+    Returns the kernels' CTC-path figures, {kernel name: dict}."""
+    from silent_speech_tpu_torch.core.schema import load_clip
+    from silent_speech_tpu_torch.data.corpus import scan_corpus
+    from silent_speech_tpu_torch.infer.ctc_decode import (CTCDecoder,
+                                                          Dictionary)
+    from silent_speech_tpu_torch.infer.predictor import full_f32
+    from silent_speech_tpu_torch.models import ctc_model
+    from silent_speech_tpu_torch.models.bigru import tree_leaves
+    from silent_speech_tpu_torch.ops import _kernels, cuda_cnn, cuda_gru
+    from silent_speech_tpu_torch.ops import gru as gru_ops
+    from silent_speech_tpu_torch.ops.ctc import (ctc_loss,
+                                                 ctc_word_logprobs_clips)
+    from silent_speech_tpu_torch.train.checkpoint import load_checkpoint
+    from silent_speech_tpu_torch.train.ctc_loop import ctc_train_step
+    from silent_speech_tpu_torch.train.step import make_optimizer
+
+    rng = np.random.default_rng(SEED + 20)
+    cfg = ctc_model.CTCConfig()
+    params = ctc_model.init_params(cfg.x_dim,
+                                   torch.Generator().manual_seed(SEED))
+    model = ctc_model.BiGRUCTC.from_jax_params(params, cfg)
+    words = Dictionary.from_words(labels)
+    dec = CTCDecoder(model, words, device=dev)
+    plain_dec = CTCDecoder(ctc_model.BiGRUCTC.from_jax_params(params, cfg),
+                           words, device=dev, roi_impl="plain",
+                           gru_impl="plain")
+    out: dict = {"roi_cnn": {}, "gru_seq": {}, "gru_proj": {},
+                 "roi_cnn_bwd": {}}
+
+    # ---- the forward on K1 and K2 against the plain version
+    X, L, R, _, _ = ctc_batch(B_CTC, rng, dev, labels)
+    Xn, Ln, Rn = X.cpu().numpy(), L.cpu().numpy(), R.cpu().numpy()
+    _kernels.reset_launch_counts()
+    lp = dec.logprobs(Xn, Rn, Ln)
+    torch.cuda.synchronize()
+    fwd_counts = _kernels.launch_counts()
+    print(f"  CTC forward B={B_CTC} T={T_CTC} (hidden 192, 3 layers, emb "
+          f"32): launches {({k: v for k, v in fwd_counts.items() if v})}")
+    if fwd_counts["roi_cnn"] != 1 or fwd_counts["gru_proj"] != 3 or \
+            fwd_counts["gru_seq"] != 3:
+        fail(f"the CTC forward did not run K1 once and K2 once a layer: "
+             f"{fwd_counts}")
+    ref = plain_dec.logprobs(Xn, Rn, Ln)
+    err = check_close(f"CTC log-probs B={B_CTC} T={T_CTC} kernels vs plain",
+                      lp, ref, BAR_CTC_LOGPROBS)
+    s_k, s_p = dec.score_batch(Xn, Rn, Ln), plain_dec.score_batch(Xn, Rn, Ln)
+    top2 = np.sort(s_p, -1)
+    same = int((s_k.argmax(-1) == s_p.argmax(-1)).sum())
+    print(f"  CTC dictionary ({len(labels)} words) argmax equal on "
+          f"{same}/{B_CTC} clips (smallest top-2 margin "
+          f"{(top2[:, -1] - top2[:, -2]).min():.4f}), scores max |d| "
+          f"{np.abs(s_k - s_p).max():.3e}")
+    if same != B_CTC:
+        fail(f"CTC dictionary argmax equal on {same}/{B_CTC} clips")
+    out["roi_cnn"]["ctc_max_abs_err_logprobs"] = err
+
+    # ---- one train step, kernels vs plain (K3 at N=2,560, standardize off)
+    cfg0 = ctc_model.CTCConfig(gru_dropout=0.0)
+    params0 = ctc_model.init_params(cfg0.x_dim,
+                                    torch.Generator().manual_seed(SEED + 1))
+    Xt, Lt, Rt, yt, ylt = ctc_batch(B_CTC_TRAIN, rng, dev, labels)
+
+    def loss_of(m, impl, train_cnn):
+        lp_ = m(Xt, Lt, Rt, train=True, generator=torch.Generator(device=dev),
+                roi_impl=impl, train_cnn=train_cnn)
+        return ctc_loss(lp_, Lt, yt, ylt)
+
+    step_parity(f"CTC train step B={B_CTC_TRAIN} T={T_CTC}",
+                lambda: ctc_model.BiGRUCTC.from_jax_params(params0, cfg0),
+                loss_of, 3e-4, 1e9, dev, loss_relative=True)
+
+    # ---- the CLIs: train-ctc, eval-ctc in four modes, predict
+    corpus = work / "train_clips"
+    ckpt = str(work / "ctc.ckpt")
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    text = run_cli(["train-ctc", f"clip_dir={corpus}", f"out_path={ckpt}",
+                    f"epochs={CTC_EPOCHS}", f"patience={CTC_EPOCHS}",
+                    f"lr={CTC_LR}", f"batch_size={B_CTC_TRAIN}",
+                    f"max_t={T_CTC}",
+                    "device=cuda"])
+    wall = time.perf_counter() - t0
+    tr_counts = _kernels.launch_counts()
+    losses = [float(v) for v in re.findall(
+        r"^ep \d{3} \| loss (\S+) \| val acc \S+ \[", text, re.M)]
+    accs = [float(v) for v in re.findall(
+        r"^ep \d{3} \| loss \S+ \| val acc (\S+) \[", text, re.M)]
+    n_files = len(scan_corpus(str(corpus), verbose=False).files)
+    # the per-label split keeps max(1, int(8 * 0.15)) = 1 clip a word
+    n_train = n_files - len(labels) * max(1, int(8 * 0.15))
+    steps = len(losses) * -(-n_train // B_CTC_TRAIN)
+    print(f"  train-ctc: {len(losses)} epochs, {n_train} training clips, "
+          f"{steps} steps in {wall:.1f} s; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, best val acc {max(accs):.3f}; launches "
+          f"{({k: v for k, v in tr_counts.items() if v})} {card}")
+    if not losses or not all(map(math.isfinite, losses)) or \
+            not losses[-1] < losses[0]:
+        fail(f"train-ctc losses {losses}: not finite and falling")
+    if tr_counts["roi_cnn_bwd"] != steps or tr_counts["roi_cnn"] < steps or \
+            tr_counts["gru_seq"] != 3 * len(losses):
+        fail(f"train-ctc ({steps} steps, {len(losses)} validations) "
+             f"launches {tr_counts}")
+    _, meta, _ = load_checkpoint(ckpt)
+    if set(meta) != CTC_META or meta["vocab"] != ctc_model.VOCAB or \
+            meta["max_t"] != T_CTC or sorted(meta["uniq_labels"]) != \
+            sorted(labels):
+        fail(f"train-ctc checkpoint metadata {sorted(meta)}")
+    out["roi_cnn_bwd"]["ctc_train_launches"] = tr_counts["roi_cnn_bwd"]
+    out["roi_cnn"]["ctc_train_launches"] = tr_counts["roi_cnn"]
+
+    sweep_dir = work / "sweep_clips"
+    files = scan_corpus(str(sweep_dir), verbose=False).files
+    sweep = {}
+    mode_scores = {}
+    for mode, (knobs, kname) in MODES.items():
+        args = ["eval-ctc", f"ckpt_path={ckpt}", f"clip_dir={sweep_dir}",
+                f"batch_size={B_CTC}", "device=cuda"] + \
+            [f"{k}={v}" for k, v in knobs.items()]
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        text = run_cli(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _kernels.launch_counts()
+        acc = float(re.search(r"^dataset acc: (\S+)", text, re.M).group(1))
+        others = [k for _, k in MODES.values() if k != kname]
+        if counts[kname] <= 0 or counts["gru_seq"] != 3 * counts[kname] or \
+                any(counts[k] for k in others):
+            fail(f"eval-ctc {mode}: launches {counts}")
+        mdec = CTCDecoder.from_checkpoint(ckpt, device=dev, **knobs)
+        if mode == "f32":
+            Xs, Rs, Ls, true = ctc_sweep_arrays(mdec, files)
+        mode_scores[mode] = np.concatenate([
+            mdec.score_batch(Xs[i:i + B_CTC], Rs[i:i + B_CTC],
+                             Ls[i:i + B_CTC])
+            for i in range(0, len(files), B_CTC)])
+        sweep[mode] = {"acc": acc, "clips_s": len(files) / wall,
+                       "launches": counts[kname]}
+        print(f"  eval-ctc {mode}: acc {acc:.4f}, {len(files) / wall:.1f} "
+              f"clips/s ({wall:.3f} s, npz loading included), launches "
+              f"{({k: v for k, v in counts.items() if v})} {card}")
+    ref = mode_scores["f32"]
+    pred = np.asarray(mdec.dict.words)[ref.argmax(-1)]
+    acc = float(np.mean([p == t for p, t in zip(pred, true)]))
+    if abs(acc - sweep["f32"]["acc"]) > 1e-12:
+        fail(f"eval-ctc f32 accuracy {sweep['f32']['acc']} vs the decoder's "
+             f"{acc}")
+    if not acc >= 0.5:
+        fail(f"the CTC checkpoint scores {acc} on the sweep: too little "
+             "trained for an argmax gate to mean anything")
+    top2 = np.sort(ref, -1)
+    print(f"  dictionary argmax of each mode vs f32 over {len(files)} clips "
+          f"(smallest top-2 margin in f32 "
+          f"{(top2[:, -1] - top2[:, -2]).min():.4f}):")
+    for mode in ("bf16", "q8", "im2col"):
+        same = int((mode_scores[mode].argmax(-1) == ref.argmax(-1)).sum())
+        drift = float(np.abs(mode_scores[mode] - ref).max())
+        print(f"    {mode}: argmax equal on {same}/{len(files)} clips, max "
+              f"|d score| {drift:.3e}")
+        if same != len(files):
+            fail(f"eval-ctc {mode}: argmax equal on {same}/{len(files)}")
+    out["roi_cnn"]["ctc_eval_clips_s"] = sweep["f32"]["clips_s"]
+
+    clip = files[0]
+    text = run_cli(["predict", f"ckpt_path={ckpt}", f"clip={clip}",
+                    "device=cuda", "k=3"])
+    c = load_clip(clip).aligned()
+    want = CTCDecoder.from_checkpoint(ckpt, device=dev, roi_impl="plain",
+                                      gru_impl="plain").score_clip(c.X, c.roi)
+    got = ast.literal_eval(text.strip()[len(clip) + 2:])
+    if [w for w, _ in got] != [w for w, _ in want[:3]]:
+        fail(f"predict on the CTC checkpoint: {got} vs plain {want[:3]}")
+
+    # ---- the official trainer's options: bf16 and host_data
+    for opts in (["compute_dtype=bfloat16"], ["host_data=true"], []):
+        name = opts[0].split("=")[0] if opts else "device"
+        path = str(work / f"opt_{name}.ckpt")
+        _kernels.reset_launch_counts()
+        text = run_cli(["train", f"clip_dir={corpus}", f"out_path={path}",
+                        "epochs=3", f"lr={TRAIN_LR}",
+                        f"batch_size={B_TRAIN}", "device=cuda"] + opts)
+        counts = _kernels.launch_counts()
+        lines = re.findall(r"^(ep \d\d \| train loss \S+ acc \S+ \| val "
+                           r"loss \S+ acc \S+)", text, re.M)
+        n_tr = int(re.search(r"^Train clips: (\d+)", text, re.M).group(1))
+        steps = 3 * -(-n_tr // B_TRAIN)
+        if len(lines) != 3 or counts["roi_cnn_bwd"] != steps:
+            fail(f"train {' '.join(opts)}: {len(lines)} epochs, launches "
+                 f"{counts}")
+        sweep[name] = (lines, load_checkpoint(path)[0])
+        print(f"  train {' '.join(opts) or '(device-resident corpus)'}: "
+              f"{steps} steps, K3 launches {counts['roi_cnn_bwd']}")
+    p16 = sweep["compute_dtype"][1]
+    if not all(a.dtype == np.float32 and np.isfinite(a).all()
+               for a in tree_leaves(p16)):
+        fail("bf16 training: parameters not finite f32")
+    (l_host, p_host), (l_dev, p_dev) = sweep["host_data"], sweep["device"]
+    if l_host != l_dev or not all(np.array_equal(a, b) for a, b in zip(
+            tree_leaves(p_host), tree_leaves(p_dev))):
+        fail("train host_data=true: not bitwise the device-resident run")
+    print("  host_data=true: losses, accuracies and parameters bitwise the "
+          "device-resident run's")
+
+    # ---- timings
+    print(f"CTC timings {card}:")
+    tmodel = ctc_model.BiGRUCTC.from_jax_params(params, cfg).to(dev)
+
+    def step_fn(impl):
+        m = ctc_model.BiGRUCTC.from_jax_params(params, cfg).to(dev)
+        opt = make_optimizer(m, 1e-3, grad_clip_norm=1e9)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        return lambda: ctc_train_step(m, opt, Xt, Rt, Lt, yt, ylt, gen,
+                                      roi_impl=impl)
+
+    step_ms = {"kernel": cuda_ms(step_fn("auto"), 5, warmup=2)}
+    with full_f32():
+        step_ms["plain"] = cuda_ms(step_fn("plain"), 5, warmup=2)
+    print(f"  CTC train step B={B_CTC_TRAIN} T={T_CTC} (feature noise, "
+          f"dropout 0.1): kernels {step_ms['kernel']:.4f} ms, plain "
+          f"{step_ms['plain']:.4f} ms (TF32 off) {card}")
+    big = Dictionary.from_words(ctc_words(CTC_BIG_DICT, SEED + 22))
+    sb = {}
+    for name, d in (("10 words", words), ("1,000 words", big)):
+        bdec = CTCDecoder(tmodel, d, device=dev)
+        bdec.score_batch(Xn, Rn, Ln)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            bdec.score_batch(Xn, Rn, Ln)
+        wall = (time.perf_counter() - t0) / 3
+        cw = bdec.word_chunk(B_CTC)
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        sb[name] = (bdec, B_CTC / wall)
+        print(f"  score_batch B={B_CTC} T={T_CTC} against {name} (L_max "
+              f"{d.ids.shape[1]}): {wall * 1e3:.3f} ms a call, "
+              f"{B_CTC / wall:.1f} clips/s, {-(-len(d.words) // cw)} "
+              f"lattice chunk(s) of {cw} words, peak memory over the "
+              f"resident {peak / 2**20:.1f} MiB {card}")
+    out["gru_seq"]["ctc_score_batch_clips_s"] = {k: v[1]
+                                                 for k, v in sb.items()}
+    print(f"CTC device breakdowns, ms per call, mean of 3 profiled calls "
+          f"{card}:")
+    breakdown_line(f"train step (kernels) B={B_CTC_TRAIN} T={T_CTC}",
+                   device_breakdown(step_fn("auto")), card)
+    for name, (bdec, _) in sb.items():
+        breakdown_line(f"score_batch B={B_CTC} against {name}",
+                       device_breakdown(lambda: bdec.score_batch(Xn, Rn, Ln)),
+                       card)
+        with torch.inference_mode():
+            lpb = bdec.logprobs(Xn, Rn, Ln)
+            ids, lens = bdec.dict.ids, bdec.dict.lens
+            breakdown_line(f"  its lattice alone ({len(ids)} words)",
+                           device_breakdown(lambda: ctc_word_logprobs_clips(
+                               lpb, L, ids, lens)), card)
+
+    # the kernels at the CTC path's shapes (the host's launches held out)
+    N = B_CTC * T_CTC
+    roi = R.reshape(N, 48, 96)
+    ms = held_ms(lambda: cuda_cnn.roi_cnn_fused(roi, p_cnn, impl="kernel",
+                                                flat=flat), dev)
+    with full_f32():
+        plain = cuda_ms(lambda: cuda_cnn.roi_cnn_plain(roi, p_cnn), 5)
+    b_ms, b_by = k1_bound(N, CNN_FWD_MACS + 24 * 32,
+                          N * (48 * 96 + 4 * 32) + 4 * flat.numel())
+    share = check_bound(f"roi_cnn N={N} (CTC)", ms, b_ms)
+    out["roi_cnn"].update(ctc_shape=f"N={N} (B={B_CTC} x T={T_CTC}), "
+                          "standardize off", ctc_ms=ms, ctc_plain_ms=plain,
+                          ctc_bound_ms=b_ms, ctc_bound_by=b_by,
+                          ctc_serving_launches=fwd_counts["roi_cnn"])
+    print(f"  roi_cnn N={N} (the CTC serving batch): kernel {ms:.4f} ms, "
+          f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}), {share:.1%} "
+          f"of it {card}")
+    # K2 over the three layers on the CTC input (the features and an
+    # embedding; its values do not change the work)
+    layers = tmodel.kernel_weights()["gru"]
+    Z = torch.cat([X, torch.randn(B_CTC, T_CTC, cfg.roi_emb,
+                                  generator=torch.Generator().manual_seed(
+                                      SEED)).to(dev)], dim=-1)
+    S = int(L.sum())
+    with torch.no_grad():
+        ms = held_ms(lambda: cuda_gru.bigru_kernel(Z, L, layers,
+                                                   impl="kernel"), dev)
+        with full_f32():
+            plain = cuda_ms(lambda: gru_ops.bigru(Z, L, layers)[0], 3,
+                            warmup=1)
+    flops = nbytes = 0.0
+    H = cfg.hidden
+    for D in (cfg.x_dim + cfg.roi_emb,) + (2 * H,) * (cfg.gru_layers - 1):
+        flops += 2 * 2 * S * (D + H) * 3 * H
+        nbytes += 4 * (B_CTC * T_CTC * D + 2 * ((D + H) * 3 * H + 6 * H)
+                       + B_CTC * T_CTC * 2 * H)
+    b_ms, b_by = bound_ms(flops, nbytes)
+    if ms < b_ms:
+        fail(f"K2 over the CTC stack: {ms:.4f} ms under its bound {b_ms:.4f}")
+    out["gru_seq"].update(ctc_shape=f"3 bidirectional layers (D=212, 384, "
+                          f"384; H=192), B={B_CTC} T={T_CTC}",
+                          ctc_stack_ms=ms, ctc_stack_plain_ms=plain,
+                          ctc_stack_bound_ms=b_ms, ctc_stack_bound_by=b_by,
+                          ctc_serving_launches=fwd_counts["gru_seq"])
+    out["gru_proj"]["ctc_serving_launches"] = fwd_counts["gru_proj"]
+    print(f"  K2 over the CTC stack (gru_proj + gru_seq a layer, 3 "
+          f"layers) B={B_CTC} T={T_CTC}: {ms:.4f} ms, plain (the scan) "
+          f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}) {card}")
+    Nt = B_CTC_TRAIN * T_CTC
+    rt = Rt.reshape(Nt, 48, 96)
+    dE = torch.randn(Nt, 32, generator=torch.Generator().manual_seed(SEED)
+                     ).to(dev)
+    ms = held_ms(lambda: cuda_cnn.roi_cnn_weight_grads(
+        rt, dE, flat, standardize=False), dev)
+    plain = cuda_ms(lambda: plain_cnn_grads(rt, dE, p_cnn, False,
+                                            torch.float32), 5)
+    b_ms, b_by = k1_bound(Nt, CNN_FWD_MACS + CNN_BWD_MACS + 3 * 24 * 32,
+                          Nt * (48 * 96 + 4 * 32) + 2 * 4 * flat.numel())
+    share = check_bound(f"roi_cnn_bwd N={Nt} (CTC)", ms, b_ms)
+    out["roi_cnn_bwd"].update(ctc_shape=f"N={Nt} (B={B_CTC_TRAIN} x "
+                              f"T={T_CTC}), standardize off", ctc_ms=ms,
+                              ctc_plain_ms=plain, ctc_bound_ms=b_ms,
+                              ctc_bound_by=b_by, ctc_share_of_bound=share,
+                              ctc_train_step_ms=step_ms["kernel"],
+                              ctc_train_step_plain_ms=step_ms["plain"])
+    print(f"  roi_cnn_bwd N={Nt} standardize=False (the CTC train step): "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}), {share:.1%} of it {card}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device; this script runs only on a GPU")
@@ -2140,13 +2612,8 @@ def main() -> int:
 
     print("serving path (kernels):")
     _kernels.reset_launch_counts()
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc = cli.main(["predict", f"ckpt_path={ckpt}",
-                       f"clip={work / 'clips' / '*.npz'}", "device=cuda"])
-    print(out.getvalue(), end="")
-    if rc != 0:
-        fail(f"predict CLI exited {rc}")
+    text = run_cli(["predict", f"ckpt_path={ckpt}",
+                    f"clip={work / 'clips' / '*.npz'}", "device=cuda"])
     pred = Predictor.from_checkpoint(ckpt, device="cuda")
     logits = pred.predict_batch(Xb, Lb, Rb)
     counts = _kernels.launch_counts()
@@ -2154,7 +2621,7 @@ def main() -> int:
     if any(counts[k] <= 0 for k in ("roi_cnn", "gru_proj", "gru_seq")):
         fail(f"a kernel of the path was not launched: {counts}")
 
-    cli_lines = out.getvalue().strip().splitlines()
+    cli_lines = text.strip().splitlines()
     plain = Predictor.from_checkpoint(ckpt, device="cuda", roi_impl="plain",
                                       gru_impl="plain")
     for line, (path, (X, roi)) in zip(cli_lines, sorted(clips.items())):
@@ -2188,16 +2655,10 @@ def main() -> int:
     n_clips = len(scan_corpus(str(corpus), verbose=False).files)
     tr_ckpt = str(work / "trained.ckpt")
     _kernels.reset_launch_counts()
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc = cli.main(["train", f"clip_dir={corpus}", f"out_path={tr_ckpt}",
-                       f"epochs={TRAIN_EPOCHS}", f"lr={TRAIN_LR}",
-                       f"batch_size={B_TRAIN}", "device=cuda"])
+    text = run_cli(["train", f"clip_dir={corpus}", f"out_path={tr_ckpt}",
+                    f"epochs={TRAIN_EPOCHS}", f"lr={TRAIN_LR}",
+                    f"batch_size={B_TRAIN}", "device=cuda"])
     train_counts = _kernels.launch_counts()
-    print(out.getvalue(), end="")
-    if rc != 0:
-        fail(f"train CLI exited {rc}")
-    text = out.getvalue()
     for ep in range(1, TRAIN_EPOCHS + 1):
         m = re.search(rf"^ep {ep:02d} \| train loss (\S+) acc \S+ \| val "
                       rf"loss (\S+) acc ", text, re.M)
@@ -2221,15 +2682,9 @@ def main() -> int:
           f"{tr_meta['best_val_acc']:.3f}, {len(tr_opt)} optimizer-state "
           "leaves")
     some = sorted(str(p) for p in corpus.glob("smoke_yes_0_000*.npz"))
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc = cli.main(["predict", f"ckpt_path={tr_ckpt}",
-                       f"clip={corpus / 'smoke_yes_0_000*.npz'}",
-                       "device=cuda"])
-    print(out.getvalue(), end="")
-    if rc != 0:
-        fail(f"predict CLI on the trained checkpoint exited {rc}")
-    lines = out.getvalue().strip().splitlines()
+    lines = run_cli(["predict", f"ckpt_path={tr_ckpt}",
+                     f"clip={corpus / 'smoke_yes_0_000*.npz'}",
+                     "device=cuda"]).strip().splitlines()
     if len(lines) != len(some) or not some:
         fail(f"predict CLI printed {len(lines)} lines for {len(some)} clips")
     for line, path in zip(lines, some):
@@ -2368,44 +2823,20 @@ def main() -> int:
         Xs = rng.standard_normal((B, T_SERVE, cfg.x_dim)).astype(np.float32)
         Ls = np.full((B,), T_SERVE, np.int32)
         Rs = rng.integers(0, 256, (B, T_SERVE, 48, 96), dtype=np.uint8)
-        bd = device_breakdown(lambda: pred.predict_batch(Xs, Ls, Rs))
-        if bd["busy_ms"] is None:
-            print(f"  B={B}: wall {bd['wall_ms']:.4f} ms; device time not "
-                  "measured (the profiler recorded no device events)")
-            continue
-        cats = ", ".join(f"{k} {v:.4f}" for k, v in
-                         sorted(bd["device_ms"].items(), key=lambda kv: -kv[1]))
-        print(f"  B={B}: wall {bd['wall_ms']:.4f} ms, device busy "
-              f"{bd['busy_ms']:.4f} ms, idle share {bd['idle_share']:.4f}; "
-              f"{cats}")
+        breakdown_line(f"B={B}", device_breakdown(
+            lambda: pred.predict_batch(Xs, Ls, Rs)), "")
 
     print(f"device breakdown, predict_batch per serving mode, B={B_SWEEP} "
           f"T=90 (the sweep's batches), ms per call {card}:")
     for mode, pr in mode_pred.items():
-        bd = device_breakdown(lambda: pr.predict_batch(Xf, Lf, Rf))
-        if bd["busy_ms"] is None:
-            print(f"  {mode}: wall {bd['wall_ms']:.4f} ms; device time not "
-                  "measured")
-            continue
-        cats = ", ".join(f"{k} {v:.4f}" for k, v in
-                         sorted(bd["device_ms"].items(), key=lambda kv: -kv[1]))
-        print(f"  {mode}: wall {bd['wall_ms']:.4f} ms, device busy "
-              f"{bd['busy_ms']:.4f} ms, idle share {bd['idle_share']:.4f}; "
-              f"{cats}")
+        breakdown_line(mode, device_breakdown(
+            lambda: pr.predict_batch(Xf, Lf, Rf)), "")
 
     print(f"device breakdown, train step (kernels) B={B_SERVE} "
           f"T={T_SERVE}, ms per step, mean of 3 profiled steps {card}:")
-    bd = device_breakdown(train_step_fn(
+    breakdown_line("train step", device_breakdown(train_step_fn(
         params_t, cfg_t, train_batch(cfg_t, B_SERVE, T_SERVE, rng, dev), dev,
-        "kernel"))
-    if bd["busy_ms"] is None:
-        print(f"  wall {bd['wall_ms']:.4f} ms; device time not measured")
-    else:
-        cats = ", ".join(f"{k} {v:.4f}" for k, v in
-                         sorted(bd["device_ms"].items(), key=lambda kv: -kv[1]))
-        print(f"  wall {bd['wall_ms']:.4f} ms, device busy "
-              f"{bd['busy_ms']:.4f} ms, idle share {bd['idle_share']:.4f}; "
-              f"{cats}")
+        "kernel")), "")
 
     # ---- 8. the GRU probes: kernels vs plain, timings, the four scripts
     print("GRU probes, kernel vs plain (TF32 off):")
@@ -2439,6 +2870,12 @@ def main() -> int:
     print(f"backward-dot probes, the scripts at full size, {RATE_ITERS} timed "
           f"calls a row {card}:")
     _, bwd_ms = run_bwd_dot_scripts(card)
+
+    # ---- 12. the CTC family, and the official trainer's bf16 and
+    # host_data options
+    print("the CTC family, full width (kernels vs plain with TF32 off, the "
+          "CLIs, the trainer's options):")
+    ctc = check_ctc(p_cnn, flat, work, labels, dev, card)
 
     def k1_row(kname, launches, err):
         by_n = {str(Nk): r for (name, Nk), r in k1.items() if name == kname}
@@ -2541,6 +2978,9 @@ def main() -> int:
                                 r["rows_max_share_of_bar"]),
             **{k: v for k, v in r.items() if k not in (
                 "launches", "rows_max_abs_err", "rows_max_share_of_bar")}})
+    for row in result["kernels"]:
+        if row["name"] in ctc:
+            row["ctc_path"] = ctc[row["name"]]
     print(json.dumps(result))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,12 @@
         clip=<clip.npz|glob> [k=3] [device=cuda] [roi_impl=auto] \\
         [gru_impl=auto] [roi_variant=tiled3] [compute_dtype=float32] \\
         [matmul_precision=parity]
+    python -m silent_speech_tpu_torch train-ctc clip_dir=<dir> \\
+        out_path=<ckpt> [<CTCTrainConfig field>=...] [device=cuda]
+    python -m silent_speech_tpu_torch eval-ctc ckpt_path=<ckpt> \\
+        [clip_dir=clips_npz] [chunk_words=0] [batch_size=64] [device=cuda] \\
+        [roi_impl=auto] [gru_impl=auto] [roi_variant=tiled3] \\
+        [compute_dtype=float32] [matmul_precision=parity]
 
 ``train`` is the official trainer (train_model_official.py) with the JAX
 CLI's ``TrainConfig`` overrides; ``device`` defaults to 'cuda' (the CPU
@@ -20,15 +26,25 @@ accuracy, average confidence and top confusions over every clip of
 ``clip_dir``, in batches of ``batch_size``, with the JAX CLI's
 ``EvalConfig`` fields; ``device`` defaults to 'cuda'.
 
-``predict`` is the offline single-clip prediction of the official family:
+``predict`` is the offline single-clip prediction: for the official family
 the live predict block (live_infer_official.py:338-359) on recorded
-``.npz`` clips, through ``load_predictor``. ``device`` defaults to 'cuda'.
+``.npz`` clips, through ``load_predictor``; for a CTC checkpoint (its
+metadata has ``vocab``) the dictionary-scored decode of each clip with a
+ROI (``CTCDecoder.score_clip``), its top ``k`` (word, score) pairs.
+``device`` defaults to 'cuda'.
 
-The serving knobs of both: ``roi_impl`` / ``gru_impl`` take 'auto',
-'kernel' or 'plain'; ``roi_variant`` 'tiled3', 'tiled3_q8' (int8) or
-'im2col'; ``compute_dtype`` 'float32' or 'bfloat16'; ``matmul_precision``
-'parity', 'highest' or 'none'. Other values raise. Every other command of
-the JAX CLI prints "not yet ported" and exits 2.
+``train-ctc`` is the CTC trainer (inactive/train_model.py) with the JAX
+CLI's ``CTCTrainConfig`` overrides; ``eval-ctc`` its dictionary-scored
+corpus sweep (accuracy and top confusions) on a CTC checkpoint of either
+package, with the JAX CLI's keys; ``mesh_shape`` raises there (not
+ported). ``device`` defaults to 'cuda' for both.
+
+The serving knobs of eval-dataset, eval-ctc and predict: ``roi_impl`` /
+``gru_impl`` take 'auto', 'kernel' or 'plain'; ``roi_variant`` 'tiled3',
+'tiled3_q8' (int8) or 'im2col'; ``compute_dtype`` 'float32' or
+'bfloat16'; ``matmul_precision`` 'parity', 'highest' or 'none'. Other
+values raise. Every other command of the JAX CLI (``infer-ctc``, the
+camera app, among them) prints "not yet ported" and exits 2.
 """
 
 from __future__ import annotations
@@ -39,9 +55,9 @@ from typing import Optional, Sequence
 
 # commands of the JAX CLI that the port does not have yet
 _NOT_PORTED = (
-    "record", "record-timed", "train-ctc", "train-reduced",
+    "record", "record-timed", "train-reduced",
     "train-unigru", "train-mlp", "infer-live", "infer-gated", "infer-stream",
-    "eval-ctc", "landmarks-view", "important-landmarks",
+    "landmarks-view", "important-landmarks",
     "infer-ctc", "debug-npz", "export-torch", "status", "doctor", "bench",
 )
 _KNOBS = ("roi_impl", "gru_impl", "roi_variant", "compute_dtype")
@@ -52,11 +68,24 @@ _TRAIN_USAGE = ("usage: python -m silent_speech_tpu_torch train "
                 "clip_dir=<dir> out_path=<ckpt> [<TrainConfig field>=...] "
                 "[device=cuda|cpu] [resume_from=<ckpt>] "
                 "[metrics_path=<jsonl>]")
+_TRAIN_CTC_USAGE = ("usage: python -m silent_speech_tpu_torch train-ctc "
+                    "clip_dir=<dir> out_path=<ckpt> [<CTCTrainConfig "
+                    "field>=...] [device=cuda|cpu]")
+_EVAL_CTC_KEYS = ("ckpt_path", "clip_dir", "chunk_words", "batch_size",
+                  "mesh_shape", "matmul_precision", "device") + _KNOBS
+_EVAL_CTC_USAGE = ("usage: python -m silent_speech_tpu_torch eval-ctc "
+                   "ckpt_path=<ckpt> [clip_dir=clips_npz] [chunk_words=N] "
+                   "[batch_size=64] [device=cuda|cpu] "
+                   "[roi_impl=auto|kernel|plain] [gru_impl=auto|kernel|plain] "
+                   "[roi_variant=tiled3|tiled3_q8|im2col] "
+                   "[compute_dtype=float32|bfloat16] "
+                   "[matmul_precision=parity|highest|none]")
 _EVAL_USAGE = ("usage: python -m silent_speech_tpu_torch eval-dataset "
                "ckpt_path=<ckpt> clip_dir=<dir> [<EvalConfig field>=...] "
                "[device=cuda|cpu]")
 _USAGE = ("usage: python -m silent_speech_tpu_torch predict "
-          "ckpt_path=<path> clip=<clip.npz|glob> [k=3] [device=cuda] "
+          "ckpt_path=<official or CTC checkpoint> clip=<clip.npz|glob> "
+          "[k=3] [device=cuda] "
           "[roi_impl=auto|kernel|plain] [gru_impl=auto|kernel|plain] "
           "[roi_variant=tiled3|tiled3_q8|im2col] "
           "[compute_dtype=float32|bfloat16] "
@@ -65,7 +94,9 @@ _USAGE = ("usage: python -m silent_speech_tpu_torch predict "
 
 def _predict(kv: dict) -> int:
     from ..core.schema import load_clip
+    from ..infer.ctc_decode import CTCDecoder
     from ..infer.predictor import load_predictor
+    from ..train.checkpoint import load_checkpoint
 
     if "ckpt_path" not in kv or "clip" not in kv:
         print(_USAGE)
@@ -74,10 +105,25 @@ def _predict(kv: dict) -> int:
     if "matmul_precision" in kv:
         mp = kv["matmul_precision"]
         knobs["matmul_precision"] = None if mp.lower() == "none" else mp
-    pred = load_predictor(kv["ckpt_path"], device=kv.get("device", "cuda"),
-                          **knobs)
+    device = kv.get("device", "cuda")
     k = int(kv.get("k", 3))
-    for p in sorted(glob.glob(kv["clip"])) or [kv["clip"]]:
+    paths = sorted(glob.glob(kv["clip"])) or [kv["clip"]]
+    path = kv["ckpt_path"]
+    loaded = None if path.endswith(".pt") else load_checkpoint(path)
+    if loaded is not None and loaded[1].get("vocab"):
+        # the dictionary-scored CTC decode (the offline counterpart of
+        # infer-ctc's predict block)
+        dec = CTCDecoder.from_checkpoint(path, _loaded=loaded, device=device,
+                                         **knobs)
+        for p in paths:
+            c = load_clip(p).aligned()
+            if c.roi is None:
+                print(f"{p}: no roi in clip; CTC scoring needs it")
+                continue
+            print(f"{p}: {dec.score_clip(c.X, c.roi)[:k]}")
+        return 0
+    pred = load_predictor(path, device=device, **knobs)
+    for p in paths:
         print(f"{p}: {pred.predict_clip(load_clip(p), k=k)}")
     return 0
 
@@ -100,6 +146,52 @@ def _train(rest: list[str]) -> int:
     train(cfg, resume_from=extra.get("resume_from"),
           metrics_path=extra.get("metrics_path"),
           device=extra.get("device", "cuda"))
+    return 0
+
+
+def _train_ctc(rest: list[str]) -> int:
+    import dataclasses
+
+    from ..core.config import CTCTrainConfig, apply_overrides
+    from ..train.ctc_loop import train_ctc
+
+    fields = {f.name for f in dataclasses.fields(CTCTrainConfig)}
+    bad = [a for a in rest if "=" not in a or a.partition("=")[0] not in
+           fields | {"device"}]
+    if bad:
+        print(f"unknown arguments {bad}\n{_TRAIN_CTC_USAGE}")
+        return 2
+    kv = dict(a.split("=", 1) for a in rest)
+    device = kv.pop("device", "cuda")
+    cfg = apply_overrides(CTCTrainConfig(),
+                          [f"{k}={v}" for k, v in kv.items()])
+    train_ctc(cfg, device=device)
+    return 0
+
+
+def _eval_ctc(rest: list[str]) -> int:
+    from ..core.config import _parse_dict_override
+    from ..infer.evaluator import evaluate_ctc_dataset
+
+    bad = [a for a in rest if "=" not in a or a.partition("=")[0] not in
+           _EVAL_CTC_KEYS]
+    kv = dict(a.split("=", 1) for a in rest if "=" in a)
+    if bad or "ckpt_path" not in kv:
+        print(f"unknown arguments {bad}\n{_EVAL_CTC_USAGE}" if bad
+              else _EVAL_CTC_USAGE)
+        return 2
+    evaluate_ctc_dataset(
+        kv["ckpt_path"], kv.get("clip_dir", "clips_npz"),
+        chunk_words=int(kv.get("chunk_words", 0)),
+        batch_size=int(kv.get("batch_size", 64)),
+        mesh_shape=(_parse_dict_override(kv["mesh_shape"])
+                    if "mesh_shape" in kv else None),
+        compute_dtype=kv.get("compute_dtype", "float32"),
+        roi_impl=kv.get("roi_impl", "auto"),
+        roi_variant=kv.get("roi_variant", "tiled3"),
+        gru_impl=kv.get("gru_impl", "auto"),
+        matmul_precision=kv.get("matmul_precision", ""),
+        device=kv.get("device", "cuda"))
     return 0
 
 
@@ -139,9 +231,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return _train(rest)
     if cmd == "eval-dataset":
         return _eval_dataset(rest)
+    if cmd == "train-ctc":
+        return _train_ctc(rest)
+    if cmd == "eval-ctc":
+        return _eval_ctc(rest)
     if cmd != "predict":
         print(f"unknown command {cmd!r}\n{_TRAIN_USAGE}\n{_EVAL_USAGE}\n"
-              f"{_USAGE}")
+              f"{_USAGE}\n{_TRAIN_CTC_USAGE}\n{_EVAL_CTC_USAGE}")
         return 2
     bad = [a for a in rest if "=" not in a
            or a.partition("=")[0] not in _PREDICT_KEYS]

@@ -1,7 +1,8 @@
-"""The official trainer's and the dataset evaluator's settings and the
-CLI's ``key=value`` overrides (copy of ``TrainConfig``, ``EvalConfig``,
-``serving_kwargs`` and ``apply_overrides`` from the JAX package's
-core/config.py, which the port does not import).
+"""The official and CTC trainers' and the dataset evaluator's settings and
+the CLI's ``key=value`` overrides (copy of ``TrainConfig``,
+``CTCTrainConfig``, ``EvalConfig``, ``serving_kwargs`` and
+``apply_overrides`` from the JAX package's core/config.py, which the port
+does not import).
 
 Field names and defaults are the reference's CONSTANTS block
 (train_model_official.py:20-47), so a JAX-package command line runs the port
@@ -60,6 +61,42 @@ class TrainConfig:
     host_data: bool = False
     checkpoint_format: str = "npz"
     async_checkpoint: bool = False
+
+
+@dataclasses.dataclass
+class CTCTrainConfig:
+    """CTC trainer settings (inactive/train_model.py:10-29): the
+    ``train-ctc`` command."""
+
+    clip_dir: str = "clips_npz"
+    out_path: str = "ctc_word_model_roi.ckpt"
+    seed: int = 42
+    val_frac: float = 0.15
+    batch_size: int = 32
+    epochs: int = 120
+    lr: float = 1e-3
+    patience: int = 6
+    max_t: int = 80
+    roi_w: int = 96
+    roi_h: int = 48
+    roi_emb: int = 32
+    hidden: int = 192
+    gru_layers: int = 3
+    len_lambda: float = 0.02  # length-prior penalty (inactive/train_model.py:29)
+    len_per_char: int = 5  # expected frames per character (inactive/train_model.py:247)
+    # silence trimming (inactive/train_model.py:48-57)
+    trim_open_idx: int = -3
+    trim_thresh: float = 0.05
+    trim_pad: int = 2
+    # knobs of the JAX package (no reference counterpart): 'bfloat16' is
+    # the bf16 training route (models/bigru.SequenceModel.encode)
+    compute_dtype: str = "float32"
+    # the port takes 'auto' (the ROI CNN kernels, forward and weight
+    # gradients, on a CUDA device; the plain version on the CPU), 'kernel'
+    # or 'plain' (train/step.resolve_roi_impl); the JAX package's
+    # frames-per-step gate for 'auto' was measured on a TPU and does not
+    # apply
+    roi_impl: str = "auto"
 
 
 @dataclasses.dataclass

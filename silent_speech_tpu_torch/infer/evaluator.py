@@ -7,16 +7,19 @@ average confidence and the top-10 confusion pairs, with labels parsed from
 the filenames. Here the sweep is batched and streamed: clips load in
 bounded chunks (data/loader.py), so host memory stays O(chunk_size) whatever
 the corpus size, and each batch goes through the Predictor in its serving
-mode.
+mode. ``evaluate_ctc_dataset`` is the CTC family's sweep (``eval-ctc``),
+scored against the checkpoint's dictionary.
 """
 
 from __future__ import annotations
 
 from collections import Counter
+from typing import Optional, Union
 
 import numpy as np
+import torch
 
-from ..core.schema import parse_filename_label, sanitize_field
+from ..core.schema import load_clip, parse_filename_label, sanitize_field
 from ..data.corpus import scan_corpus
 from ..data.loader import load_corpus_arrays
 from .predictor import Predictor
@@ -101,7 +104,74 @@ def evaluate_temporal_cnn(*args, **kwargs):
         "slice 5, variants and legacy"))
 
 
-def evaluate_ctc_dataset(*args, **kwargs):
-    """The CTC family's dictionary-scored sweep: not ported yet."""
-    raise NotImplementedError("evaluate_ctc_dataset " + _ROADMAP.format(
-        "slice 4, CTC"))
+def evaluate_ctc_dataset(ckpt_path: str, clip_dir: str, *,
+                         verbose: bool = True, chunk_words: int = 0,
+                         batch_size: int = 64,
+                         mesh_shape: Optional[dict] = None,
+                         compute_dtype: str = "float32",
+                         roi_impl: str = "auto", roi_variant: str = "tiled3",
+                         gru_impl: str = "auto", matmul_precision: str = "",
+                         device: Union[str, torch.device] = "cuda") -> dict:
+    """Dictionary-scored CTC sweep over a corpus: accuracy and the top
+    confusions (the ``eval-ctc`` command).
+
+    The offline counterpart of the CTC trainer's validation
+    (inactive/train_model.py:235-251) on any saved CTC checkpoint of either
+    package: each clip with a ROI is trimmed and padded to the checkpoint's
+    max_t, and the clips sweep in batches of ``batch_size`` through
+    ``CTCDecoder.score_batch`` (one forward, one lattice a word chunk).
+    The serving knobs are evaluate_dataset's; ``matmul_precision`` ''
+    keeps the decoder's 'parity', 'default' / 'none' the caller's
+    settings. ``mesh_shape`` raises: the sweep over a device mesh is not
+    ported (ROADMAP.md queue 1, slice 7)."""
+    from ..models.ctc_model import normalize_label
+    from .ctc_decode import CTCDecoder, trim_pad
+
+    if mesh_shape:
+        raise NotImplementedError(
+            f"mesh_shape={mesh_shape!r}: the CTC sweep over a device mesh "
+            + _ROADMAP.format("slice 7, multi-GPU"))
+    kw = {}
+    if matmul_precision:
+        kw["matmul_precision"] = (None if matmul_precision in
+                                  ("default", "none") else matmul_precision)
+    dec = CTCDecoder.from_checkpoint(
+        ckpt_path, device=device, chunk_words=chunk_words,
+        compute_dtype=compute_dtype, roi_impl=roi_impl,
+        roi_variant=roi_variant, gru_impl=gru_impl, **kw)
+
+    index = scan_corpus(clip_dir, verbose=False)
+    correct = total = 0
+    cm: Counter = Counter()
+    batch: list = []
+
+    def flush():
+        nonlocal correct, total
+        if not batch:
+            return
+        scores = dec.score_batch(np.stack([b[0] for b in batch]),
+                                 np.stack([b[1] for b in batch]),
+                                 np.asarray([b[2] for b in batch], np.int32))
+        for (_, _, _, true), pred_i in zip(batch, scores.argmax(-1)):
+            pred = normalize_label(dec.dict.words[int(pred_i)])
+            cm[(true, pred)] += 1
+            correct += int(pred == true)
+            total += 1
+        batch.clear()
+
+    for f in index.files:
+        c = load_clip(f).aligned()
+        if c.roi is None:
+            continue
+        Xp, Rp, T = trim_pad(c.X, c.roi, dec.max_t, **dec.trim_kw)
+        if T == 0:
+            continue
+        batch.append((Xp, Rp, T, normalize_label(c.label)))
+        if len(batch) >= batch_size:
+            flush()
+    flush()
+    acc = correct / total if total else 0.0
+    if verbose:
+        print("dataset acc:", acc)
+        print("top confusions:", cm.most_common(10))
+    return dict(accuracy=acc, confusions=cm.most_common(10), n=total)

@@ -240,20 +240,28 @@ class Predictor:
 def load_predictor(path: str, **kw) -> Predictor:
     """Route a checkpoint to its predictor. The port serves the official
     family: reference ``.pt`` checkpoints with ``x_dim`` and npz
-    checkpoints of the official model. Other families raise."""
+    checkpoints of the official model. A CTC checkpoint raises, as in the
+    JAX package: it serves through ``infer.ctc_decode.CTCDecoder``
+    (``eval-ctc``, ``predict``). The variant families raise (not ported
+    yet)."""
     if path.endswith(".pt"):
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
         if not isinstance(ckpt, dict):
             raise ValueError(f"{path}: not a checkpoint dict")
-        if "x_dim" in ckpt and "vocab" not in ckpt:
+        if "vocab" in ckpt:
+            raise ValueError(f"{path} is a CTC checkpoint: use eval-ctc, or "
+                             "predict, which decodes it with CTCDecoder")
+        if "x_dim" in ckpt:
             return Predictor.from_torch_checkpoint(path, _ckpt=ckpt, **kw)
         raise NotImplementedError(
             f"{path}: only the official checkpoint family is ported so far; "
             f"this one (keys: {sorted(ckpt)}) is not yet ported")
     loaded = load_checkpoint(path)
     meta = loaded[1]
-    if meta.get("vocab") or meta.get("model"):
+    if meta.get("vocab"):
+        raise ValueError(f"{path} is a CTC checkpoint: use eval-ctc, or "
+                         "predict, which decodes it with CTCDecoder")
+    if meta.get("model"):
         raise NotImplementedError(
-            f"{path}: the {'CTC' if meta.get('vocab') else meta['model']} "
-            "family is not yet ported")
+            f"{path}: the {meta['model']} family is not yet ported")
     return Predictor.from_checkpoint(path, _loaded=loaded, **kw)

@@ -20,7 +20,14 @@ bf16 serving mode with its GRU kernel (``gru_impl='pallas'``): X and the
 ROI embedding rounded to bf16 (models/bigru.py:249,351 there), the 'tiled3'
 CNN in its bf16 build, the GRU and the head in f32 on the rounded values.
 The JAX package's bf16 *scan* (``gru_impl='scan'``) is another function,
-with bf16 matmuls in the recurrence, and the port does not serve it.
+with bf16 matmuls in the recurrence, and the port does not serve it; it is
+the bf16 *training* route (``train_forward(compute_dtype='bfloat16')``:
+the ROI CNN kernels in f32, the embedding cast to bf16, the scan and head
+in bf16, as the JAX train step's, train/step.py:103 there).
+
+``SequenceModel`` holds what the official model and the CTC model
+(models/ctc_model.py) share: the ROI embedding joined to the features, the
+BiGRU, every route above, and the kernels' weight layouts.
 
 The reference's dual forward is kept: ``forward(..., roi_standardize=True)``
 is the training-path normalization (/255 then per-frame standardize), and
@@ -163,6 +170,19 @@ def roi_cnn_tree(named: Mapping[str, torch.Tensor], prefix: str) -> dict:
     return tree
 
 
+def gru_tree(named: Mapping[str, torch.Tensor], gru_layers: int) -> list:
+    """The bidirectional GRU part of :func:`jax_tree` ((D, 3H) / (H, 3H)
+    views), from tensors named ``gru.weight_ih_l{k}[_reverse]`` ..."""
+    def direction(sfx):
+        return {"wi": named[f"gru.weight_ih_{sfx}"].t(),
+                "wh": named[f"gru.weight_hh_{sfx}"].t(),
+                "bi": named[f"gru.bias_ih_{sfx}"],
+                "bh": named[f"gru.bias_hh_{sfx}"]}
+
+    return [{"fwd": direction(f"l{k}"), "bwd": direction(f"l{k}_reverse")}
+            for k in range(gru_layers)]
+
+
 def jax_tree(named: Mapping[str, torch.Tensor], cfg: BiGRUConfig) -> dict:
     """The JAX package's parameter tree built from tensors under the
     reference ``state_dict`` names, as views (HWIO convs, (in, out) dense
@@ -170,16 +190,8 @@ def jax_tree(named: Mapping[str, torch.Tensor], cfg: BiGRUConfig) -> dict:
     Adam's moments."""
     lin = lambda pfx: {"w": named[pfx + ".weight"].t(),
                        "b": named[pfx + ".bias"]}
-
-    def direction(sfx):
-        return {"wi": named[f"gru.weight_ih_{sfx}"].t(),
-                "wh": named[f"gru.weight_hh_{sfx}"].t(),
-                "bi": named[f"gru.bias_ih_{sfx}"],
-                "bh": named[f"gru.bias_hh_{sfx}"]}
-
     tree = {
-        "gru": [{"fwd": direction(f"l{k}"), "bwd": direction(f"l{k}_reverse")}
-                for k in range(cfg.gru_layers)],
+        "gru": gru_tree(named, cfg.gru_layers),
         "pool": {"score": lin("pool.score")},
         "head": {"ln": {"scale": named["head.0.weight"],
                         "bias": named["head.0.bias"]},
@@ -245,45 +257,19 @@ class AttnPool(nn.Module):
         self.score = nn.utils.skip_init(nn.Linear, dim, 1)
 
 
-class BiGRUClassifier(nn.Module):
-    """The official BiGRU classifier. Build it with :meth:`from_jax_params`
-    or load a reference ``state_dict`` into ``BiGRUClassifier(cfg)``: the
-    constructor leaves the parameters uninitialized."""
+class SequenceModel(nn.Module):
+    """What the official classifier and the CTC model (models/ctc_model.py)
+    share: the ROI embedding joined to the features and the BiGRU over
+    them, in every mode, on the kernels' weight layouts kept by
+    :meth:`kernel_weights`. A subclass has ``cfg`` (``x_dim``, ``use_roi``,
+    ``roi_emb``, ``hidden``, ``gru_layers``, ``gru_dropout``), ``roi_cnn``,
+    ``gru`` and :meth:`params_tree`; its head reads :meth:`encode`'s
+    output."""
 
-    def __init__(self, cfg: BiGRUConfig):
+    def __init__(self):
         super().__init__()
-        self.cfg = cfg
-        H2 = 2 * cfg.hidden
-        if cfg.use_roi:
-            self.roi_cnn = TinyROICNN(cfg.roi_emb)
-        self.gru = BiGRUWeights(
-            cfg.x_dim + (cfg.roi_emb if cfg.use_roi else 0), cfg.hidden,
-            cfg.gru_layers)
-        self.pool = AttnPool(H2)
-        self.head = nn.Sequential(
-            nn.utils.skip_init(nn.LayerNorm, H2),
-            nn.utils.skip_init(nn.Linear, H2, cfg.head_hidden), nn.ReLU(),
-            nn.Dropout(cfg.head_dropout),
-            nn.utils.skip_init(nn.Linear, cfg.head_hidden, cfg.num_classes),
-        )
         self._kernel_weights_key = None
         self._kernel_weights = None
-
-    @classmethod
-    def from_jax_params(cls, params: dict, cfg: BiGRUConfig
-                        ) -> "BiGRUClassifier":
-        """Carry a JAX-layout parameter pytree (numpy arrays, or CPU tensors
-        from :func:`init_params`) over through the reference ``state_dict``
-        layout (core.torch_export). Returns a CPU model in eval mode."""
-        sd = {k: torch.from_numpy(np.array(v, dtype=np.float32))
-              for k, v in export_bigru_classifier(params).items()}
-        model = cls(cfg)
-        model.load_state_dict(sd, strict=True)
-        return model.eval()
-
-    def params_tree(self) -> dict:
-        """The JAX package's parameter pytree, as views of the parameters."""
-        return jax_tree(dict(self.named_parameters()), self.cfg)
 
     def kernel_weights(self, roi_pack: str = "roi_cnn") -> dict:
         """The kernels' weight layouts on the parameters' device: ``'gru'``,
@@ -312,34 +298,35 @@ class BiGRUClassifier(nn.Module):
                     "roi_cnn"]) if self.cfg.use_roi else None)
         return kw
 
-    def forward(self, X: torch.Tensor, lengths: torch.Tensor,
-                roi: Optional[torch.Tensor] = None, *,
-                roi_standardize: bool = True, train: bool = False,
-                generator: Optional[torch.Generator] = None,
-                roi_impl: str = "auto", gru_impl: str = "auto",
-                roi_variant: str = "tiled3", compute_dtype: str = "float32",
-                train_cnn: Optional[Callable] = None) -> torch.Tensor:
-        """X: (B, T, D) f32; lengths: (B,); roi: (B, T, H, W) uint8 or None.
-        Returns logits (B, num_classes) f32. ``roi_impl`` / ``gru_impl``:
-        'auto' | 'kernel' | 'plain' (ops._kernels). ``roi_variant`` and
-        ``compute_dtype``: the serving modes (module docstring); the
-        differentiable forward takes only 'tiled3' and 'float32'.
-        ``train_cnn``: the differentiable forward's ROI CNN, (frames,
-        params, standardize) -> embeddings, in place of
-        ``roi_cnn_fused_train`` (a check's reference).
+    def encode(self, X: torch.Tensor, lengths: torch.Tensor,
+               roi: Optional[torch.Tensor], *, roi_standardize: bool,
+               train: bool = False,
+               generator: Optional[torch.Generator] = None,
+               roi_impl: str = "auto", gru_impl: str = "auto",
+               roi_variant: str = "tiled3", compute_dtype: str = "float32",
+               train_cnn: Optional[Callable] = None,
+               differentiable: Optional[bool] = None
+               ) -> tuple[torch.Tensor, dict]:
+        """The BiGRU's output (B, T, 2H) over the features joined to the ROI
+        embedding, and the parameter tree (``params_tree()``).
 
-        ``train``: GRU inter-layer and head dropout, drawn from
-        ``generator`` (on X's device). The forward is differentiable when
-        ``train`` is set or autograd records it (grad mode on and a
-        parameter requires grad): the ROI CNN then runs
-        ``roi_cnn_fused_train`` and the GRU the plain scan, since the GRU
-        kernel has no backward (``gru_impl='kernel'`` raises there).
-        Otherwise it is the inference forward on ``kernel_weights()``."""
+        The forward is differentiable when ``differentiable`` says so, or,
+        where it is None, when ``train`` is set or autograd records it (grad
+        mode on and a parameter requires grad). The differentiable forward
+        runs ``roi_cnn_fused_train`` (or ``train_cnn``) and the plain GRU
+        scan, with inter-layer dropout drawn from ``generator`` under
+        ``train``; with ``compute_dtype='bfloat16'`` it is the JAX
+        package's bf16 training route (train/step.py:103 there): the ROI CNN
+        in f32 and its embedding cast to bf16 (models/bigru.py:229-235),
+        X, the scan and the output in bf16. Otherwise it is the inference
+        forward on ``kernel_weights()``, in the serving mode ``roi_variant``
+        / ``compute_dtype`` (module docstring), output f32."""
         if train and generator is None:
             raise ValueError("generator is required for the training "
-                             "forward (GRU and head dropout)")
-        differentiable = train or (torch.is_grad_enabled() and any(
-            p.requires_grad for p in self.parameters()))
+                             "forward (dropout)")
+        if differentiable is None:
+            differentiable = train or (torch.is_grad_enabled() and any(
+                p.requires_grad for p in self.parameters()))
         if differentiable and gru_impl == "kernel":
             raise ValueError("gru_impl='kernel': the GRU kernel has no "
                              "backward; the differentiable forward runs "
@@ -350,16 +337,23 @@ class BiGRUClassifier(nn.Module):
                              f"{compute_dtype!r}: the port serves "
                              f"roi_variant in {ROI_VARIANTS}, compute_dtype "
                              f"in {COMPUTE_DTYPES}")
-        pack = roi_pack_name(roi_variant, compute_dtype)
-        if differentiable and pack != "roi_cnn":
+        if differentiable and roi_variant != "tiled3":
             raise ValueError(
-                f"roi_variant={roi_variant!r}, compute_dtype="
-                f"{compute_dtype!r} is a serving-only mode: the "
-                "differentiable forward takes 'tiled3' and 'float32'")
+                f"roi_variant={roi_variant!r} is a serving-only mode: the "
+                "differentiable forward takes 'tiled3'")
+        if roi is not None and roi.is_cuda and roi_impl != "plain" and \
+                tuple(roi.shape[2:]) != (cuda_cnn.ROI_H, cuda_cnn.ROI_W):
+            raise ValueError(
+                f"roi_impl={roi_impl!r}: the ROI CNN kernels take "
+                f"{cuda_cnn.ROI_H}x{cuda_cnn.ROI_W} frames, got "
+                f"{tuple(roi.shape[2:])}; pass roi_impl='plain' for this ROI")
         bf16 = compute_dtype == "bfloat16"
+        pack = "roi_cnn" if differentiable else roi_pack_name(roi_variant,
+                                                              compute_dtype)
+        dtype = torch.bfloat16 if bf16 and differentiable else torch.float32
         p = self.params_tree()
-        X = X.to(torch.float32)
-        if bf16:
+        X = X.to(dtype)
+        if bf16 and not differentiable:
             X = cuda_cnn.round_bf16(X)
         lengths = lengths.to(X.device)
         kw = self.kernel_weights(pack) if X.is_cuda and not differentiable \
@@ -373,8 +367,8 @@ class BiGRUClassifier(nn.Module):
                                   packed=kw.get(pack),
                                   differentiable=differentiable,
                                   train_cnn=train_cnn)
-            if bf16:
-                roi_e = cuda_cnn.round_bf16(roi_e)
+            roi_e = roi_e.to(dtype) if differentiable else (
+                cuda_cnn.round_bf16(roi_e) if bf16 else roi_e)
             Z = torch.cat([X, roi_e], dim=-1)
         else:
             Z = X
@@ -384,11 +378,81 @@ class BiGRUClassifier(nn.Module):
                                 train=train, generator=generator)[0]
         else:
             out = cuda_gru.bigru_kernel(Z, lengths, kw["gru"], impl=gru_impl)
-        pooled = attn_pool(out, lengths, p["pool"])
+        return out, p
+
+
+class BiGRUClassifier(SequenceModel):
+    """The official BiGRU classifier. Build it with :meth:`from_jax_params`
+    or load a reference ``state_dict`` into ``BiGRUClassifier(cfg)``: the
+    constructor leaves the parameters uninitialized."""
+
+    def __init__(self, cfg: BiGRUConfig):
+        super().__init__()
+        self.cfg = cfg
+        H2 = 2 * cfg.hidden
+        if cfg.use_roi:
+            self.roi_cnn = TinyROICNN(cfg.roi_emb)
+        self.gru = BiGRUWeights(
+            cfg.x_dim + (cfg.roi_emb if cfg.use_roi else 0), cfg.hidden,
+            cfg.gru_layers)
+        self.pool = AttnPool(H2)
+        self.head = nn.Sequential(
+            nn.utils.skip_init(nn.LayerNorm, H2),
+            nn.utils.skip_init(nn.Linear, H2, cfg.head_hidden), nn.ReLU(),
+            nn.Dropout(cfg.head_dropout),
+            nn.utils.skip_init(nn.Linear, cfg.head_hidden, cfg.num_classes),
+        )
+
+    @classmethod
+    def from_jax_params(cls, params: dict, cfg: BiGRUConfig
+                        ) -> "BiGRUClassifier":
+        """Carry a JAX-layout parameter pytree (numpy arrays, or CPU tensors
+        from :func:`init_params`) over through the reference ``state_dict``
+        layout (core.torch_export). Returns a CPU model in eval mode."""
+        sd = {k: torch.from_numpy(np.array(v, dtype=np.float32))
+              for k, v in export_bigru_classifier(params).items()}
+        model = cls(cfg)
+        model.load_state_dict(sd, strict=True)
+        return model.eval()
+
+    def params_tree(self) -> dict:
+        """The JAX package's parameter pytree, as views of the parameters."""
+        return jax_tree(dict(self.named_parameters()), self.cfg)
+
+    def forward(self, X: torch.Tensor, lengths: torch.Tensor,
+                roi: Optional[torch.Tensor] = None, *,
+                roi_standardize: bool = True, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                roi_impl: str = "auto", gru_impl: str = "auto",
+                roi_variant: str = "tiled3", compute_dtype: str = "float32",
+                train_cnn: Optional[Callable] = None,
+                differentiable: Optional[bool] = None) -> torch.Tensor:
+        """X: (B, T, D) f32; lengths: (B,); roi: (B, T, H, W) uint8 or None.
+        Returns logits (B, num_classes) f32. ``roi_impl`` / ``gru_impl``:
+        'auto' | 'kernel' | 'plain' (ops._kernels). ``roi_variant`` and
+        ``compute_dtype``: the serving modes (module docstring), or with
+        the differentiable forward the training route in f32 or bf16
+        (:meth:`SequenceModel.encode`). ``train_cnn``: the differentiable
+        forward's ROI CNN, (frames, params, standardize) -> embeddings, in
+        place of ``roi_cnn_fused_train`` (a check's reference).
+
+        ``train``: GRU inter-layer and head dropout, drawn from
+        ``generator`` (on X's device). The differentiable forward runs the
+        plain GRU scan, since the GRU kernel has no backward
+        (``gru_impl='kernel'`` raises there); the inference forward the
+        kernels on ``kernel_weights()``. The head runs in the GRU output's
+        type."""
+        out, p = self.encode(X, lengths, roi, roi_standardize=roi_standardize,
+                             train=train, generator=generator,
+                             roi_impl=roi_impl, gru_impl=gru_impl,
+                             roi_variant=roi_variant,
+                             compute_dtype=compute_dtype, train_cnn=train_cnn,
+                             differentiable=differentiable)
+        pooled = attn_pool(out, lengths.to(out.device), p["pool"])
         h = layer_norm(pooled, p["head"]["ln"])
         h = torch.relu(dense(h, p["head"]["fc1"]))
         h = dropout(h, self.cfg.head_dropout, generator, train)
-        return dense(h, p["head"]["fc2"])
+        return dense(h, p["head"]["fc2"]).to(torch.float32)
 
     def live_forward(self, X, lengths, roi=None, *, roi_impl: str = "auto",
                      gru_impl: str = "auto", roi_variant: str = "tiled3",
@@ -404,11 +468,18 @@ class BiGRUClassifier(nn.Module):
     def train_forward(self, X, lengths, roi=None, *, train: bool = True,
                       generator: Optional[torch.Generator] = None,
                       roi_impl: str = "auto", gru_impl: str = "auto",
+                      compute_dtype: str = "float32",
                       train_cnn: Optional[Callable] = None) -> torch.Tensor:
         """The training-path forward (per-frame ROI standardization,
         train_model_official.py:279-310); ``train`` adds dropout drawn from
-        ``generator``; ``train_cnn`` as in :meth:`forward`."""
+        ``generator``; ``train_cnn`` as in :meth:`forward`.
+        ``compute_dtype='bfloat16'`` is the bf16 training route with or
+        without autograd (the JAX package validates on it too), which has
+        no inference form: its GRU scan runs in bf16, where the GRU kernel
+        runs in f32."""
         return self.forward(X, lengths, roi, roi_standardize=True,
                             train=train, generator=generator,
                             roi_impl=roi_impl, gru_impl=gru_impl,
-                            train_cnn=train_cnn)
+                            compute_dtype=compute_dtype, train_cnn=train_cnn,
+                            differentiable=(True if compute_dtype ==
+                                            "bfloat16" else None))

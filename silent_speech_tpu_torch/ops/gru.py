@@ -83,12 +83,14 @@ def gru_layer_single_direction(
 ):
     """Run one GRU direction over a padded batch.
 
-    x: (B, T, D); lengths: (B,); params: {'wi', 'wh', 'bi', 'bh'}.
-    Returns (outputs (B, T, H) zero past each length, h_last (B, H))."""
+    x: (B, T, D); lengths: (B,); params: {'wi', 'wh', 'bi', 'bh'}, cast to
+    x's type (the bf16 training route runs the scan in bf16). Returns
+    (outputs (B, T, H) zero past each length, h_last (B, H))."""
     if reverse:
         x = flip_padded(x, lengths)
-    xp = x @ params["wi"] + params["bi"]  # (B, T, 3H), hoisted out of the loop
-    y, h = gru_recurrence(xp, lengths, params["wh"], params["bh"], h0)
+    p = {k: v.to(x.dtype) for k, v in params.items()}  # x's type, as JAX
+    xp = x @ p["wi"] + p["bi"]  # (B, T, 3H), hoisted out of the loop
+    y, h = gru_recurrence(xp, lengths, p["wh"], p["bh"], h0)
     if reverse:
         y = flip_padded(y, lengths)
     return y, h

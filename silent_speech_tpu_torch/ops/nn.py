@@ -62,15 +62,16 @@ def layer_norm_init(dim: int) -> dict:
 
 
 def dense(x: torch.Tensor, p: dict) -> torch.Tensor:
-    """x @ w + b with w stored (in, out)."""
-    return x @ p["w"] + p["b"]
+    """x @ w + b with w stored (in, out), in x's type."""
+    return x @ p["w"].to(x.dtype) + p["b"].to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis, matching nn.LayerNorm (biased variance)."""
     mu = x.mean(dim=-1, keepdim=True)
     var = (x - mu).square().mean(dim=-1, keepdim=True)
-    return (x - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return ((x - mu) * torch.rsqrt(var + eps) * p["scale"].to(x.dtype)
+            + p["bias"].to(x.dtype))
 
 
 def conv2d_nhwc(x: torch.Tensor, p: dict) -> torch.Tensor:

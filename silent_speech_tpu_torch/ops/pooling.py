@@ -21,7 +21,8 @@ def attn_pool(h: torch.Tensor, lengths: torch.Tensor, params: dict
     h: (B, T, H); params: {'score': {'w': (H, 1), 'b': (1,)}}. Returns (B, H).
     """
     T = h.shape[1]
-    scores = (h @ params["score"]["w"] + params["score"]["b"]).squeeze(-1)
+    score = params["score"]
+    scores = (h @ score["w"].to(h.dtype) + score["b"].to(h.dtype)).squeeze(-1)
     scores = scores.masked_fill(~length_mask(lengths, T), NEG_INF)
     w = torch.softmax(scores, dim=1).unsqueeze(-1)
     return (h * w).sum(dim=1)

@@ -25,9 +25,10 @@ from ..data.corpus import (build_label_maps, filter_modal_dim,
                            split_by_label, top_confusions,
                            warn_mixed_idx_signatures)
 from ..data.dataset import build_dataset, epoch_batches
-from ..models.bigru import BiGRUClassifier, BiGRUConfig, init_params
+from ..models.bigru import (COMPUTE_DTYPES, BiGRUClassifier, BiGRUConfig,
+                            init_params)
 from .checkpoint import load_checkpoint, reference_meta, save_checkpoint
-from .metrics import MetricsLogger
+from .metrics import MetricsLogger, profiler_trace
 from .step import (StepConfig, eval_step, make_optimizer, resolve_roi_impl,
                    train_step)
 
@@ -39,15 +40,14 @@ def _check_config(cfg: TrainConfig) -> None:
     if cfg.steps_per_dispatch < 0:
         raise ValueError(
             f"steps_per_dispatch must be >= 0, got {cfg.steps_per_dispatch}")
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: the port "
+                         f"trains in {COMPUTE_DTYPES}")
     unported = [
         ("mesh_shape", cfg.mesh_shape, "multi-device training"),
-        ("host_data", cfg.host_data, "the host-resident corpus"),
         ("checkpoint_format", cfg.checkpoint_format != "npz"
          and cfg.checkpoint_format, "the orbax checkpoint backend"),
         ("async_checkpoint", cfg.async_checkpoint, "async (orbax) saves"),
-        ("compute_dtype", cfg.compute_dtype != "float32"
-         and cfg.compute_dtype, "bf16 training (the bf16 ROI CNN kernel "
-         "serves inference only)"),
         ("roi_remat", cfg.roi_remat, "ROI-CNN rematerialization (the "
          "kernel's backward recomputes the activations already)"),
     ]
@@ -58,7 +58,7 @@ def _check_config(cfg: TrainConfig) -> None:
     resolve_roi_impl(cfg.roi_impl)
 
 
-def _params_numpy(model: BiGRUClassifier) -> dict:
+def params_numpy(model: torch.nn.Module) -> dict:
     """The JAX-layout parameter tree as host numpy arrays."""
     def to_np(t):
         if isinstance(t, dict):
@@ -83,15 +83,23 @@ def train(
 
     ``resume_from`` restores parameters, the Adam state, the epoch, the
     best validation accuracy and the patience counter from a checkpoint of
-    either package; ``metrics_path`` streams JSONL metrics.
-    ``steps_per_dispatch`` is accepted and changes nothing: the JAX package
-    pins that every value gives the same trajectory, and the port runs one
-    step at a time."""
+    either package; ``metrics_path`` streams JSONL metrics; ``profile_dir``
+    receives a torch.profiler trace of the first epoch's training steps
+    (train/metrics.profiler_trace). ``steps_per_dispatch`` is accepted and
+    changes nothing: the JAX package pins that every value gives the same
+    trajectory, and the port runs one step at a time.
+
+    ``host_data``: the corpus stays in host memory and each step gathers its
+    batch there and copies it to the device; the parameters follow the
+    device-resident corpus's trajectory bitwise. ``compute_dtype=
+    'bfloat16'``: the bf16 training route (models/bigru.SequenceModel.
+    encode); the loss is f32, and the parameters and Adam's state stay
+    f32."""
     _check_config(cfg)
-    if profile_dir:
-        raise NotImplementedError(
-            "profile_dir: the JAX trainer's trace capture uses jax.profiler; "
-            f"its torch.profiler counterpart is {_ROADMAP}")
+    if cfg.host_data and cfg.steps_per_dispatch not in (0, 1) and verbose:
+        print(f"steps_per_dispatch={cfg.steps_per_dispatch} ignored: the "
+              "multi-step dispatch needs the device-resident dataset "
+              "(host_data set); running per step")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' but torch sees no CUDA device; "
@@ -119,9 +127,16 @@ def train(
     file_label = dict(zip(index.files, index.labels))
     train_ds, val_ds = (
         build_dataset(files, label_to_id, cfg.max_t, use_roi, x_dim,
-                      roi_hw=(cfg.roi_h, cfg.roi_w), device=device,
+                      roi_hw=(cfg.roi_h, cfg.roi_w),
+                      device="cpu" if cfg.host_data else device,
                       labels=[file_label[f] for f in files])
         for files in (train_files, val_files))
+
+    def gather(ds, idx):
+        """A batch on the device: gathered there, or with host_data on the
+        host and copied."""
+        return tuple(None if t is None else t.to(device)
+                     for t in ds.gather(idx))
     weights = inverse_frequency_weights(train_ds.labels)
 
     mcfg = BiGRUConfig(
@@ -141,6 +156,7 @@ def train(
             drop_max=cfg.drop_frames_max,
         ),
         roi_impl=cfg.roi_impl,
+        compute_dtype=cfg.compute_dtype,
     )
 
     start_epoch, best_acc, bad = 1, 0.0, 0
@@ -173,7 +189,7 @@ def train(
         labels=sorted(label_to_id), label_to_id=label_to_id,
         id_to_label=id_to_label, seed=cfg.seed, gru_layers=cfg.gru_layers,
     )
-    best_params = _params_numpy(model)
+    best_params = params_numpy(model)
     history = []
     mlog = MetricsLogger(metrics_path)
 
@@ -182,13 +198,18 @@ def train(
         tr_loss = torch.zeros((), device=device)
         tr_acc = torch.zeros((), device=device)
         tr_n = 0
-        for idx in epoch_batches(train_ds.n, cfg.batch_size, sampler_rng,
-                                 weights=weights):
-            Xb, Lb, Rb, yb = train_ds.gather(idx)
-            m = train_step(model, opt, scfg, Xb, Lb, Rb, yb, step_gen)
-            tr_loss += m["loss"] * len(idx)
-            tr_acc += m["acc"] * len(idx)
-            tr_n += len(idx)
+        # the trace stops even when a step fails mid-epoch, so a retry in
+        # the same process can start another
+        with profiler_trace(profile_dir if ep == start_epoch else None):
+            for idx in epoch_batches(train_ds.n, cfg.batch_size, sampler_rng,
+                                     weights=weights):
+                Xb, Lb, Rb, yb = gather(train_ds, idx)
+                with torch.profiler.record_function("train_step"):
+                    m = train_step(model, opt, scfg, Xb, Lb, Rb, yb,
+                                   step_gen)
+                tr_loss += m["loss"] * len(idx)
+                tr_acc += m["acc"] * len(idx)
+                tr_n += len(idx)
         tr_loss = float(tr_loss) / max(1, tr_n)
         tr_acc = float(tr_acc) / max(1, tr_n)
 
@@ -197,7 +218,7 @@ def train(
         y_true_all, y_pred_all = [], []
         for idx in epoch_batches(val_ds.n, cfg.batch_size, sampler_rng,
                                  shuffle=False, pad=False):
-            Xb, Lb, Rb, yb = val_ds.gather(idx)
+            Xb, Lb, Rb, yb = gather(val_ds, idx)
             m = eval_step(model, scfg, Xb, Lb, Rb, yb)
             b = len(idx)
             va_loss += float(m["loss"]) * b
@@ -226,7 +247,7 @@ def train(
         if va_acc > best_acc:
             best_acc = va_acc
             bad = 0
-            best_params = _params_numpy(model)
+            best_params = params_numpy(model)
             save_checkpoint(
                 cfg.out_path, best_params,
                 dict(meta, epoch=ep, best_val_acc=best_acc, bad_epochs=bad),

@@ -1,15 +1,41 @@
-"""Metrics logging (port of the JAX train/metrics.py ``MetricsLogger``).
-
-The JAX package's ``profiler_trace`` wraps ``jax.profiler``; its
-torch.profiler counterpart is not ported yet, and the trainer raises on
-``profile_dir``.
-"""
+"""Metrics logging and trace capture (port of the JAX train/metrics.py
+``MetricsLogger`` and ``profiler_trace``; the JAX package's trace is
+``jax.profiler``'s, the port's torch.profiler's)."""
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import time
 from typing import Optional
+
+import torch
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: Optional[str]):
+    """A torch.profiler trace of the block (host ops, and the device's
+    kernels and copies where a CUDA device is present) written to
+    ``log_dir`` as a Chrome trace (``trace_<pid>.json``) when the block
+    ends, also by an exception; no-op when log_dir is None or empty."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(log_dir,
+                                              f"trace_{os.getpid()}.json"))
 
 
 class MetricsLogger:

@@ -55,7 +55,7 @@ class Optimizer:
     ``torch.optim.Adam`` with optax's defaults (betas 0.9, 0.999, eps 1e-8)
     steps."""
 
-    def __init__(self, model: BiGRUClassifier, lr: float,
+    def __init__(self, model: torch.nn.Module, lr: float,
                  grad_clip_norm: float = 1.0):
         self.model = model
         self.params = list(model.parameters())
@@ -131,7 +131,7 @@ class Optimizer:
                 v.copy_(a)
 
 
-def make_optimizer(model: BiGRUClassifier, lr: float,
+def make_optimizer(model: torch.nn.Module, lr: float,
                    grad_clip_norm: float = 1.0) -> Optimizer:
     """Adam + global-norm clipping (train_model_official.py:403,438)."""
     return Optimizer(model, lr, grad_clip_norm)
@@ -143,6 +143,8 @@ class StepConfig:
     label_smoothing: float = 0.05
     augment: Optional[AugmentConfig] = None
     roi_impl: str = "auto"
+    # 'bfloat16': the bf16 training route (models/bigru.SequenceModel.encode)
+    compute_dtype: str = "float32"
 
 
 def train_step(model: BiGRUClassifier, opt: Optimizer, scfg: StepConfig,
@@ -155,7 +157,8 @@ def train_step(model: BiGRUClassifier, opt: Optimizer, scfg: StepConfig,
     if scfg.augment is not None:
         X, lengths = augment_batch(generator, X, lengths, scfg.augment)
     logits = model.train_forward(X, lengths, roi, train=True,
-                                 generator=generator, roi_impl=scfg.roi_impl)
+                                 generator=generator, roi_impl=scfg.roi_impl,
+                                 compute_dtype=scfg.compute_dtype)
     loss = smoothed_cross_entropy(logits, y, scfg.model.num_classes,
                                   scfg.label_smoothing)
     opt.zero_grad()
@@ -171,9 +174,11 @@ def eval_step(model: BiGRUClassifier, scfg: StepConfig, X, lengths, roi,
     """Loss, accuracy and predictions of the training-path forward in eval
     mode (the reference validates with model.eval() on the standardized ROI
     path, train_model_official.py:449-475); on a CUDA device it runs the
-    inference kernels."""
+    inference kernels, or in bf16 the bf16 training route, as the JAX
+    package's eval step does."""
     logits = model.train_forward(X, lengths, roi, train=False,
-                                 roi_impl=scfg.roi_impl)
+                                 roi_impl=scfg.roi_impl,
+                                 compute_dtype=scfg.compute_dtype)
     loss = smoothed_cross_entropy(logits, y, scfg.model.num_classes,
                                   scfg.label_smoothing)
     pred = logits.argmax(-1)

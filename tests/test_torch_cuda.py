@@ -1417,3 +1417,123 @@ def test_bwd_dots_script_main_on_the_card(dev, script, argv, want):
     assert all(counts[k] > 0 for k in want), counts
     assert out["timer"] == "cuda events"
     assert all(r["ms"] > 0 and r["share_of_bar"] <= 1.0 for r in out["rows"])
+
+
+# --------------------------------------------------------- the CTC family
+
+def _ctc_batch(dev, B, T, seed):
+    from silent_speech_tpu_torch.models import ctc_model
+
+    rng = np.random.default_rng(seed)
+    X = torch.from_numpy(rng.standard_normal((B, T, 180)).astype(np.float32))
+    L = torch.from_numpy(rng.integers(T // 2, T + 1, B))
+    L[0] = T
+    R = torch.from_numpy(rng.integers(0, 256, (B, T, 48, 96),
+                                      dtype=np.uint8))
+    enc = [ctc_model.encode_text(w) for w in ("hello", "no", "six")[:B]]
+    y = torch.zeros((B, 5), dtype=torch.long)
+    for i, e in enumerate(enc):
+        y[i, :len(e)] = torch.tensor(e)
+    ylen = torch.tensor([len(e) for e in enc])
+    return [t.to(dev) for t in (X, L, R, y, ylen)]
+
+
+def test_ctc_forward_kernels_match_plain(dev):
+    """The CTC model at full width (hidden 192, 3 layers, emb 32) on K1 and
+    K2 against its plain version: log-probabilities within the serving
+    bar 1e-3 and the dictionary argmax equal; K1 once, K2 once a layer."""
+    from silent_speech_tpu_torch.infer.ctc_decode import (CTCDecoder,
+                                                          Dictionary)
+    from silent_speech_tpu_torch.models import ctc_model
+
+    params = ctc_model.init_params(180, torch.Generator().manual_seed(3))
+    X, L, R, _, _ = _ctc_batch(dev, 3, 80, 3)
+    d = Dictionary.from_words(["yes", "no", "hello", "thanks", "please",
+                               "six", "seven", "aura", "lebron", "fahhh"])
+    decs = [CTCDecoder(params, d, device=dev, roi_impl=impl, gru_impl=impl)
+            for impl in ("kernel", "plain")]
+    args = [t.cpu().numpy() for t in (X, R, L)]
+    _kernels.reset_launch_counts()
+    got = decs[0].logprobs(*args)
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    assert (counts["roi_cnn"], counts["gru_proj"], counts["gru_seq"]) == \
+        (1, 3, 3)
+    ref = decs[1].logprobs(*args)
+    assert got.shape == (3, 80, 27) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=1e-3, rtol=0)
+    s = [dec.score_batch(*args) for dec in decs]
+    assert (s[0].argmax(-1) == s[1].argmax(-1)).all()
+    # the lattice is elementwise a word: the word chunks change nothing
+    chunked = CTCDecoder(params, d, device=dev, chunk_words=3)
+    np.testing.assert_array_equal(chunked.score_batch(*args), s[0])
+
+
+def test_ctc_train_step_kernels_match_plain(dev):
+    """One CTC train step at full width (B=2, T=16: 32 frames, standardize
+    off) through K1 and K3 against the plain path, at the official step's
+    bars (the loss's relative to its magnitude)."""
+    from silent_speech_tpu_torch.models import ctc_model
+    from silent_speech_tpu_torch.ops.ctc import ctc_loss
+
+    cfg = ctc_model.CTCConfig(gru_dropout=0.0)
+    params = ctc_model.init_params(180, torch.Generator().manual_seed(5))
+    X, L, R, y, ylen = _ctc_batch(dev, 2, 16, 5)
+    res = []
+    for impl in ("kernel", "plain"):
+        model = ctc_model.BiGRUCTC.from_jax_params(params, cfg).to(dev)
+        opt = make_optimizer(model, 3e-4, grad_clip_norm=1e9)
+        _kernels.reset_launch_counts()
+        lp = model(X, L, R, train=True, generator=torch.Generator(device=dev),
+                   roi_impl=impl)
+        loss = ctc_loss(lp, L, y, ylen)
+        loss.backward()
+        grads = [p.grad.clone() for p in model.parameters()]
+        opt.step()
+        counts = _kernels.launch_counts()
+        want = 1 if impl == "kernel" else 0
+        assert counts["roi_cnn"] == counts["roi_cnn_bwd"] == want
+        assert counts["gru_seq"] == 0
+        assert all(g.abs().max() > 0 for g in grads)
+        res.append((loss.item(), grads,
+                    [p.detach().clone() for p in model.parameters()]))
+    (lk, gk, pk), (lp_, gp, pp) = res
+    assert abs(lk - lp_) <= 1e-5 * max(1.0, abs(lp_))
+    assert max((a - b).abs().max().item() for a, b in zip(gk, gp)) <= 1e-4
+    assert max((a - b).abs().max().item() for a, b in zip(pk, pp)) <= 3e-4
+
+
+def test_bf16_train_step_on_the_card_matches_the_cpu(dev):
+    """The official bf16 training route on the card (K1 and K3 in f32, the
+    embedding cast, the scan and head in bf16 on cuBLAS) against the same
+    route on the CPU: the bars of tests/test_torch_ctc_train.py's bf16
+    step (loss within 2^-8 of itself, each gradient within 2^-4 of its
+    tensor's largest |g|); parameters and gradients f32."""
+    cfg = BiGRUConfig(x_dim=12, num_classes=4, hidden=16, roi_emb=8,
+                      head_hidden=8, gru_dropout=0.0, head_dropout=0.0)
+    params = init_params(cfg, torch.Generator().manual_seed(9))
+    rng = np.random.default_rng(9)
+    X = torch.from_numpy(rng.standard_normal((3, 8, 12)).astype(np.float32))
+    L = torch.tensor([8, 5, 3])
+    R = torch.from_numpy(rng.integers(0, 256, (3, 8, 48, 96),
+                                      dtype=np.uint8))
+    y = torch.tensor([0, 3, 1])
+    res = []
+    for device in (dev, torch.device("cpu")):
+        model = BiGRUClassifier.from_jax_params(params, cfg).to(device)
+        _kernels.reset_launch_counts()
+        logits = model.train_forward(
+            *(t.to(device) for t in (X, L, R)), compute_dtype="bfloat16",
+            generator=torch.Generator(device=device))
+        loss = smoothed_cross_entropy(logits, y.to(device), 4, 0.05)
+        loss.backward()
+        if device.type == "cuda":
+            counts = _kernels.launch_counts()
+            assert counts["roi_cnn"] == counts["roi_cnn_bwd"] == 1
+        assert all(p.dtype == p.grad.dtype == torch.float32
+                   for p in model.parameters())
+        res.append((loss.item(), [p.grad.cpu() for p in model.parameters()]))
+    (lc, gc), (lh, gh) = res
+    assert abs(lc - lh) <= 2 ** -8 * abs(lh)
+    for a, b in zip(gc, gh):
+        assert (a - b).abs().max() <= 2 ** -4 * max(b.abs().max(), 2e-3)

@@ -213,14 +213,22 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
                                    {"roi_variant": "im2col"},
                                    {"compute_dtype": "bfloat16"}])
 def test_serving_modes_refuse_training_and_q8_refuses_standardize(knobs):
+    """The serving-only ROI CNN variants refuse the differentiable
+    forward; compute_dtype='bfloat16' takes it, as the bf16 training route
+    (f32 logits from a bf16 GRU)."""
     cfg = BiGRUConfig(x_dim=4, hidden=8, head_hidden=4, roi_emb=4)
     model = BiGRUClassifier.from_jax_params(
         init_params(cfg, torch.Generator().manual_seed(0)), cfg)
     X, L = torch.zeros((2, 3, 4)), torch.tensor([3, 2])
     R = torch.zeros((2, 3, 48, 96), dtype=torch.uint8)
-    with pytest.raises(ValueError, match="serving-only"):
-        model.forward(X, L, R, train=True, generator=torch.Generator(),
-                      **knobs)
+    if "compute_dtype" in knobs:
+        out = model.forward(X, L, R, train=True,
+                            generator=torch.Generator(), **knobs)
+        assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    else:
+        with pytest.raises(ValueError, match="serving-only"):
+            model.forward(X, L, R, train=True, generator=torch.Generator(),
+                          **knobs)
     with torch.no_grad():
         model.live_forward(X, L, R, **knobs)
         if knobs.get("roi_variant") == "tiled3_q8":

@@ -10,6 +10,7 @@ toward the lr); four steps, and a step after a checkpoint resume, within
 5e-4. Dropout is off and augmentation absent wherever the two packages are
 compared: they draw different random numbers."""
 
+import json
 import re
 
 import numpy as np
@@ -30,6 +31,7 @@ from silent_speech_tpu_torch.models.bigru import (BiGRUClassifier,
                                                   tree_leaves)
 from silent_speech_tpu_torch.ops.nn import dropout
 from silent_speech_tpu_torch.train import checkpoint as tckpt
+from silent_speech_tpu_torch.train import loop
 from silent_speech_tpu_torch.train.loop import train
 from silent_speech_tpu_torch.train.step import (StepConfig,
                                                 make_optimizer,
@@ -346,9 +348,9 @@ def test_train_cli(tiny_corpus, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("mesh_shape", "data:2"), ("host_data", "true"),
+    ("mesh_shape", "data:2"),
     ("checkpoint_format", "orbax"), ("async_checkpoint", "true"),
-    ("compute_dtype", "bfloat16"), ("roi_remat", "true"),
+    ("compute_dtype", "float16"), ("roi_remat", "true"),
     ("roi_impl", "xla"), ("roi_impl", "grouped"), ("roi_impl", "pallas"),
     ("roi_impl", "fused"), ("steps_per_dispatch", "-1"),
 ])
@@ -358,11 +360,30 @@ def test_unported_options_raise(key, value):
                   "device=cpu"])
 
 
-def test_profile_dir_and_default_device(tiny_corpus, tmp_path):
+def test_profile_dir_and_default_device(tiny_corpus, tmp_path,
+                                        monkeypatch):
+    """profile_dir: a torch.profiler trace of the first epoch, whose
+    events name its train step (4 training clips, batch 4), stopped also
+    when a step fails, so that the next run traces again; the default
+    device is the card."""
     cfg = TrainConfig(clip_dir=tiny_corpus, out_path=str(tmp_path / "d"),
                       **TINY)
-    with pytest.raises(NotImplementedError, match="profile_dir"):
-        train(cfg, profile_dir=str(tmp_path), device="cpu")
+    prof = tmp_path / "prof"
+
+    def failing(*args, **kwargs):
+        raise RuntimeError("step failed")
+
+    with monkeypatch.context() as m:
+        m.setattr(loop, "train_step", failing)
+        with pytest.raises(RuntimeError, match="step failed"):
+            train(cfg, profile_dir=str(prof), device="cpu", verbose=False)
+    for trace in prof.glob("trace_*.json"):
+        trace.unlink()
+    train(cfg, profile_dir=str(prof), device="cpu", verbose=False)
+    traces = list(prof.glob("trace_*.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert sum(ev.get("name") == "train_step" for ev in events) == 1
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train(cfg)
