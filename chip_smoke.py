@@ -91,12 +91,19 @@ prints no result line):
 11. the backward-dot probes (silent_speech_tpu_torch/scripts): the tt, xp,
    nt, base and nn kernels against their plain versions at small ragged
    shapes (rows 100, m 24, K 104, N 130; dots3's form at 7 steps), tt and
-   base twice on the same full-size inputs (bitwise equal), nt's tail rows
-   exact zeros; then the main() of proto_bwd_dots, proto_bwd_dots2 and
-   proto_bwd_dots3 at full size, with the launch counts over each, whose
-   rows hold each kernel against its plain version at the scripts' shapes
-   and give its time, bound (a row above 100% of it fails), and the plain
-   version's and the library call's times;
+   nn (3xTF32 on the tensor cores) also against the float64 version, tt,
+   base and nn twice on the same full-size inputs (bitwise equal), nt's
+   tail rows exact zeros, one TF32 pass outside the float64 bar at full
+   size (the control), tt's and nn's launch plans; then the main() of
+   proto_bwd_dots, proto_bwd_dots2 and proto_bwd_dots3 at full size, with
+   the launch counts over each, whose rows hold each kernel against its
+   plain version (tt and nn also float64) at the scripts' shapes and give
+   its time, bound (tt and nn at the f32 FMAs and 3xTF32 together; a row
+   above 100% of it fails), and the plain version's and the library
+   call's times (tt and nn also the call that does the same work); tt's
+   mainloop by parts at dots1's K=512 (its stops: one TF32 pass, the
+   fragment feed without MMAs, the cp.async ring alone) beside
+   torch.matmul;
 12. the CTC family at full width (hidden 192, 3 GRU layers, emb 32, 27
    classes, random weights from the seed; ``check_ctc``): its forward on K1
    and K2 against the plain version at B=64, T=80 (log-probabilities within
@@ -109,7 +116,8 @@ prints no result line):
    (bitwise the device-resident run); the CTC train step's time, kernels
    and plain, score_batch clips/s at B=64 against 10 and 1,000 words, the
    device breakdowns of both and of the lattice alone, and K1, K2's three
-   layers and K3 at the CTC path's shapes beside their bounds.
+   layers (beside torch.nn.GRU's three, TF32 off) and K3 at the CTC path's
+   shapes beside their bounds.
 
 Then one JSON line with the kernels' results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA device;
@@ -1135,19 +1143,23 @@ def train_step_fn(params, cfg, batch, dev, impl):
     return lambda: train_step(model, opt, scfg, *batch, gen)
 
 
-def nn_gru(p: dict, D: int, bidirectional: bool,
+def nn_gru(p, D: int, bidirectional: bool,
            dev: torch.device) -> torch.nn.GRU:
-    """torch.nn.GRU (cuDNN), one bidirectional (or forward) layer with the
-    weights of each direction set to ``p``."""
-    H = p["wh"].shape[0]
-    gru = torch.nn.GRU(D, H, batch_first=True,
+    """torch.nn.GRU (cuDNN) with the weights ``p``: one layer whose
+    directions each take the dict ``p``, or a list of layers, each
+    {"fwd": ..., "bwd": ...} (the model's ``kernel_weights()["gru"]``)."""
+    layers = p if isinstance(p, list) else [{"fwd": p, "bwd": p}]
+    H = layers[0]["fwd"]["wh"].shape[0]
+    gru = torch.nn.GRU(D, H, num_layers=len(layers), batch_first=True,
                        bidirectional=bidirectional).to(dev)
     with torch.no_grad():
-        for sfx in ("l0", "l0_reverse")[:1 + bidirectional]:
-            getattr(gru, f"weight_ih_{sfx}").copy_(p["wi"].t())
-            getattr(gru, f"weight_hh_{sfx}").copy_(p["wh"].t())
-            getattr(gru, f"bias_ih_{sfx}").copy_(p["bi"])
-            getattr(gru, f"bias_hh_{sfx}").copy_(p["bh"])
+        for i, lp in enumerate(layers):
+            for sfx, d in ((f"l{i}", "fwd"),
+                           (f"l{i}_reverse", "bwd"))[:1 + bidirectional]:
+                getattr(gru, f"weight_ih_{sfx}").copy_(lp[d]["wi"].t())
+                getattr(gru, f"weight_hh_{sfx}").copy_(lp[d]["wh"].t())
+                getattr(gru, f"bias_ih_{sfx}").copy_(lp[d]["bi"])
+                getattr(gru, f"bias_hh_{sfx}").copy_(lp[d]["bh"])
     return gru
 
 
@@ -1160,10 +1172,11 @@ def held_ms(fn, dev, iters: int = 20) -> float:
     return harness.device_ms(fn, harness.Args(0, dev, iters))
 
 
-def gru_library_ms(p: dict, x: torch.Tensor, lengths: torch.Tensor,
+def gru_library_ms(p, x: torch.Tensor, lengths: torch.Tensor,
                    bidirectional: bool = True) -> tuple[float, float]:
     """torch.nn.GRU (cuDNN), one bidirectional (or forward) layer with each
-    direction's weights ``p``, on a sequence packed once before the calls:
+    direction's weights ``p`` (or the layers of :func:`nn_gru`'s list), on
+    a sequence packed once before the calls:
     (the held-stream timer's ms, CUDA events as the host launches). Each is
     an upper bound of its device time (the first if the call waits on the
     host, the second if the host launches slower than the card runs). The
@@ -1944,10 +1957,14 @@ def check_bwd_dots(dev) -> dict:
     (TF32 off) at the small ragged shape BWD_SMALL (every kind; tt and nn
     also in dots3's form, one 24-row tile over 7 steps), within 4 sqrt(n)
     2^-24 of each element's sum of |terms| (ops/cuda_bwd_dots.compare; nt's
-    tail rows exact zeros); tt and base twice on the same full-size
-    inputs, bitwise equal. The scripts' rows hold every
-    kernel at the full shapes. Returns {kernel: {max_abs_err,
-    max_share_of_bar}}; raises on a failure."""
+    tail rows exact zeros), tt and nn (3xTF32 on the tensor cores) also
+    within compare's float64 bar; tt, nn and base twice on the same
+    full-size inputs, bitwise equal; one TF32 pass (cuda_bwd_dots.one_pass)
+    outside the float64 bar at tt's dots1 and nn's dots3 shapes, the
+    control that the bar tells 3xTF32 from it; tt's and nn's launch plans
+    there. The scripts' rows hold every kernel at the full shapes. Returns
+    {kernel: {max_abs_err, max_share_of_bar[, max_share_of_bar64], plan}};
+    raises on a failure."""
     from silent_speech_tpu_torch.infer.predictor import full_f32
     from silent_speech_tpu_torch.ops import cuda_bwd_dots as bd
 
@@ -1958,8 +1975,14 @@ def check_bwd_dots(dev) -> dict:
         e = errs[BWD_KIND_KERNEL[kind]]
         e["max_abs_err"] = max(e["max_abs_err"], r["max_abs_err"])
         e["max_share_of_bar"] = max(e["max_share_of_bar"], r["share_of_bar"])
+        tail = ""
+        if "share_of_bar64" in r:
+            e["max_share_of_bar64"] = max(e.get("max_share_of_bar64", 0.0),
+                                          r["share_of_bar64"])
+            tail = f", {r['share_of_bar64']:.3f} of the float64 bar"
         print(f"  {BWD_KIND_KERNEL[kind]} {kind} {label}: max difference "
-              f"{r['max_abs_err']:.3e}, {r['share_of_bar']:.3f} of the bar")
+              f"{r['max_abs_err']:.3e}, {r['share_of_bar']:.3f} of the bar"
+              f"{tail}")
 
     rng = np.random.default_rng(SEED + 12)
     rows, m, K, N = BWD_SMALL
@@ -1981,14 +2004,32 @@ def check_bwd_dots(dev) -> dict:
         p, dy, w = (bd.draw(rng, s, dev) for s in ((bd.ROWS, 512),
                                                     (bd.ROWS, 256),
                                                     (512, 256)))
-        for kind, a, b in (("tt", p, dy), ("base", p, w)):
-            one, two = bd.run(kind, a, b, m=384), bd.run(kind, a, b, m=384)
+        pk = p[:384].T.contiguous()
+        d3 = dy[:384].contiguous()
+        full = {"tt": (p, dy, {"m": 384}), "base": (p, w, {"m": 384}),
+                "nn": (pk, d3, {"steps": bd.STEPS})}
+        for kind, (a, b, kw) in full.items():
+            one, two = bd.run(kind, a, b, **kw), bd.run(kind, a, b, **kw)
             torch.cuda.synchronize()
             if not torch.equal(one, two):
                 fail(f"bwd_dot {kind}: two launches on the same inputs "
                      "differ")
-            print(f"  {BWD_KIND_KERNEL[kind]} {kind} rows={bd.ROWS} m=384: "
-                  "two launches bitwise equal")
+            print(f"  {BWD_KIND_KERNEL[kind]} {kind} {tuple(a.shape)} x "
+                  f"{tuple(b.shape)} {kw}: two launches bitwise equal")
+        for kind in bd.TC_KINDS:
+            a, b, kw = full[kind]
+            Mo, No = a.shape[1 if kind == "tt" else 0], b.shape[1]
+            pl = bd.plan(kind, Mo, No, kw.get("steps", a.shape[0] // 384))
+            errs[BWD_KIND_KERNEL[kind]]["plan"] = pl._asdict()
+            r = bd.measure(kind, bd.one_pass(kind, a, b, **kw), a, b, **kw)
+            print(f"  {BWD_KIND_KERNEL[kind]} {kind} {kw}: {pl}; one TF32 "
+                  f"pass: {r['share_of_bar']:.3f} of the f32 bar, "
+                  f"{r['share_of_bar64']:.3f} of the float64 bar")
+            if not r["share_of_bar64"] > 1.0:
+                fail(f"bwd_dot {kind}: one TF32 pass passes the float64 "
+                     "bar, which then cannot tell it from 3xTF32")
+            if pl.resident_per_sm < 1:
+                fail(f"bwd_dot {kind}: its block does not fit an SM ({pl})")
     return errs
 
 
@@ -2032,10 +2073,14 @@ def run_bwd_dot_scripts(card: str) -> tuple[dict, dict]:
         for r in rep["rows"]:
             share = r["bound_ms"] / r["ms"]
             r["share_of_bound"] = share
+            tc = ""
+            if "share_of_bar64" in r:
+                tc = (f" (the same work: {r['library_ms_same_work']:.4f} ms); "
+                      f"{r['share_of_bar64']:.3f} of the float64 bar,")
             print(f"  {script} {r['name']}: {r['ms']:.4f} ms, bound "
-                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {share:.1%} of "
-                  f"it; plain {r['plain_ms']:.4f} ms; library "
-                  f"{r['library_ms']:.4f} ms; "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['rate']}), "
+                  f"{share:.1%} of it; plain {r['plain_ms']:.4f} ms; library "
+                  f"{r['library_ms']:.4f} ms{tc} "
                   f"{r['share_of_bar']:.3f} of the bar {card}")
             if share > 1.0:
                 fail(f"{script} {r['name']}: {r['ms']:.4f} ms is {share:.1%} "
@@ -2046,16 +2091,66 @@ def run_bwd_dot_scripts(card: str) -> tuple[dict, dict]:
                                             if c != "name"}
     for name, (_, (script, first)) in BWD_KERNELS.items():
         row = rates[name]["rows"][f"{script}:{first}"]
-        rates[name].update({k: row[k] for k in keys})
+        rows = rates[name]["rows"].values()
+        rates[name].update({k: row[k] for k in keys + (
+            "route", "rate", "library_ms_same_work") if k in row})
         rates[name]["row"] = f"{script}:{first}"
         rates[name]["launches"] = sum(c.get(name, 0)
                                       for c in counts.values())
-        rates[name]["rows_max_abs_err"] = max(
-            r["max_abs_err"] for r in rates[name]["rows"].values())
-        rates[name]["rows_max_share_of_bar"] = max(
-            r["share_of_bar"] for r in rates[name]["rows"].values())
+        for k in ("abs_err", "share_of_bar", "share_of_bar64"):
+            key = "max_" + k if k == "abs_err" else k
+            if key in row:
+                rates[name]["rows_max_" + k] = max(r[key] for r in rows)
     return counts, rates
 
+
+def bwd_kernel_rows(bwd_ms: dict, bwd_errs: dict) -> list[dict]:
+    """The kernels line's rows of the backward-dot kernels from
+    run_bwd_dot_scripts' rates and check_bwd_dots' errors ("route" stays
+    "cuda"; the products' route goes under "products")."""
+    out = []
+    for kname, (replaces, _) in BWD_KERNELS.items():
+        r, e = bwd_ms[kname], bwd_errs[kname]
+        row = {"name": kname, "route": "cuda",
+               "source": "silent_speech_tpu_torch/csrc/bwd_dots.cu",
+               "replaces": replaces, "launches": r["launches"],
+               "max_abs_err": max(e["max_abs_err"], r["rows_max_abs_err"]),
+               "share_of_bar": max(e["max_share_of_bar"],
+                                   r["rows_max_share_of_bar"]),
+               **{k: v for k, v in r.items() if not k.startswith("rows_max")
+                  and k not in ("launches", "route")},
+               "products": r["route"]}
+        if "max_share_of_bar64" in e:
+            row["share_of_bar64"] = max(e["max_share_of_bar64"],
+                                        r["rows_max_share_of_bar64"])
+            row["plan"] = e["plan"]
+        out.append(row)
+    return out
+
+
+def time_bwd_stages(dev, card: str) -> dict:
+    """bwd_dot_tt's mainloop by parts at dots1's (98,304 rows, m 384,
+    K 512, N 256), each stop of ``cuda_bwd_dots.bwd_dot_tt_stop`` timed
+    with the host's launches held out, beside torch.matmul (f32, TF32 off)
+    at the same shape; ``all`` must be bitwise bwd_dot_tt. Returns
+    {stop: ms, "library_ms": ...}."""
+    from silent_speech_tpu_torch.infer.predictor import full_f32
+    from silent_speech_tpu_torch.ops import cuda_bwd_dots as bd
+
+    rng = np.random.default_rng(SEED + 13)
+    with torch.no_grad(), full_f32():
+        p = bd.draw(rng, (bd.ROWS, 512), dev)
+        dy = bd.draw(rng, (bd.ROWS, 256), dev)
+        if not torch.equal(bd.bwd_dot_tt_stop(p, dy, 384, "all"),
+                           bd.bwd_dot_tt(p, dy, 384)):
+            fail("bwd_dot_tt_stop 'all' is not bwd_dot_tt bitwise")
+        out = {stop: held_ms(lambda: bd.bwd_dot_tt_stop(p, dy, 384, stop),
+                             dev, RATE_ITERS) for stop in bd.STOPS}
+        out["library_ms"] = held_ms(lambda: torch.matmul(p.T, dy), dev,
+                                    RATE_ITERS)
+    print(f"  bwd_dot_tt by parts, rows={bd.ROWS} m=384 K=512 N=256: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in out.items()) + f" {card}")
+    return out
 
 
 # ---- phase 12: the CTC family (slice 4) and the official trainer's options
@@ -2466,15 +2561,24 @@ def check_ctc(p_cnn, flat, work: Path, labels: list[str], dev, card: str
     b_ms, b_by = bound_ms(flops, nbytes)
     if ms < b_ms:
         fail(f"K2 over the CTC stack: {ms:.4f} ms under its bound {b_ms:.4f}")
+    # the library's stack: torch.nn.GRU, 3 bidirectional layers with the
+    # same weights, packed once, TF32 off (as K2's other library rows)
+    with full_f32():
+        held, events = gru_library_ms(layers, Z, L)
     out["gru_seq"].update(ctc_shape=f"3 bidirectional layers (D=212, 384, "
                           f"384; H=192), B={B_CTC} T={T_CTC}",
                           ctc_stack_ms=ms, ctc_stack_plain_ms=plain,
                           ctc_stack_bound_ms=b_ms, ctc_stack_bound_by=b_by,
+                          ctc_stack_library_ms=min(held, events),
+                          ctc_stack_library_held_ms=held,
+                          ctc_stack_library_events_ms=events,
                           ctc_serving_launches=fwd_counts["gru_seq"])
     out["gru_proj"]["ctc_serving_launches"] = fwd_counts["gru_proj"]
     print(f"  K2 over the CTC stack (gru_proj + gru_seq a layer, 3 "
           f"layers) B={B_CTC} T={T_CTC}: {ms:.4f} ms, plain (the scan) "
-          f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}) {card}")
+          f"{plain:.4f} ms, torch.nn.GRU (cuDNN, 3 layers, packed once, "
+          f"TF32 off) {min(held, events):.4f} ms (held {held:.4f}, events "
+          f"{events:.4f}), bound {b_ms:.4f} ms ({b_by}) {card}")
     Nt = B_CTC_TRAIN * T_CTC
     rt = Rt.reshape(Nt, 48, 96)
     dE = torch.randn(Nt, 32, generator=torch.Generator().manual_seed(SEED)
@@ -2870,6 +2974,7 @@ def main() -> int:
     print(f"backward-dot probes, the scripts at full size, {RATE_ITERS} timed "
           f"calls a row {card}:")
     _, bwd_ms = run_bwd_dot_scripts(card)
+    bwd_ms["bwd_dot_tt"]["stages_ms"] = time_bwd_stages(dev, card)
 
     # ---- 12. the CTC family, and the official trainer's bf16 and
     # host_data options
@@ -2967,17 +3072,7 @@ def main() -> int:
             "source": f"silent_speech_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": rate_counts[script][kname],
             **rate_errs[kname], **rate_ms[kname]})
-    for kname, (replaces, _) in BWD_KERNELS.items():
-        r, e = bwd_ms[kname], bwd_errs[kname]
-        result["kernels"].append({
-            "name": kname, "route": "cuda",
-            "source": "silent_speech_tpu_torch/csrc/bwd_dots.cu",
-            "replaces": replaces, "launches": r["launches"],
-            "max_abs_err": max(e["max_abs_err"], r["rows_max_abs_err"]),
-            "share_of_bar": max(e["max_share_of_bar"],
-                                r["rows_max_share_of_bar"]),
-            **{k: v for k, v in r.items() if k not in (
-                "launches", "rows_max_abs_err", "rows_max_share_of_bar")}})
+    result["kernels"] += bwd_kernel_rows(bwd_ms, bwd_errs)
     for row in result["kernels"]:
         if row["name"] in ctc:
             row["ctc_path"] = ctc[row["name"]]

@@ -26,6 +26,8 @@
 
 #include <mutex>
 
+#include "mma_tf32.cuh"
+
 namespace {
 
 constexpr int H0 = 48, W0 = 96;    // input frame
@@ -129,38 +131,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// x = hi + lo, both TF32, each rounded as cvt.rna.tf32.f32 rounds (to
-// nearest, ties away from zero). sm_90 has no instruction for that cvt:
-// ptxas expands it into compares and selects that also handle NaN. For a
-// finite x the same rounding is half a TF32 ulp added to the magnitude bits
-// and the 13 low bits cleared, two integer operations (16% off K1 f32 at
-// N=8192 on an H100).
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-// d += a b: m16n8k8 TF32, m16n8k16 and m16n8k8 bf16, f32 accumulation
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// 3xTF32: the small products first, then hi * hi
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4],
-                                           const uint32_t (&bh)[2],
-                                           const uint32_t (&bl)[2]) {
-  mma_tf32(d, al, bh[0], bh[1]);
-  mma_tf32(d, ah, bl[0], bl[1]);
-  mma_tf32(d, ah, bh[0], bh[1]);
-}
+// d += a b: m16n8k16 and m16n8k8 bf16, f32 accumulation
 __device__ __forceinline__ void mma_bf16_k16(float (&d)[4], uint32_t a0,
                                              uint32_t a1, uint32_t a2,
                                              uint32_t a3, uint32_t b0,
@@ -176,15 +147,6 @@ __device__ __forceinline__ void mma_bf16_k8(float (&d)[4], uint32_t a0,
       "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a0), "r"(a1), "r"(b0));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               "cp.async.commit_group;\n" ::"r"(s), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -22,12 +22,17 @@ TPU grid drops them):
   pk (K, M) @ dy (M, N), every product computed.
 
 ``memory_space=VMEM``, ``vmem_limit_bytes`` and ``interpret`` have no
-counterpart on the card. The kernels split the steps into groups of whole
-tiles, a block a 64 x 64 output tile and a group, and add the groups'
-partials in group order: no atomics, two launches on the same inputs are
-bitwise equal. ``impl`` as in ``ops._kernels``. :data:`KINDS` names the
-five by kind, each with its wrapper, plain version and counts, for
-:func:`run`, :func:`plain`, :func:`compare` and :func:`check`.
+counterpart on the card. The steps kernels (tt, nn, xp) split the steps
+into groups of whole tiles, a block an output tile and a group, and add the
+groups' partials in group order: no atomics, two launches on the same
+inputs are bitwise equal. tt and nn form their products on the tensor cores
+as 3xTF32 (m16n8k8 TF32 mma.sync, x = hi + lo, three MMAs a product, f32
+sums; 128 x 128 output tiles fed by a ring of cp.async stages); xp, nt and
+base on the FMAs (64 x 64 tiles). :func:`plan` reports a steps kernel's
+tile and groups (on the card only). ``impl`` as in ``ops._kernels``.
+:data:`KINDS` names the five by kind, each with its wrapper, plain version,
+counts, route and the rate its bound is taken at, for :func:`run`,
+:func:`plain`, :func:`compare` and :func:`check`.
 """
 
 from __future__ import annotations
@@ -52,6 +57,12 @@ _STEPS_ARGS = [_P, _P, _P, _P,            # p, dy, out, partial
                _I, _I, _I, _I, _I,        # K, N, m, G, steps
                _P]                        # stream
 KERNEL_TT = _kernels.Kernel("bwd_dot_tt", "bwd_dot_tt", _STEPS_ARGS)
+# bwd_dot_tt's kernel stopped after a part of its mainloop, to time the
+# parts (csrc/bwd_dots.cu tc::Stop), in this order
+STOPS = ("all", "one_pass", "feed", "ring")
+KERNEL_TT_STOP = _kernels.Kernel(
+    "bwd_dot_tt_stop", "bwd_dot_tt_stop",
+    _STEPS_ARGS[:-1] + [_I, _P])          # ..., steps, stop, stream
 KERNEL_XP = _kernels.Kernel("bwd_dot_xp", "bwd_dot_xp", _STEPS_ARGS)
 KERNEL_NT = _kernels.Kernel(
     "bwd_dot_nt", "bwd_dot_nt",
@@ -102,6 +113,43 @@ def _scratch(kind: str, Mo: int, No: int, steps: int,
     if n < 0:
         raise RuntimeError(f"bwd_dot_scratch: no layout for {kind!r}")
     return torch.empty(n, dtype=torch.float32, device=device)
+
+
+class Plan(NamedTuple):
+    """A steps kernel's launch at some shapes (csrc/bwd_dots.cu,
+    ``bwd_dot_plan``): the output tile (``tile_m`` x ``tile_n``), the
+    contraction rows a chunk, threads a block, ring stages (xp: 1),
+    dynamic shared memory bytes, output tiles, groups, steps a group, and
+    the blocks an SM holds by the card's occupancy query (the groups assume
+    1 for tt and nn, 2 for xp)."""
+
+    tile_m: int
+    tile_n: int
+    chunk: int
+    threads: int
+    stages: int
+    smem_bytes: int
+    tiles: int
+    groups: int
+    steps_per_group: int
+    resident_per_sm: int
+
+
+def plan(kind: str, Mo: int, No: int, steps: int) -> Plan:
+    """The launch of ``kind``'s steps kernel (tt, nn or xp) for Mo x No
+    outputs over ``steps`` steps; builds the kernels, so on the card
+    only."""
+    if kind not in _LAYOUT:
+        raise ValueError(f"no steps kernel for {kind!r}; one of "
+                         f"{tuple(_LAYOUT)}")
+    fn = _kernels.library().bwd_dot_plan
+    fn.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
+    fn.restype = _I
+    out = (_I * len(Plan._fields))()
+    err = fn(_LAYOUT[kind], Mo, No, steps, out)
+    if err:
+        raise RuntimeError(f"bwd_dot_plan: CUDA error {err}")
+    return Plan(*out)
 
 
 # ------------------------------------------------------ plain versions
@@ -203,6 +251,36 @@ def bwd_dot_tt(p: torch.Tensor, dy: torch.Tensor, m: int,
     return _steps("tt", p, dy, m, G, steps)
 
 
+def bwd_dot_tt_stop(p: torch.Tensor, dy: torch.Tensor, m: int, stop: str,
+                    steps: Optional[int] = None) -> torch.Tensor:
+    """bwd_dot_tt's kernel with its mainloop stopped after a part, on the
+    card only, to time the parts (:data:`STOPS`): ``all`` of it (bwd_dot_tt
+    itself, bitwise); ``one_pass``, hi*hi alone (one TF32 pass: another
+    function); ``feed``, the fragment loads and hi/lo splits without MMAs
+    (each split value folded into the sums by one XOR); ``ring``, the
+    cp.async ring and its barriers alone (the sums zero). K and N
+    multiples of 4 (16-byte rows)."""
+    G = _same_rows(p, dy, m)
+    steps = G if steps is None else steps
+    if stop not in STOPS:
+        raise ValueError(f"unknown stop {stop!r}; one of {STOPS}")
+    if not p.is_cuda:
+        raise ValueError("bwd_dot_tt_stop times the card's kernel: it needs "
+                         f"CUDA tensors, got one on {p.device}")
+    _launchable(p, dy)
+    K, N = p.shape[1], dy.shape[1]
+    if K % 4 or N % 4 or steps < 1:
+        raise ValueError(f"K and N multiples of 4 and steps >= 1, got K={K}"
+                         f" N={N} steps={steps}")
+    out = torch.empty((K, N), dtype=torch.float32, device=p.device)
+    partial = _scratch("tt", K, N, steps, p.device)
+    KERNEL_TT_STOP.launch(_kernels.ptr(p), _kernels.ptr(dy),
+                          _kernels.ptr(out), _kernels.ptr(partial), K, N, m,
+                          G, steps, STOPS.index(stop),
+                          _kernels.stream_ptr(p.device))
+    return out
+
+
 def bwd_dot_xp(p: torch.Tensor, dy: torch.Tensor, m: int, *,
                impl: str = "auto") -> torch.Tensor:
     """bwd_dot_tt's function (steps = G) through an explicit transpose."""
@@ -288,16 +366,23 @@ class Kind(NamedTuple):
     """One function of the probes. ``wrapper`` and ``plain`` take (a, b)
     and the keywords of their signatures (``m``: the tile's rows; tt and nn
     ``steps``); ``terms(a, b, m, steps)`` is n, the products summed into
-    one output element; ``macs(shape, steps)`` and ``bytes(shape)`` count one call on
-    ``shape``: (rows, m, K, N), for nn (M, K, N). ``bytes`` reads each
-    input once (the G m rows a call reads) and writes each output once,
-    f32."""
+    one output element; ``macs(shape, steps)`` and ``bytes(shape)`` count
+    one call on ``shape``: (rows, m, K, N), for nn (M, K, N). ``bytes``
+    reads each input once (the G m rows a call reads) and writes each
+    output once, f32. ``route``: where the kernel forms its products;
+    ``rate``: the peak its bound is taken at (a key of
+    ``scripts.proto_parity_cnn.PEAK_OPS``)."""
 
     wrapper: Callable[..., torch.Tensor]
     plain: Callable[..., torch.Tensor]
     terms: Callable[..., int]
     macs: Callable[..., int]
     bytes: Callable[..., int]
+    route: str = "f32 FMAs"
+    rate: str = "f32"
+
+
+TENSOR_CORES = "3xTF32 on mma.sync"
 
 
 def _tt_terms(a, b, m, steps):
@@ -314,7 +399,8 @@ def _tt_bytes(shape):
 
 
 KINDS = {
-    "tt": Kind(bwd_dot_tt, bwd_dot_tt_plain, _tt_terms, _tt_macs, _tt_bytes),
+    "tt": Kind(bwd_dot_tt, bwd_dot_tt_plain, _tt_terms, _tt_macs, _tt_bytes,
+               TENSOR_CORES, "f32_3xtf32"),
     "xp": Kind(bwd_dot_xp, bwd_dot_xp_plain, _tt_terms, _tt_macs, _tt_bytes),
     "nt": Kind(bwd_dot_nt, bwd_dot_nt_plain,
                lambda a, b, m, steps: a.shape[1], _tt_macs,
@@ -326,7 +412,8 @@ KINDS = {
     "nn": Kind(bwd_dot_nn, bwd_dot_nn_plain,
                lambda a, b, m, steps: _or(steps, STEPS) * a.shape[1],
                lambda s, steps: _or(steps, STEPS) * s[0] * s[1] * s[2],
-               lambda s: 4 * (s[1] * s[0] + s[0] * s[2] + s[1] * s[2])),
+               lambda s: 4 * (s[1] * s[0] + s[0] * s[2] + s[1] * s[2]),
+               TENSOR_CORES, "f32_3xtf32"),
 }
 
 
@@ -374,34 +461,125 @@ def bytes_moved(kind: str, shape: tuple) -> int:
 # 2^-24 of it; the bar is 4 times that (ops/cuda_mm_rate.BAR_DEPTH). n: tt
 # and xp steps m, nt N, base G m K, nn steps M.
 BAR_DEPTH = 4
+# tt and nn against the float64 version: 2^-24 (BAR64_TERMS A + steps / 2
+# |value|), derived in compare()
+BAR64_TERMS = 32
+TC_KINDS = tuple(k for k, v in KINDS.items() if v.route == TENSOR_CORES)
+
+
+def reference64(kind: str, a: torch.Tensor, b: torch.Tensor, *,
+                m: Optional[int] = None, steps: Optional[int] = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tt's or nn's function on (a, b) in float64, step by step, and each
+    element's sum of |terms| (the same on |a|, |b|)."""
+    if kind == "tt":
+        G = _same_rows(a, b, m)
+        steps, product = _or(steps, G), lambda x, y, r: x[r].T @ y[r]
+    elif kind == "nn":
+        steps = _or(steps, STEPS)
+        _nn_operands(a, b, steps)
+        G, m, product = 1, b.shape[0], lambda x, y, r: x @ y
+    else:
+        raise ValueError(f"no float64 version for {kind!r}; one of "
+                         f"{TC_KINDS}")
+    a64, b64 = a.double(), b.double()
+    return tuple(_steps_plain(lambda r: product(x, y, r), G, m, steps)
+                 for x, y in ((a64, b64), (a64.abs(), b64.abs())))
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as the kernels' split rounds (csrc/mma_tf32.cuh ``tf32``)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def one_pass(kind: str, a: torch.Tensor, b: torch.Tensor, *,
+             m: Optional[int] = None, steps: Optional[int] = None
+             ) -> torch.Tensor:
+    """tt's or nn's function as one TF32 pass forms it, in f32: the
+    operands rounded to TF32, their products exact and summed in float64.
+    The control that :func:`compare`'s float64 bar must refuse."""
+    return reference64(kind, tf32_round(a), tf32_round(b), m=m,
+                       steps=steps)[0].float()
+
+
+def measure(kind: str, got: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+            *, m: Optional[int] = None, steps: Optional[int] = None
+            ) -> dict:
+    """:func:`compare`'s figures without its verdict: the largest
+    difference from the plain version and its share of the bar; for tt and
+    nn also from the float64 version (``max_abs_err64``,
+    ``share_of_bar64``). Raises on a wrong shape only."""
+    want = plain(kind, a, b, m=m, steps=steps)
+    if got.shape != want.shape:
+        raise RuntimeError(f"bwd_dot {kind}: shape {tuple(got.shape)}, want "
+                           f"{tuple(want.shape)}")
+    absolute = plain(kind, a.abs(), b.abs(), m=m, steps=steps)
+    bar = (BAR_DEPTH * KINDS[kind].terms(a, b, m, steps) ** 0.5
+           * 2.0 ** -24 * absolute)
+    out = _shares(got, want, bar, "")
+    if kind in TC_KINDS:
+        ref, absolute = reference64(kind, a, b, m=m, steps=steps)
+        n_steps = _or(steps, STEPS if kind == "nn" else a.shape[0] // m)
+        bar = 2.0 ** -24 * (BAR64_TERMS * absolute + n_steps / 2 * ref.abs())
+        out.update(_shares(got.double(), ref, bar, "64"))
+    return out
+
+
+def _shares(got, want, bar, tag: str) -> dict:
+    err = (got - want).abs()
+    share = (err / bar.clamp(min=1e-30)).max().item() if err.numel() else 0.0
+    if not bool(torch.isfinite(got).all()):
+        share = float("inf")
+    return {"max_abs_err" + tag: err.max().item() if err.numel() else 0.0,
+            "share_of_bar" + tag: share}
 
 
 def compare(kind: str, got: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             *, m: Optional[int] = None, steps: Optional[int] = None) -> dict:
-    """A result of ``kind`` against the plain version on (a, b): the
-    largest difference and share of the bar; raises over it (nt's tail
-    rows, whose sums of |terms| are 0, must be exact zeros)."""
-    want = plain(kind, a, b, m=m, steps=steps)
-    absolute = plain(kind, a.abs(), b.abs(), m=m, steps=steps)
-    bar = (BAR_DEPTH * KINDS[kind].terms(a, b, m, steps) ** 0.5
-           * 2.0 ** -24 * absolute)
-    if got.shape != want.shape:
-        raise RuntimeError(f"bwd_dot {kind}: shape {tuple(got.shape)}, want "
-                           f"{tuple(want.shape)}")
-    err = (got - want).abs()
-    share = (err / bar.clamp(min=1e-30)).max().item() if err.numel() else 0.0
-    if not bool(torch.isfinite(got).all()) or not share <= 1.0:
-        raise RuntimeError(f"bwd_dot {kind} {tuple(a.shape)} x "
-                           f"{tuple(b.shape)} m={m} steps={steps}: off the "
-                           f"plain version ({share:.3f} of the bar)")
-    return {"max_abs_err": err.max().item() if err.numel() else 0.0,
-            "share_of_bar": share}
+    """A result of ``kind`` against the plain version on (a, b), and tt's
+    and nn's also against the float64 version: the figures of
+    :func:`measure`; raises over either bar (nt's tail rows, whose sums of
+    |terms| are 0, must be exact zeros).
+
+    The float64 bar, for the kernels that form their products as 3xTF32
+    (tt, nn): with ref the float64 value and A the element's sum of |terms|
+    (:func:`reference64`), |got - ref| <= 2^-24 (32 A + steps / 2 |ref|).
+    3xTF32 forms a b as ah bh + ah bl + al bh from x = hi + lo, each part
+    rounded to TF32: the dropped al bl and the lo parts' roundings leave at
+    most 3 2^-22 = 12 2^-24 of |a b|, and the f32 sums within a step (32
+    rows at a time on the MMAs, whose accumulation truncates, then the
+    chunks' sums added in f32) a few 2^-24 of A: 32 A, with room. The step sums are then added in step order in f32, each add
+    within 2^-24 of its partial sum; where the steps are alike (dots3: one
+    product every step) the roundings repeat rather than cancel, and the
+    partial after j steps is j / steps of the value: steps / 2 2^-24 |ref|
+    at most. One TF32 pass rounds each operand to TF32, about 2^-12.3 of it
+    (rms) off, each product 2.9e-4 |a b| (rms; standard normal operands,
+    the scripts' draws), a random walk of n such errors: 2.9e-4 sqrt(n)
+    against A = 0.64 n, 24.7 2^-24 A a standard deviation at the scripts'
+    n = 98,304 independent terms (dots1, dots2), so their largest element
+    (of 26,624-131,072) lies about 3x over 32 A; where the steps repeat, so
+    does the step's error (dots3, 512 steps of 384 rows: 395 2^-24 A a
+    standard deviation); at the tests' n <= 64, over 960. The bar against
+    the f32 plain version, 4 sqrt(n) 2^-24 A (1,254-1,774 2^-24 A at the
+    full shapes), lets one pass through at every full shape."""
+    r = measure(kind, got, a, b, m=m, steps=steps)
+    for tag, what in (("", "plain"), ("64", "float64")):
+        share = r.get("share_of_bar" + tag, 0.0)
+        if not share <= 1.0:
+            raise RuntimeError(
+                f"bwd_dot {kind} {tuple(a.shape)} x {tuple(b.shape)} m={m} "
+                f"steps={steps}: off the {what} version ({share:.3f} of the "
+                "bar)")
+    return r
 
 
 def check(kind: str, a: torch.Tensor, b: torch.Tensor, *,
           m: Optional[int] = None, steps: Optional[int] = None) -> dict:
     """The kernel against the plain version on a's device (TF32 off is the
-    caller's), through :func:`compare`."""
+    caller's), and tt and nn against the float64 version, through
+    :func:`compare`."""
     return compare(kind, run(kind, a, b, m=m, steps=steps, impl="kernel"),
                    a, b, m=m, steps=steps)
 

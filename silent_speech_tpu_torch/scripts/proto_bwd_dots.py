@@ -14,12 +14,14 @@ p (ROWS, K) and dy (ROWS, N) and then w (K, N), drawn from one
 - ``nt``: dp[g] = dy_g w^T (``run_nt``; ``bwd_dot_nt``).
 
 On the card each row's result is held against its plain version
-(``cuda_bwd_dots.compare``, TF32 off), then timed: the device time of a
-call with the host's launches held out (``proto_parity_cnn.device_ms``), T
-MAC/s, the share of the f32 bound, the plain version's time and one
-PyTorch call computing the same function (:func:`library_call`;
-``p[:G m].T @ dy[:G m]``, ``dy[:G m] @ w.T``) as the library row. The JAX script printed a rate
-only; the last line here is one JSON object with the rows. On the CPU
+(``cuda_bwd_dots.compare``, TF32 off; tt also against the float64
+version), then timed: the device time of a call with the host's launches
+held out (``proto_parity_cnn.device_ms``), T MAC/s, the share of the bound
+(tt at the f32 FMAs and 3xTF32 together, the rate of its tensor-core route;
+nt at the f32 FMAs), the plain version's time and one PyTorch call
+computing the same function (:func:`library_call`; ``p[:G m].T @ dy[:G
+m]``, ``dy[:G m] @ w.T``) as the library row. The JAX script printed a
+rate only; the last line here is one JSON object with the rows. On the CPU
 (``device=cpu``) a run is a check of the code through the plain versions,
 timed by the host clock, not a measurement; without a CUDA device it
 raises unless ``device=cpu`` is given.
@@ -53,22 +55,33 @@ def parse(argv: Sequence[str], what: str, least: int, default: int,
 
 
 def library_call(kind: str, a: torch.Tensor, b: torch.Tensor, *,
-                 m: Optional[int] = None,
-                 steps: Optional[int] = None) -> Callable[[], torch.Tensor]:
+                 m: Optional[int] = None, steps: Optional[int] = None,
+                 same_work: bool = False) -> Callable[[], torch.Tensor]:
     """One PyTorch call computing ``kind``'s function on (a, b), for the
-    library column (timed beside the kernel; nothing in the port calls
-    it): tt and xp ``a[:G m].T @ b[:G m]``, and tt over ``steps`` steps of
-    one tile (dots3) ``addmm`` with ``alpha=steps``; nt ``a[:G m] @ b.T``
-    (without nt's zero tail rows); base ``einsum('rk,kn->n')`` over the G m
-    rows (the library sums the rows first, 1/N of base's multiply-adds); nn
-    ``addmm`` with ``alpha=steps``. tt and nn compute the product once."""
+    library columns (timed beside the kernel; nothing in the port calls
+    it): tt and xp ``a[:G m].T @ b[:G m]``; nt ``a[:G m] @ b.T`` (without
+    nt's zero tail rows); base ``einsum('rk,kn->n')`` over the G m rows
+    (the library sums the rows first, 1/N of base's multiply-adds). tt over
+    ``steps`` steps of one tile and nn (dots3): ``addmm`` with
+    ``alpha=steps``, which computes the product once and scales it, 1/steps
+    of the multiply-adds; with ``same_work``, ``torch.matmul`` of the
+    operands stacked ``steps`` times along the contraction (tt: a and b
+    (steps M, K) and (steps M, N); nn: a (K, steps M), b (steps M, N)),
+    stacked here, before the call: every step's product, as the kernel.
+    The other kinds' call already does their work."""
     if kind == "nn":
+        if same_work:
+            A, B = a.repeat(1, steps), b.repeat(steps, 1)
+            return lambda: torch.matmul(A, B)
         c = torch.empty((a.shape[0], b.shape[1]), device=a.device)
         return lambda: torch.addmm(c, a, b, beta=0, alpha=steps)
     Gm = a.shape[0] // m * m
     if kind == "tt" and steps is not None:
         if Gm != a.shape[0] or Gm != m:
             raise ValueError("tt over steps has one call only for one tile")
+        if same_work:
+            A, B = a.repeat(steps, 1), b.repeat(steps, 1)
+            return lambda: torch.matmul(A.T, B)
         c = torch.empty((a.shape[1], b.shape[1]), device=a.device)
         return lambda: torch.addmm(c, a.T, b, beta=0, alpha=steps)
     if kind in ("tt", "xp"):
@@ -85,36 +98,52 @@ def dot_row(name: str, kind: str, a: torch.Tensor, b: torch.Tensor,
             steps: Optional[int] = None,
             one_matmul: Optional[tuple[Callable, int]] = None) -> dict:
     """One row: ``kind`` on (a, b) (keywords as ``cuda_bwd_dots.run``),
-    checked against its plain version on the card, then timed beside its
-    bound, its plain version and :func:`library_call`; ``one_matmul`` (a
-    call and its multiply-adds), where given, is one product's rate beside
-    it."""
+    checked against its plain version on the card (tt and nn also against
+    the float64 version, ``cuda_bwd_dots.compare``), then timed beside its
+    bound (at the rate of the kind's route, ``Kind.rate``), its plain
+    version and :func:`library_call`; tt and nn also beside the library
+    call that does the same work (``library_ms_same_work``: dots3's
+    stacked product; dots1's and dots2's library call itself);
+    ``one_matmul`` (a call and its multiply-adds), where given, is one
+    product's rate beside it."""
     kw = {"m": m, "steps": steps}
+    k = bd.kind_of(kind)
     fn = lambda: bd.run(kind, a, b, **kw)  # noqa: E731
-    err = share = None
+    checked = {}
     if args.device.type == "cuda":
-        c = bd.compare(kind, fn(), a, b, **kw)
-        err, share = c["max_abs_err"], c["share_of_bar"]
+        checked = bd.compare(kind, fn(), a, b, **kw)
     ms = harness.timed_ms(fn, args)
     plain_ms = harness.timed_ms(lambda: bd.plain(kind, a, b, **kw), args)
     macs = bd.macs(kind, shape, steps)
-    b_ms, b_by = harness.bound_ms(macs, bd.bytes_moved(kind, shape))
-    r = {"name": name, "kind": kind, "ms": ms,
-         "t_macs": macs / (ms * 1e-3) / 1e12, "bound_ms": b_ms,
+    b_ms, b_by = harness.bound_ms(macs, bd.bytes_moved(kind, shape), k.rate)
+    r = {"name": name, "kind": kind, "route": k.route, "rate": k.rate,
+         "ms": ms, "t_macs": macs / (ms * 1e-3) / 1e12, "bound_ms": b_ms,
          "bound_by": b_by, "plain_ms": plain_ms,
          "library_ms": harness.timed_ms(library_call(kind, a, b, **kw), args),
-         "max_abs_err": err, "share_of_bar": share}
+         "max_abs_err": checked.get("max_abs_err"),
+         "share_of_bar": checked.get("share_of_bar")}
     lib = f"{r['library_ms']:.4f} ms"
+    if kind in bd.TC_KINDS:
+        r.update({k64: checked.get(k64) for k64 in ("max_abs_err64",
+                                                     "share_of_bar64")})
+        if kind == "nn" or steps is not None:
+            r["library_ms_same_work"] = harness.timed_ms(
+                library_call(kind, a, b, **kw, same_work=True), args)
+            lib += f" (the same work: {r['library_ms_same_work']:.4f} ms)"
+        else:
+            r["library_ms_same_work"] = r["library_ms"]
     if one_matmul is not None:
         one_ms = harness.timed_ms(one_matmul[0], args)
         r["library_ms_one_matmul"] = one_ms
         r["library_t_macs"] = one_matmul[1] / (one_ms * 1e-3) / 1e12
         lib += f" (one torch.matmul: {r['library_t_macs']:.2f} T MAC/s)"
+    err = "" if not checked else (
+        f"; err {r['max_abs_err']:.3e} ({r['share_of_bar']:.3f} of the bar"
+        + (f", {r['share_of_bar64']:.3f} of the float64 bar"
+           if "share_of_bar64" in checked else "") + ")")
     print(f"  {name:>18s}: {ms:9.4f} ms {r['t_macs']:7.2f} T MAC/s "
-          f"{b_ms / ms:6.1%} of its f32 bound {b_ms:.4f} ms ({b_by}); plain "
-          f"{plain_ms:.4f} ms; library {lib}"
-          + ("" if err is None else f"; err {err:.3e} ({share:.3f} of the "
-                                    "bar)"), flush=True)
+          f"{b_ms / ms:6.1%} of its {k.rate} bound {b_ms:.4f} ms ({b_by}); "
+          f"plain {plain_ms:.4f} ms; library {lib}{err}", flush=True)
     return r
 
 

@@ -13,7 +13,8 @@ csrc/bwd_dots.cu):
   form. Its library row is ``torch.einsum('rk,kn->n', p[:G m], w)``, which
   sums the rows before the product (1/N of the multiply-adds); one
   ``torch.matmul(p, w)`` gives a product's rate beside it;
-- ``tt`` (m 384, 1536, 3072): the sum of p_g^T dy_g (``bwd_dot_tt``);
+- ``tt`` (m 384, 1536, 3072): the sum of p_g^T dy_g (``bwd_dot_tt``, 3xTF32
+  on the tensor cores: its bound at the f32 FMAs and 3xTF32 together);
 - ``xp`` (m 384, 1536): tt's function through an explicit transpose of
   each p chunk into shared memory (``bwd_dot_xp``), the card's
   ``jnp.swapaxes``. tt and xp have ``torch.matmul(p[:G m].T, dy[:G m])``

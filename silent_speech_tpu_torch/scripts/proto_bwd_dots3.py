@@ -15,11 +15,15 @@ then pk (K, M), from one ``default_rng(0)`` in its loop's order; STEPS
   multiply-adds in the normal form (``bwd_dot_nn``).
 
 The kernels compute every step's product (none is hoisted out of the
-loop); a row's time under its bound would show one that was not. The
-library row is one ``torch.addmm`` with ``alpha=STEPS`` (p.T @ dy or
-pk @ dy, computed once and scaled); one ``torch.matmul`` (p.T @ dy) at
-the same (M, K, N) gives a product's rate beside it. Each row also gives its time a
-step (the JAX script's us/step). Each row is checked and timed as
+loop), on the tensor cores as 3xTF32; a row's time under its bound (at the
+f32 FMAs and 3xTF32 together) would show one that was not. The library row
+is one ``torch.addmm`` with ``alpha=STEPS`` (p.T @ dy or pk @ dy, computed
+once and scaled: 1/STEPS of the work); ``library_ms_same_work`` is one
+``torch.matmul`` of the operands stacked STEPS times (p and dy (STEPS M,
+K) and (STEPS M, N); pk (K, STEPS M)), every step's product as the
+kernels; one ``torch.matmul`` (p.T @ dy) at the same (M, K, N) gives a
+product's rate beside them. Each row also gives its time a step (the JAX
+script's us/step). Each row is checked and timed as
 proto_bwd_dots's (``proto_bwd_dots.dot_row``); the last line is one JSON
 object with the rows. ``vmem_limit_bytes`` has no counterpart on the card.
 On the CPU (``device=cpu``) a run is a check of the code through the plain

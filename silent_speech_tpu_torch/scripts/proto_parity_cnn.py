@@ -42,16 +42,19 @@ ITERS = 30
 TOL = 1e-4  # proto_parity_cnn.py:223 and proto_parity_e2e.py:165, f32
 # H100 SXM peaks (NVIDIA's data sheet, dense, at the 700 W limit), the rate
 # probes' bounds: operations a second by type (an FMA or a multiply-add is
-# two), and HBM bytes a second
-PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+# two), and HBM bytes a second; "f32_3xtf32": f32 work that may run on the
+# FMAs (67 TFLOP/s) and as 3xTF32 on the tensor cores (three TF32 products a
+# multiply-add, 495 / 3) at once, the rate of the backward dots' tt and nn
+PEAK_OPS = {"f32": 67e12, "f32_3xtf32": 67e12 + 495e12 / 3, "bf16": 989e12,
+            "int8": 1979e12}
 PEAK_BYTES_S = 3.35e12
 
 
 def bound_ms(macs: float, nbytes: float, kind: str = "f32"
              ) -> tuple[float, str]:
     """The least time for the work on the card, and what sets it: the
-    larger of 2 * macs over the peak for ``kind`` and the bytes over the
-    memory rate."""
+    larger of 2 * macs over the peak for ``kind`` (a key of PEAK_OPS) and
+    the bytes over the memory rate."""
     t_ops = 2 * macs / PEAK_OPS[kind] * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")

@@ -1,0 +1,295 @@
+"""The tensor-core arithmetic of the backward-dot kernels tt and nn
+(csrc/bwd_dots.cu, ``tc::steps_kernel``), emulated on the CPU.
+
+The kernels form each step's product on m16n8k8 TF32 MMAs as 3xTF32: each
+operand x is split as hi = tf32(x), lo = tf32(x - hi), both rounded to
+nearest with ties away from zero, and each 8-deep slice of a 32-row chunk
+of the contraction adds lo*hi, then hi*lo, then hi*hi into the chunk's f32
+sum, one MMA each; the chunks' sums are added into the step's. The steps'
+sums are added in step order within a group of steps, and the groups'
+partials in group order (the groups sized from the shapes as ``groups()``
+sizes them). Here each MMA's 8 products are formed exactly in float64 and
+added to the f32 sum with one rounding (the card's MMA may truncate
+instead); ``passes=1`` adds hi*hi alone, one TF32 pass.
+
+The emulated kernels are held against the JAX scripts' Pallas kernels
+(``run_tt``, dots2's ``_k_tt``, dots3's ``_k_tt`` and ``_k_nn``, loaded
+from their files and run in interpret mode as tests/test_torch_bwd_dots.py
+runs them) at that file's small shapes, and against both of
+``cuda_bwd_dots.compare``'s bars; one TF32 pass misses the float64 bar
+there and at dots3's full (384, 104, 256) x 512 steps, where it passes
+the bar against the f32 plain version. The kernels themselves are held to
+both bars on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
+
+import functools
+import importlib.util
+import os
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax.experimental import pallas as pl
+
+from silent_speech_tpu_torch.ops import cuda_bwd_dots as bd
+from silent_speech_tpu_torch.scripts import proto_bwd_dots
+from silent_speech_tpu_torch.scripts import proto_parity_cnn as harness
+from tc_emulation import split_tf32, tf32_rna
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REL = 1e-5  # of the largest value, as tests/test_torch_bwd_dots.py
+STEPS3 = 3
+TILE, SLOTS = 128, 132  # the kernels' output tile; one block an SM, 132 SMs
+CHUNK = 32  # contraction rows a chunk
+
+
+def _load(name, interpret_pl=False):
+    spec = importlib.util.spec_from_file_location(
+        f"_jax_bwd_tc_{name}", os.path.join(REPO, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    if interpret_pl:
+        mod.pl = types.SimpleNamespace(**{
+            **{k: getattr(pl, k) for k in dir(pl) if not k.startswith("_")},
+            "pallas_call": functools.partial(pl.pallas_call,
+                                             interpret=True)})
+    return mod
+
+
+@pytest.fixture(scope="module")
+def dots1():
+    return _load("proto_bwd_dots")
+
+
+@pytest.fixture(scope="module")
+def dots2():
+    return _load("proto_bwd_dots2", interpret_pl=True)
+
+
+@pytest.fixture(scope="module")
+def dots3():
+    mod = _load("proto_bwd_dots3", interpret_pl=True)
+    mod.STEPS = STEPS3
+    return mod
+
+
+def _draw(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in shapes]
+
+
+# -------------------------------------------------- the kernel, emulated
+
+
+def step_product(a, b, passes=3):
+    """a (Mo, c) @ b (c, No) as one step of the kernel forms it: chunks of
+    CHUNK contraction rows, each summed from zero in 8-deep slices, a slice
+    adding lo*hi, hi*lo and hi*hi (or hi*hi alone), one rounding an MMA;
+    the chunks' sums added in f32."""
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    pairs = ((al, bh), (ah, bl), (ah, bh)) if passes == 3 else ((ah, bh),)
+    step = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for c0 in range(0, a.shape[1], CHUNK):
+        d = torch.zeros_like(step)
+        for k in range(c0, min(c0 + CHUNK, a.shape[1]), 8):
+            for x, y in pairs:
+                d = (d.double() + x[:, k:k + 8].double()
+                     @ y[k:k + 8].double()).float()
+        step = step + d
+    return step
+
+
+def steps_per_group(Mo, No, steps):
+    """csrc/bwd_dots.cu groups(): one wave of one block an SM."""
+    tiles = -(-Mo // TILE) * -(-No // TILE)
+    g = max(1, min(steps, SLOTS // tiles, 65535))
+    return -(-steps // g)
+
+
+def kernel_tc(kind, a, b, *, m=None, steps=None, passes=3):
+    """tt or nn as the kernel computes it: the step products, added in step
+    order within each group, the groups' partials in group order."""
+    if kind == "tt":
+        G = a.shape[0] // m
+        steps = G if steps is None else steps
+        products = [step_product(a[g * m:g * m + m].T, b[g * m:g * m + m],
+                                 passes) for g in range(min(G, steps))]
+        step = lambda s: products[s % G]  # noqa: E731
+    else:
+        one = step_product(a, b, passes)
+        step = lambda s: one  # noqa: E731
+    per = steps_per_group(a.shape[1] if kind == "tt" else a.shape[0],
+                          b.shape[1], steps)
+    partials = []
+    for s0 in range(0, steps, per):
+        acc = torch.zeros_like(step(0))
+        for s in range(s0, min(steps, s0 + per)):
+            acc = acc + step(s)
+        partials.append(acc)
+    out = partials[0]
+    for p in partials[1:]:
+        out = out + p
+    return out
+
+
+def _close(got, want):
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= REL * np.abs(want).max()
+
+
+def _held_to_both_bars(kind, got, a, b, **kw):
+    """Within both of compare's bars, the float64 one at most a tenth
+    used."""
+    r = bd.compare(kind, got, a, b, **kw)
+    assert r["share_of_bar64"] <= 0.1, r
+    return r
+
+
+SIZES = [(rows, m, K, N) for rows in (64, 40) for m in (8, 16)
+         for K, N in ((16, 8), (24, 24))]
+
+
+# ----------------------------------------- against the Pallas kernels
+
+
+@pytest.mark.parametrize("rows,m,K,N", SIZES)
+def test_tt_tc_matches_run_tt(dots1, rows, m, K, N):
+    p, dy = _draw(rows + m + K, (rows, K), (rows, N))
+    want = np.asarray(dots1.run_tt(jnp.asarray(p.numpy()),
+                                   jnp.asarray(dy.numpy()), m, True))
+    got = kernel_tc("tt", p, dy, m=m)
+    _close(got.numpy(), want)
+    _held_to_both_bars("tt", got, p, dy, m=m)
+
+
+@pytest.mark.parametrize("rows,m", [(64, 8), (64, 16), (40, 16)])
+def test_tt_tc_matches_dots2_k_tt(dots2, rows, m):
+    K, N = 24, 8
+    p, dy = _draw(rows + m, (rows, K), (rows, N))
+    f = dots2._make(dots2._k_tt, p.shape, dy.shape, m, (K, N),
+                    a_follows_grid=True)
+    want = np.asarray(f(jnp.asarray(p.numpy()), jnp.asarray(dy.numpy())))
+    got = kernel_tc("tt", p, dy, m=m)
+    _close(got.numpy(), want)
+    _held_to_both_bars("tt", got, p, dy, m=m)
+
+
+@pytest.mark.parametrize("kind", ["tt", "nn"])
+@pytest.mark.parametrize("M,K,N", [(16, 24, 8), (8, 16, 24)])
+def test_dots3_tc_matches_the_jax_kernel(dots3, kind, M, K, N):
+    p, dy, pk = _draw(M + K + N, (M, K), (M, N), (K, M))
+    if kind == "tt":
+        f = dots3._make(dots3._k_tt, (M, K), (M, N), (K, N))
+        want = np.asarray(f(jnp.asarray(p.numpy()), jnp.asarray(dy.numpy())))
+        a, kw = p, {"m": M, "steps": STEPS3}
+    else:
+        f = dots3._make(dots3._k_nn, (K, M), (M, N), (K, N))
+        want = np.asarray(f(jnp.asarray(pk.numpy()),
+                            jnp.asarray(dy.numpy())))
+        a, kw = pk, {"steps": STEPS3}
+    got = kernel_tc(kind, a, dy, **kw)
+    _close(got.numpy(), want)
+    _held_to_both_bars(kind, got, a, dy, **kw)
+
+
+# ------------------------------------------ the float64 bar, one pass
+
+
+@pytest.mark.parametrize("kind,rows,m,K,N,steps", [
+    ("tt", 64, 8, 16, 8, None), ("tt", 40, 16, 24, 24, None),
+    ("tt", 16, 16, 24, 8, STEPS3), ("nn", 8, 8, 16, 24, STEPS3),
+    ("nn", 24, 24, 104, 130, 7)])
+def test_float64_bar_refuses_one_tf32_pass(kind, rows, m, K, N, steps):
+    """At the small shapes one TF32 pass (emulated in the kernel's order,
+    and cuda_bwd_dots.one_pass) lies over the float64 bar, 3xTF32 within a
+    tenth of it."""
+    p, dy = _draw(rows * K + N, (rows, K), (rows, N))
+    a, b = (p, dy) if kind == "tt" else (p[:m].T.contiguous(), dy[:m])
+    kw = {"m": m, "steps": steps} if kind == "tt" else {"steps": steps}
+    three = bd.measure(kind, kernel_tc(kind, a, b, **kw), a, b, **kw)
+    assert three["share_of_bar64"] <= 0.1, three
+    for one in (kernel_tc(kind, a, b, **kw, passes=1),
+                bd.one_pass(kind, a, b, **kw)):
+        r = bd.measure(kind, one, a, b, **kw)
+        assert r["share_of_bar64"] > 3.0, r
+        with pytest.raises(RuntimeError, match="off the"):
+            bd.compare(kind, one, a, b, **kw)
+
+
+@pytest.mark.parametrize("kind", ["tt", "nn"])
+def test_float64_bar_refuses_one_pass_at_dots3_full_size(kind):
+    """dots3 at (M, K, N) = (384, 104, 256), 512 steps of one product: the
+    bar against the f32 plain version (4 sqrt(n) 2^-24 of the sum of
+    |terms|, n = 196,608) lets one TF32 pass through; the float64 bar
+    refuses it by more than 10x and holds the emulated 3xTF32 kernel
+    within half of it."""
+    M, K, N = 384, 104, 256
+    p, dy, pk = _draw(0, (M, K), (M, N), (K, M))
+    a, kw = (p, {"m": M, "steps": bd.STEPS}) if kind == "tt" else \
+        (pk, {"steps": bd.STEPS})
+    three = bd.measure(kind, kernel_tc(kind, a, dy, **kw), a, dy, **kw)
+    one = bd.measure(kind, bd.one_pass(kind, a, dy, **kw), a, dy, **kw)
+    assert three["share_of_bar"] <= 0.1 and three["share_of_bar64"] <= 0.5
+    assert one["share_of_bar"] <= 1.0, one  # the f32 bar cannot tell
+    assert one["share_of_bar64"] > 10.0, one
+
+
+def test_tf32_round_is_the_kernels_rounding():
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 3 * 2.0 ** -11, 0.0, -3.5, 1e-30, 3e38])
+    x = torch.cat([x, _draw(5, (1000,))[0] * 1e3])
+    assert torch.equal(bd.tf32_round(x), tf32_rna(x))
+
+
+# -------------------------------------------- the yardsticks of the rows
+
+
+@pytest.mark.parametrize("kind,shape,steps,ms,by", [
+    ("tt", (98304, 384, 512, 256), None, 0.1111, "operations"),
+    ("tt", (98304, 384, 256, 512), None, 0.1111, "operations"),
+    ("tt", (98304, 1536, 512, 256), None, 0.1111, "operations"),
+    ("tt", (98304, 3072, 512, 256), None, 0.1111, "operations"),
+    ("tt", (98304, 192, 104, 256), None, 0.04229, "bytes"),
+    ("tt", (384, 384, 512, 256), 512, 0.2222, "operations"),
+    ("nn", (384, 104, 256), 512, 0.04512, "operations"),
+    ("nn", (384, 256, 512), 512, 0.2222, "operations")])
+def test_tc_rows_are_bound_at_the_combined_rate(kind, shape, steps, ms, by):
+    """tt and nn at the f32 FMAs and 3xTF32 together, 67 + 495 / 3 =
+    232 TFLOP/s (xp, nt and base keep the f32 rate)."""
+    k = bd.kind_of(kind)
+    assert k.rate == "f32_3xtf32" and k.route == bd.TENSOR_CORES
+    b_ms, b_by = harness.bound_ms(bd.macs(kind, shape, steps),
+                                  bd.bytes_moved(kind, shape), k.rate)
+    assert b_by == by and abs(b_ms - ms) / ms < 5e-4
+
+
+def test_the_fma_kinds_keep_the_f32_rate():
+    assert bd.TC_KINDS == ("tt", "nn")
+    for kind in ("xp", "nt", "base"):
+        assert bd.kind_of(kind).rate == "f32"
+        assert bd.kind_of(kind).route == "f32 FMAs"
+
+
+@pytest.mark.parametrize("kind", ["tt", "nn"])
+def test_library_same_work_stacks_every_step(kind):
+    """dots3's same-work column: one matmul of the operands stacked steps
+    times, every step's product (the addmm column scales one)."""
+    p, dy = _draw(3, (8, 16), (8, 24))
+    a = p if kind == "tt" else p.T.contiguous()
+    kw = {"m": 8, "steps": 5} if kind == "tt" else {"steps": 5}
+    got = proto_bwd_dots.library_call(kind, a, dy, **kw, same_work=True)()
+    _close(got.numpy(), bd.plain(kind, a, dy, **kw).numpy())
+
+
+def test_the_stopped_kernel_is_the_cards_alone():
+    """bwd_dot_tt_stop times the kernel's parts: no plain version, so a CPU
+    tensor, an unknown stop or rows not of 16 bytes raise."""
+    p, dy = _draw(4, (32, 16), (32, 8))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        bd.bwd_dot_tt_stop(p, dy, 8, "all")
+    with pytest.raises(ValueError, match="unknown stop"):
+        bd.bwd_dot_tt_stop(p, dy, 8, "mma")
+    assert bd.STOPS == ("all", "one_pass", "feed", "ring")

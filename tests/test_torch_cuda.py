@@ -1364,16 +1364,58 @@ def test_bwd_dot_kernels_are_bitwise_repeatable(dev, kind):
 
 
 @pytest.mark.parametrize("kind,K,N,steps,groups", [
-    ("tt", 512, 256, 256, 12),   # 32 tiles: 384 blocks of 396 slots
-    ("nn", 104, 256, 512, 47),   # 8 tiles: 376 blocks, 11 steps a group
+    ("tt", 512, 256, 256, 16),   # 8 128x128 tiles, 1 an SM: 128 of 132
+    ("nn", 104, 256, 512, 64),   # 2 tiles: 66 slots, 8 steps a group
     ("xp", 512, 256, 256, 8),    # 2 blocks an SM: 256 of 264 slots
     ("tt", 128, 192, 4, 4),      # fewer steps than slots: a step a group
     ("tt", 1600, 1600, 5, 1)])   # more tiles than slots: one group
 def test_bwd_dot_groups_fill_one_wave(dev, kind, K, N, steps, groups):
     """csrc/bwd_dots.cu sizes the groups from the shapes alone: at most one
-    wave of the blocks its launch bounds guarantee on 132 SMs."""
+    wave of the blocks its launch bounds guarantee on 132 SMs (tt and nn:
+    one 128 x 128 tile an SM; xp: two 64 x 64)."""
     n = cuda_bwd_dots._scratch(kind, K, N, steps, dev).numel()
     assert n == (0 if groups == 1 else groups * K * N)
+    assert cuda_bwd_dots.plan(kind, K, N, steps).groups == groups
+
+
+@pytest.mark.parametrize("kind,tile,resident", [("tt", 128, 1), ("nn", 128, 1),
+                                                ("xp", 64, 2)])
+def test_bwd_dot_plan_fits_the_card(dev, kind, tile, resident):
+    """The occupancy the groups assume is the card's: tt's and nn's ring
+    (4 stages of 32 contraction rows) leaves one block an SM, xp two."""
+    pl = cuda_bwd_dots.plan(kind, 512, 256, 256)
+    assert (pl.tile_m, pl.tile_n) == (tile, tile)
+    assert pl.resident_per_sm == resident
+    assert pl.tiles * pl.groups <= 132 * resident
+    if kind != "xp":
+        assert (pl.chunk, pl.stages, pl.threads) == (32, 4, 256)
+        assert 128 * 1024 < pl.smem_bytes <= 227 * 1024
+
+
+@pytest.mark.parametrize("stop", cuda_bwd_dots.STOPS)
+def test_bwd_dot_tt_stops_run(dev, stop):
+    """bwd_dot_tt's kernel stopped after each part runs; 'all' is bwd_dot_tt
+    bitwise, 'ring' leaves the sums zero."""
+    p, dy, _ = _bwd_operands("tt", dev, 3000, 384, 104, 256)
+    got = cuda_bwd_dots.bwd_dot_tt_stop(p, dy, 384, stop)
+    torch.cuda.synchronize()
+    if stop == "all":
+        assert torch.equal(got, cuda_bwd_dots.bwd_dot_tt(p, dy, 384))
+    elif stop == "ring":
+        assert not got.any()
+    with pytest.raises(ValueError, match="multiples of 4"):
+        cuda_bwd_dots.bwd_dot_tt_stop(p[:, :103].contiguous(), dy, 384, stop)
+
+
+def test_bwd_dot_tc_kernels_take_unaligned_rows(dev):
+    """tt and nn copy 4 bytes at a time when a row does not start on 16
+    bytes (K or M not a multiple of 4, an offset view): still within both
+    bars."""
+    rng = np.random.default_rng(9)
+    p = cuda_bwd_dots.draw(rng, (260, 67), dev)
+    dy = cuda_bwd_dots.draw(rng, (261, 130), dev)[1:]  # 4-byte offset rows
+    cuda_bwd_dots.check("tt", p, dy, m=65)
+    cuda_bwd_dots.check("nn", p[:65].T.contiguous(), dy[:65], steps=5)
 
 
 def test_bwd_dot_nt_writes_zeros_past_the_tiles(dev):
