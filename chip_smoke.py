@@ -90,20 +90,23 @@ prints no result line):
    its bound fails), and the plain versions' and library calls' times;
 11. the backward-dot probes (silent_speech_tpu_torch/scripts): the tt, xp,
    nt, base and nn kernels against their plain versions at small ragged
-   shapes (rows 100, m 24, K 104, N 130; dots3's form at 7 steps), tt and
-   nn (3xTF32 on the tensor cores) also against the float64 version, tt,
-   base and nn twice on the same full-size inputs (bitwise equal), nt's
-   tail rows exact zeros, one TF32 pass outside the float64 bar at full
-   size (the control), tt's and nn's launch plans; then the main() of
-   proto_bwd_dots, proto_bwd_dots2 and proto_bwd_dots3 at full size, with
-   the launch counts over each, whose rows hold each kernel against its
-   plain version (tt and nn also float64) at the scripts' shapes and give
-   its time, bound (tt and nn at the f32 FMAs and 3xTF32 together; a row
-   above 100% of it fails), and the plain version's and the library
-   call's times (tt and nn also the call that does the same work); tt's
-   mainloop by parts at dots1's K=512 (its stops: one TF32 pass, the
-   fragment feed without MMAs, the cp.async ring alone) beside
-   torch.matmul;
+   shapes (rows 100, m 24, K 104, N 130; dots3's form at 7 steps), tt, xp,
+   base and nn (3xTF32 on the tensor cores) also against the float64
+   version, xp bitwise tt there and at dots2's full shapes, tt, xp, base
+   and nn twice on the same full-size inputs (bitwise equal), nt's tail
+   rows exact zeros, one TF32 pass outside the float64 bar (the control:
+   tt, xp and nn at full size, base at the small shape, where the bar's
+   derivation says it can refuse it), the four kernels' launch plans; then
+   the main() of proto_bwd_dots, proto_bwd_dots2 and proto_bwd_dots3 at
+   full size, with the launch counts over each, whose rows hold each
+   kernel against its plain version (the tensor-core kinds also float64)
+   at the scripts' shapes and give its time, bound (tt, xp, base and nn at
+   the f32 FMAs and 3xTF32 together; a row above 100% of it fails), and
+   the plain version's and the library call's times (the tensor-core
+   kinds also the call that does the same work), and xp / tt at each of
+   dots2's m (the transposing stage's cost); tt's mainloop by parts at
+   dots1's K=512 (its stops: one TF32 pass, the fragment feed without
+   MMAs, the cp.async ring alone) beside torch.matmul;
 12. the CTC family at full width (hidden 192, 3 GRU layers, emb 32, 27
    classes, random weights from the seed; ``check_ctc``): its forward on K1
    and K2 against the plain version at B=64, T=80 (log-probabilities within
@@ -1957,14 +1960,17 @@ def check_bwd_dots(dev) -> dict:
     (TF32 off) at the small ragged shape BWD_SMALL (every kind; tt and nn
     also in dots3's form, one 24-row tile over 7 steps), within 4 sqrt(n)
     2^-24 of each element's sum of |terms| (ops/cuda_bwd_dots.compare; nt's
-    tail rows exact zeros), tt and nn (3xTF32 on the tensor cores) also
-    within compare's float64 bar; tt, nn and base twice on the same
-    full-size inputs, bitwise equal; one TF32 pass (cuda_bwd_dots.one_pass)
-    outside the float64 bar at tt's dots1 and nn's dots3 shapes, the
-    control that the bar tells 3xTF32 from it; tt's and nn's launch plans
-    there. The scripts' rows hold every kernel at the full shapes. Returns
-    {kernel: {max_abs_err, max_share_of_bar[, max_share_of_bar64], plan}};
-    raises on a failure."""
+    tail rows exact zeros), the tensor-core kinds (tt, xp, base, nn: 3xTF32)
+    also within compare's float64 bar; xp bitwise tt at BWD_SMALL and at
+    dots2's full shapes (m 384 and 1536); tt, xp, base and nn twice on the
+    same full-size inputs, bitwise equal; one TF32 pass
+    (cuda_bwd_dots.one_pass) outside the float64 bar, the control that the
+    bar tells 3xTF32 from it, where compare's derivation says it can: tt's
+    and xp's dots2 (= dots1) shape, nn's dots3 shape, base at BWD_SMALL
+    (at its full shape the share is printed, not held); the four kernels'
+    launch plans at the full shapes. The scripts' rows hold every kernel
+    at the full shapes. Returns {kernel: {max_abs_err, max_share_of_bar[,
+    max_share_of_bar64, plan]}}; raises on a failure."""
     from silent_speech_tpu_torch.infer.predictor import full_f32
     from silent_speech_tpu_torch.ops import cuda_bwd_dots as bd
 
@@ -2001,12 +2007,15 @@ def check_bwd_dots(dev) -> dict:
         if not torch.equal(out[rows // m * m:],
                            torch.zeros_like(out[rows // m * m:])):
             fail("bwd_dot_nt: the tail rows past G m are not zeros")
+        small = {"base": (p, w, {"m": m})}
+        xp_is_tt(p, dy, m, "BWD_SMALL")
         p, dy, w = (bd.draw(rng, s, dev) for s in ((bd.ROWS, 512),
                                                     (bd.ROWS, 256),
                                                     (512, 256)))
         pk = p[:384].T.contiguous()
         d3 = dy[:384].contiguous()
-        full = {"tt": (p, dy, {"m": 384}), "base": (p, w, {"m": 384}),
+        full = {"tt": (p, dy, {"m": 384}), "xp": (p, dy, {"m": 384}),
+                "base": (p, w, {"m": 384}),
                 "nn": (pk, d3, {"steps": bd.STEPS})}
         for kind, (a, b, kw) in full.items():
             one, two = bd.run(kind, a, b, **kw), bd.run(kind, a, b, **kw)
@@ -2016,34 +2025,63 @@ def check_bwd_dots(dev) -> dict:
                      "differ")
             print(f"  {BWD_KIND_KERNEL[kind]} {kind} {tuple(a.shape)} x "
                   f"{tuple(b.shape)} {kw}: two launches bitwise equal")
+        for m_full in (384, 1536):
+            xp_is_tt(p, dy, m_full, "dots2's full shape")
         for kind in bd.TC_KINDS:
-            a, b, kw = full[kind]
-            Mo, No = a.shape[1 if kind == "tt" else 0], b.shape[1]
-            pl = bd.plan(kind, Mo, No, kw.get("steps", a.shape[0] // 384))
+            shape = {"tt": (512, 256, bd.ROWS // 384),
+                     "xp": (512, 256, bd.ROWS // 384),
+                     "base": (384, 256, bd.ROWS // 384),
+                     "nn": (512, 256, bd.STEPS)}[kind]
+            pl = bd.plan(kind, *shape)
             errs[BWD_KIND_KERNEL[kind]]["plan"] = pl._asdict()
-            r = bd.measure(kind, bd.one_pass(kind, a, b, **kw), a, b, **kw)
-            print(f"  {BWD_KIND_KERNEL[kind]} {kind} {kw}: {pl}; one TF32 "
-                  f"pass: {r['share_of_bar']:.3f} of the f32 bar, "
-                  f"{r['share_of_bar64']:.3f} of the float64 bar")
-            if not r["share_of_bar64"] > 1.0:
-                fail(f"bwd_dot {kind}: one TF32 pass passes the float64 "
-                     "bar, which then cannot tell it from 3xTF32")
+            print(f"  {BWD_KIND_KERNEL[kind]} {kind} plan at {shape}: {pl}")
             if pl.resident_per_sm < 1:
                 fail(f"bwd_dot {kind}: its block does not fit an SM ({pl})")
+            controls = [("full size", full[kind])] + (
+                [("BWD_SMALL", small[kind])] if kind in small else [])
+            for where, (a, b, kw) in controls:
+                r = bd.measure(kind, bd.one_pass(kind, a, b, **kw), a, b,
+                               **kw)
+                held = kind != "base" or where == "BWD_SMALL"
+                print(f"  {BWD_KIND_KERNEL[kind]} {kind} {where} {kw}: one "
+                      f"TF32 pass {r['share_of_bar']:.3f} of the f32 bar, "
+                      f"{r['share_of_bar64']:.3f} of the float64 bar"
+                      + ("" if held else " (not held: compare's derivation "
+                         "puts it under any bar scaled by the sum of "
+                         "|terms| at this shape)"))
+                if held and not r["share_of_bar64"] > 1.0:
+                    fail(f"bwd_dot {kind} {where}: one TF32 pass passes the "
+                         "float64 bar, which then cannot tell it from "
+                         "3xTF32")
     return errs
+
+
+def xp_is_tt(p: torch.Tensor, dy: torch.Tensor, m: int, where: str) -> None:
+    """bwd_dot_xp(p, dy, m) must be bitwise bwd_dot_tt(p, dy, m): the
+    transpose only moves values; raises otherwise."""
+    from silent_speech_tpu_torch.ops import cuda_bwd_dots as bd
+
+    xp, tt = bd.bwd_dot_xp(p, dy, m), bd.bwd_dot_tt(p, dy, m)
+    torch.cuda.synchronize()
+    if not torch.equal(xp, tt):
+        fail(f"bwd_dot_xp m={m} ({where}) is not bwd_dot_tt bitwise: max "
+             f"difference {(xp - tt).abs().max().item():.3e}")
+    print(f"  bwd_dot_xp {tuple(p.shape)} x {tuple(dy.shape)} m={m} "
+          f"({where}): bitwise bwd_dot_tt")
 
 
 def run_bwd_dot_scripts(card: str) -> tuple[dict, dict]:
     """The three backward-dot scripts at full size (98,304 rows; dots3 512
     steps), RATE_ITERS timed calls a row (each row first holds its kernel's
     output against the plain version and raises over its bar); the launch
-    counts from 0 over each script's run. A row above 100% of its bound
-    fails: the bound is the least time the card can take, so a faster row
-    did less work than the function asks (a product hoisted out of dots3's
-    steps, or base's colsum(p) @ w). Returns ({script: launch counts},
-    {kernel: the kernels line's keys, its rows, its launches over the
-    three runs}); raises if a kernel of a script's path was not
-    launched."""
+    counts from 0 over each script's run; xp / tt at each of dots2's m,
+    the transposing stage's cost (``xp_over_tt`` in xp's rates). A row
+    above 100% of its bound fails: the bound is the least time the card
+    can take, so a faster row did less work than the function asks (a
+    product hoisted out of dots3's steps, or base's colsum(p) @ w).
+    Returns ({script: launch counts}, {kernel: the kernels line's keys, its
+    rows, its launches over the three runs}); raises if a kernel of a
+    script's path was not launched."""
     import importlib
 
     from silent_speech_tpu_torch.ops import _kernels
@@ -2101,6 +2139,13 @@ def run_bwd_dot_scripts(card: str) -> tuple[dict, dict]:
             key = "max_" + k if k == "abs_err" else k
             if key in row:
                 rates[name]["rows_max_" + k] = max(r[key] for r in rows)
+    dots2 = {r["name"]: r["ms"] for r in reports["proto_bwd_dots2"]["rows"]}
+    rates["bwd_dot_xp"]["xp_over_tt"] = {}
+    for m in (384, 1536):
+        xp, tt = dots2[f"xp_m{m}"], dots2[f"tt_m{m}"]
+        rates["bwd_dot_xp"]["xp_over_tt"][str(m)] = xp / tt
+        print(f"  proto_bwd_dots2 m={m}: xp / tt {xp / tt:.4f} (xp - tt "
+              f"{xp - tt:.4f} ms: the transposing stage) {card}")
     return counts, rates
 
 

@@ -22,17 +22,21 @@ TPU grid drops them):
   pk (K, M) @ dy (M, N), every product computed.
 
 ``memory_space=VMEM``, ``vmem_limit_bytes`` and ``interpret`` have no
-counterpart on the card. The steps kernels (tt, nn, xp) split the steps
+counterpart on the card. The steps kernels (tt, xp, nn) split the steps
 into groups of whole tiles, a block an output tile and a group, and add the
-groups' partials in group order: no atomics, two launches on the same
-inputs are bitwise equal. tt and nn form their products on the tensor cores
-as 3xTF32 (m16n8k8 TF32 mma.sync, x = hi + lo, three MMAs a product, f32
-sums; 128 x 128 output tiles fed by a ring of cp.async stages); xp, nt and
-base on the FMAs (64 x 64 tiles). :func:`plan` reports a steps kernel's
-tile and groups (on the card only). ``impl`` as in ``ops._kernels``.
-:data:`KINDS` names the five by kind, each with its wrapper, plain version,
-counts, route and the rate its bound is taken at, for :func:`run`,
-:func:`plain`, :func:`compare` and :func:`check`.
+groups' partials in group order; base's persistent blocks write each
+128-row tile's column sums, added in step order by a second kernel: no
+atomics, two launches on the same inputs are bitwise equal. tt, xp, nn and
+base form their products on the tensor cores as 3xTF32 (m16n8k8 TF32
+mma.sync, x = hi + lo, three MMAs a product, f32 sums; 128 x 128 output
+tiles fed by one mainloop, a ring of cp.async stages); xp is tt with each p
+chunk written transposed into shared memory by a pass of its own (the next
+chunk while the MMAs read this one), so its result is bitwise tt's; nt on
+the FMAs (64 x 64 tiles). :func:`plan`
+reports a kernel's tile and groups (on the card only). ``impl`` as in
+``ops._kernels``. :data:`KINDS` names the five by kind, each with its
+wrapper, plain version, counts, route and the rate its bound is taken at,
+for :func:`run`, :func:`plain`, :func:`compare` and :func:`check`.
 """
 
 from __future__ import annotations
@@ -51,8 +55,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 # the steps kernels (tt, xp, nn) size their groups to one wave of blocks
 # from the shapes alone (csrc/bwd_dots.cu, groups()); bwd_dot_scratch says
-# how many floats of partial sums a launch needs, by its layout number
-_LAYOUT = {"tt": 0, "nn": 1, "xp": 2}
+# how many floats of partial sums a launch needs (base: a row of N a
+# 128-row tile of a step), by its layout number
+_LAYOUT = {"tt": 0, "nn": 1, "xp": 2, "base": 3}
 _STEPS_ARGS = [_P, _P, _P, _P,            # p, dy, out, partial
                _I, _I, _I, _I, _I,        # K, N, m, G, steps
                _P]                        # stream
@@ -116,12 +121,15 @@ def _scratch(kind: str, Mo: int, No: int, steps: int,
 
 
 class Plan(NamedTuple):
-    """A steps kernel's launch at some shapes (csrc/bwd_dots.cu,
+    """A kernel's launch at some shapes (csrc/bwd_dots.cu,
     ``bwd_dot_plan``): the output tile (``tile_m`` x ``tile_n``), the
-    contraction rows a chunk, threads a block, ring stages (xp: 1),
-    dynamic shared memory bytes, output tiles, groups, steps a group, and
-    the blocks an SM holds by the card's occupancy query (the groups assume
-    1 for tt and nn, 2 for xp)."""
+    contraction rows a chunk, threads a block, ring stages (xp: 3 beside
+    its two planes, else 4), dynamic shared memory bytes, output tiles,
+    groups, steps a group, and the blocks an SM holds by the card's
+    occupancy query (the groups assume 1). For base, ``tiles`` counts its
+    items (row tiles of the steps x column tiles), ``groups`` its
+    persistent blocks and ``steps_per_group`` the items a block walks, at
+    most."""
 
     tile_m: int
     tile_n: int
@@ -136,12 +144,11 @@ class Plan(NamedTuple):
 
 
 def plan(kind: str, Mo: int, No: int, steps: int) -> Plan:
-    """The launch of ``kind``'s steps kernel (tt, nn or xp) for Mo x No
-    outputs over ``steps`` steps; builds the kernels, so on the card
-    only."""
+    """The launch of ``kind``'s kernel: tt, nn or xp for Mo x No outputs
+    over ``steps`` steps; base for Mo = m rows a step, No = N columns and
+    steps = G steps. Builds the kernels, so on the card only."""
     if kind not in _LAYOUT:
-        raise ValueError(f"no steps kernel for {kind!r}; one of "
-                         f"{tuple(_LAYOUT)}")
+        raise ValueError(f"no plan for {kind!r}; one of {tuple(_LAYOUT)}")
     fn = _kernels.library().bwd_dot_plan
     fn.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
     fn.restype = _I
@@ -283,7 +290,11 @@ def bwd_dot_tt_stop(p: torch.Tensor, dy: torch.Tensor, m: int, stop: str,
 
 def bwd_dot_xp(p: torch.Tensor, dy: torch.Tensor, m: int, *,
                impl: str = "auto") -> torch.Tensor:
-    """bwd_dot_tt's function (steps = G) through an explicit transpose."""
+    """bwd_dot_tt's function (steps = G) through an explicit transpose:
+    on the card tt's mainloop with each p chunk written transposed into one
+    of two shared-memory planes by a pass of its own while the MMAs read
+    the chunk before it from the other, as nn reads its A stage; the same
+    values in the same MMAs, so bitwise ``bwd_dot_tt(p, dy, m)``."""
     G = _same_rows(p, dy, m)
     if not _kernels.use_kernel(impl, p):
         return bwd_dot_xp_plain(p, dy, m)
@@ -313,7 +324,11 @@ def bwd_dot_nt(dy: torch.Tensor, w: torch.Tensor, m: int, *,
 def bwd_dot_base(p: torch.Tensor, w: torch.Tensor, m: int, *,
                  impl: str = "auto") -> torch.Tensor:
     """p (rows, K), w (K, N) f32 -> (1, N): the column sums of p_g @ w
-    over the tiles, every product computed."""
+    over the tiles, every product computed (never colsum(p) @ w). On the
+    card each 128-row tile of a step times 128 columns of w as 3xTF32 on
+    the tensor cores (K in chunks of 32, each from zero, added in f32),
+    then the tile's column sums in a fixed order; a second kernel adds them
+    in step order."""
     _f32_2d("p", p)
     _f32_2d("w", w)
     if p.shape[1] != w.shape[0]:
@@ -325,8 +340,7 @@ def bwd_dot_base(p: torch.Tensor, w: torch.Tensor, m: int, *,
     _launchable(p, w)
     K, N = w.shape
     out = torch.empty((1, N), dtype=torch.float32, device=p.device)
-    partial = torch.empty((G * -(-m // 64), N), dtype=torch.float32,
-                          device=p.device)  # a row a 64-row tile of p_g
+    partial = _scratch("base", m, N, G, p.device)
     KERNEL_BASE.launch(_kernels.ptr(p), _kernels.ptr(w), _kernels.ptr(out),
                        _kernels.ptr(partial), K, N, m, G,
                        _kernels.stream_ptr(p.device))
@@ -401,14 +415,16 @@ def _tt_bytes(shape):
 KINDS = {
     "tt": Kind(bwd_dot_tt, bwd_dot_tt_plain, _tt_terms, _tt_macs, _tt_bytes,
                TENSOR_CORES, "f32_3xtf32"),
-    "xp": Kind(bwd_dot_xp, bwd_dot_xp_plain, _tt_terms, _tt_macs, _tt_bytes),
+    "xp": Kind(bwd_dot_xp, bwd_dot_xp_plain, _tt_terms, _tt_macs, _tt_bytes,
+               TENSOR_CORES, "f32_3xtf32"),
     "nt": Kind(bwd_dot_nt, bwd_dot_nt_plain,
                lambda a, b, m, steps: a.shape[1], _tt_macs,
                lambda s: 4 * (_gm(s) * s[3] + s[2] * s[3] + s[0] * s[2])),
     "base": Kind(bwd_dot_base, bwd_dot_base_plain,
                  lambda a, b, m, steps: a.shape[0] // m * m * a.shape[1],
                  _tt_macs,
-                 lambda s: 4 * (_gm(s) * s[2] + s[2] * s[3] + s[3])),
+                 lambda s: 4 * (_gm(s) * s[2] + s[2] * s[3] + s[3]),
+                 TENSOR_CORES, "f32_3xtf32"),
     "nn": Kind(bwd_dot_nn, bwd_dot_nn_plain,
                lambda a, b, m, steps: _or(steps, STEPS) * a.shape[1],
                lambda s, steps: _or(steps, STEPS) * s[0] * s[1] * s[2],
@@ -461,8 +477,8 @@ def bytes_moved(kind: str, shape: tuple) -> int:
 # 2^-24 of it; the bar is 4 times that (ops/cuda_mm_rate.BAR_DEPTH). n: tt
 # and xp steps m, nt N, base G m K, nn steps M.
 BAR_DEPTH = 4
-# tt and nn against the float64 version: 2^-24 (BAR64_TERMS A + steps / 2
-# |value|), derived in compare()
+# the tensor-core kinds (tt, xp, base, nn) against the float64 version:
+# 2^-24 (BAR64_TERMS A + steps / 2 |value|), derived in compare()
 BAR64_TERMS = 32
 TC_KINDS = tuple(k for k, v in KINDS.items() if v.route == TENSOR_CORES)
 
@@ -470,11 +486,18 @@ TC_KINDS = tuple(k for k, v in KINDS.items() if v.route == TENSOR_CORES)
 def reference64(kind: str, a: torch.Tensor, b: torch.Tensor, *,
                 m: Optional[int] = None, steps: Optional[int] = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tt's or nn's function on (a, b) in float64, step by step, and each
-    element's sum of |terms| (the same on |a|, |b|)."""
-    if kind == "tt":
+    """The function of a tensor-core kind on (a, b) in float64, step by
+    step, and each element's sum of |terms| (the same on |a|, |b|): tt's
+    and xp's sum of p_g^T dy_g, base's column sums of p_g @ w in tile
+    order, nn's sum of pk @ dy."""
+    if kind in ("tt", "xp"):
         G = _same_rows(a, b, m)
         steps, product = _or(steps, G), lambda x, y, r: x[r].T @ y[r]
+    elif kind == "base":
+        _f32_2d("p", a)
+        _f32_2d("w", b)
+        G = _tiles(a.shape[0], m)
+        steps, product = G, lambda x, y, r: (x[r] @ y).sum(0, keepdim=True)
     elif kind == "nn":
         steps = _or(steps, STEPS)
         _nn_operands(a, b, steps)
@@ -497,9 +520,10 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
 def one_pass(kind: str, a: torch.Tensor, b: torch.Tensor, *,
              m: Optional[int] = None, steps: Optional[int] = None
              ) -> torch.Tensor:
-    """tt's or nn's function as one TF32 pass forms it, in f32: the
-    operands rounded to TF32, their products exact and summed in float64.
-    The control that :func:`compare`'s float64 bar must refuse."""
+    """A tensor-core kind's function as one TF32 pass forms it, in f32:
+    the operands rounded to TF32, their products exact and summed in
+    float64. The control that :func:`compare`'s float64 bar must refuse
+    where its derivation says it can."""
     return reference64(kind, tf32_round(a), tf32_round(b), m=m,
                        steps=steps)[0].float()
 
@@ -508,8 +532,8 @@ def measure(kind: str, got: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             *, m: Optional[int] = None, steps: Optional[int] = None
             ) -> dict:
     """:func:`compare`'s figures without its verdict: the largest
-    difference from the plain version and its share of the bar; for tt and
-    nn also from the float64 version (``max_abs_err64``,
+    difference from the plain version and its share of the bar; for the
+    tensor-core kinds also from the float64 version (``max_abs_err64``,
     ``share_of_bar64``). Raises on a wrong shape only."""
     want = plain(kind, a, b, m=m, steps=steps)
     if got.shape != want.shape:
@@ -538,13 +562,14 @@ def _shares(got, want, bar, tag: str) -> dict:
 
 def compare(kind: str, got: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
             *, m: Optional[int] = None, steps: Optional[int] = None) -> dict:
-    """A result of ``kind`` against the plain version on (a, b), and tt's
-    and nn's also against the float64 version: the figures of
+    """A result of ``kind`` against the plain version on (a, b), and the
+    tensor-core kinds' also against the float64 version: the figures of
     :func:`measure`; raises over either bar (nt's tail rows, whose sums of
     |terms| are 0, must be exact zeros).
 
     The float64 bar, for the kernels that form their products as 3xTF32
-    (tt, nn): with ref the float64 value and A the element's sum of |terms|
+    (tt, xp, base, nn): with ref the float64 value and A the element's sum
+    of |terms|
     (:func:`reference64`), |got - ref| <= 2^-24 (32 A + steps / 2 |ref|).
     3xTF32 forms a b as ah bh + ah bl + al bh from x = hi + lo, each part
     rounded to TF32: the dropped al bl and the lo parts' roundings leave at
@@ -563,7 +588,34 @@ def compare(kind: str, got: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     does the step's error (dots3, 512 steps of 384 rows: 395 2^-24 A a
     standard deviation); at the tests' n <= 64, over 960. The bar against
     the f32 plain version, 4 sqrt(n) 2^-24 A (1,254-1,774 2^-24 A at the
-    full shapes), lets one pass through at every full shape."""
+    full shapes), lets one pass through at every full shape.
+
+    xp forms tt's function in tt's arithmetic (bitwise tt's result): tt's
+    bar and control. base: each row product y = p_r w (one element: K
+    terms) is formed as a K-row step of tt (32-row chunks from zero on the
+    MMAs, added in f32), within tt's 32 A_y of it (A_y its sum of |terms|;
+    the A_y add up to A). The y are then added over the G m rows: a
+    thread's 8 rows of a tile, 3 shuffles, the two warps along M, then the
+    reduction's tps = ceil(m / 128) tiles of a step, a run of ceil(G / 256)
+    steps and a tree of 8 levels: D = 20 + tps + ceil(G / 256) adds at most
+    a value (24 / 33 at dots2's m 384 / 1536, 22 at the tests' shapes),
+    each within 2^-24 of a partial sum of the y, at most Y = the sum of
+    |y| (a first-order bound: D 2^-24 Y in all). The y cancel: with the
+    scripts' standard normal operands |y| is about 0.8 sqrt(K) and a
+    term's |.| 0.64, so Y is about 1.25 A / sqrt(K): D Y is 1.3-1.8 A at
+    K = 512, 5.6-6.9 A at the tests' K of 16-24, inside 32 A with room
+    (operands of one sign, Y = A, could reach D 2^-24 A if every rounding
+    went one way; random roundings give about sqrt(D) 2^-24 A). So base
+    keeps the bar, steps = G. The control at base's shapes: TF32 rounds p
+    and w, each about 2^-12.3 off (rms); p's roundings give 2.0e-4 sqrt(n)
+    of error (rms, n = G m K), and w's as much (w[k, n] multiplies the
+    column sum of p, about sqrt(G m)): 2.9e-4 sqrt(n), against 32 A = 20.4
+    n 2^-24, a share of 237 / sqrt(n) a standard deviation. At dots2's
+    n = 50.3 M that is 0.033: no bar scaled by A can refuse one pass there
+    (|ref| is about sqrt(n), A about 0.64 n), and none is run there. At
+    chip_smoke's BWD_SMALL (n = 9,984) it is 2.4, the largest of 130
+    elements about 3 standard deviations; at the tests' n <= 1,536, 6 or
+    more: the control is run at those shapes."""
     r = measure(kind, got, a, b, m=m, steps=steps)
     for tag, what in (("", "plain"), ("64", "float64")):
         share = r.get("share_of_bar" + tag, 0.0)
@@ -578,8 +630,8 @@ def compare(kind: str, got: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 def check(kind: str, a: torch.Tensor, b: torch.Tensor, *,
           m: Optional[int] = None, steps: Optional[int] = None) -> dict:
     """The kernel against the plain version on a's device (TF32 off is the
-    caller's), and tt and nn against the float64 version, through
-    :func:`compare`."""
+    caller's), and the tensor-core kinds against the float64 version,
+    through :func:`compare`."""
     return compare(kind, run(kind, a, b, m=m, steps=steps, impl="kernel"),
                    a, b, m=m, steps=steps)
 

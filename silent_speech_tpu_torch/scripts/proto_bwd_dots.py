@@ -61,14 +61,16 @@ def library_call(kind: str, a: torch.Tensor, b: torch.Tensor, *,
     library columns (timed beside the kernel; nothing in the port calls
     it): tt and xp ``a[:G m].T @ b[:G m]``; nt ``a[:G m] @ b.T`` (without
     nt's zero tail rows); base ``einsum('rk,kn->n')`` over the G m rows
-    (the library sums the rows first, 1/N of base's multiply-adds). tt over
-    ``steps`` steps of one tile and nn (dots3): ``addmm`` with
-    ``alpha=steps``, which computes the product once and scales it, 1/steps
-    of the multiply-adds; with ``same_work``, ``torch.matmul`` of the
-    operands stacked ``steps`` times along the contraction (tt: a and b
-    (steps M, K) and (steps M, N); nn: a (K, steps M), b (steps M, N)),
-    stacked here, before the call: every step's product, as the kernel.
-    The other kinds' call already does their work."""
+    (the library sums the rows first, 1/N of base's multiply-adds), with
+    ``same_work`` ``torch.matmul(a[:G m], b)``, every product without the
+    column sums. tt over ``steps`` steps of one tile and nn (dots3):
+    ``addmm`` with ``alpha=steps``, which computes the product once and
+    scales it, 1/steps of the multiply-adds; with ``same_work``,
+    ``torch.matmul`` of the operands stacked ``steps`` times along the
+    contraction (tt: a and b (steps M, K) and (steps M, N); nn: a (K, steps
+    M), b (steps M, N)), stacked here, before the call: every step's
+    product, as the kernel. The other kinds' call already does their
+    work."""
     if kind == "nn":
         if same_work:
             A, B = a.repeat(1, steps), b.repeat(steps, 1)
@@ -89,6 +91,8 @@ def library_call(kind: str, a: torch.Tensor, b: torch.Tensor, *,
     if kind == "nt":
         return lambda: torch.matmul(a[:Gm], b.T)
     if kind == "base":
+        if same_work:
+            return lambda: torch.matmul(a[:Gm], b)
         return lambda: torch.einsum("rk,kn->n", a[:Gm], b)
     raise ValueError(f"unknown kind {kind!r}")
 
@@ -98,12 +102,13 @@ def dot_row(name: str, kind: str, a: torch.Tensor, b: torch.Tensor,
             steps: Optional[int] = None,
             one_matmul: Optional[tuple[Callable, int]] = None) -> dict:
     """One row: ``kind`` on (a, b) (keywords as ``cuda_bwd_dots.run``),
-    checked against its plain version on the card (tt and nn also against
-    the float64 version, ``cuda_bwd_dots.compare``), then timed beside its
-    bound (at the rate of the kind's route, ``Kind.rate``), its plain
-    version and :func:`library_call`; tt and nn also beside the library
-    call that does the same work (``library_ms_same_work``: dots3's
-    stacked product; dots1's and dots2's library call itself);
+    checked against its plain version on the card (the tensor-core kinds
+    also against the float64 version, ``cuda_bwd_dots.compare``), then
+    timed beside its bound (at the rate of the kind's route,
+    ``Kind.rate``), its plain version and :func:`library_call`; the
+    tensor-core kinds also beside the library call that does the same work
+    (``library_ms_same_work``: dots3's stacked product, base's
+    ``torch.matmul(p, w)``; tt's and xp's library call itself);
     ``one_matmul`` (a call and its multiply-adds), where given, is one
     product's rate beside it."""
     kw = {"m": m, "steps": steps}
@@ -126,7 +131,7 @@ def dot_row(name: str, kind: str, a: torch.Tensor, b: torch.Tensor,
     if kind in bd.TC_KINDS:
         r.update({k64: checked.get(k64) for k64 in ("max_abs_err64",
                                                      "share_of_bar64")})
-        if kind == "nn" or steps is not None:
+        if kind in ("nn", "base") or steps is not None:
             r["library_ms_same_work"] = harness.timed_ms(
                 library_call(kind, a, b, **kw, same_work=True), args)
             lib += f" (the same work: {r['library_ms_same_work']:.4f} ms)"

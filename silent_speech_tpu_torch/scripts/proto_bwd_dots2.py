@@ -11,14 +11,20 @@ csrc/bwd_dots.cu):
 - ``base`` (m 384, 1536): the column sums of p_g @ w, added over the
   tiles (``bwd_dot_base``): the same multiply-adds as tt in the normal
   form. Its library row is ``torch.einsum('rk,kn->n', p[:G m], w)``, which
-  sums the rows before the product (1/N of the multiply-adds); one
-  ``torch.matmul(p, w)`` gives a product's rate beside it;
-- ``tt`` (m 384, 1536, 3072): the sum of p_g^T dy_g (``bwd_dot_tt``, 3xTF32
-  on the tensor cores: its bound at the f32 FMAs and 3xTF32 together);
+  sums the rows before the product (1/N of the multiply-adds); the same
+  work is one ``torch.matmul(p, w)`` (``library_ms_same_work``, also
+  given as a product's rate);
+- ``tt`` (m 384, 1536, 3072): the sum of p_g^T dy_g (``bwd_dot_tt``);
 - ``xp`` (m 384, 1536): tt's function through an explicit transpose of
   each p chunk into shared memory (``bwd_dot_xp``), the card's
-  ``jnp.swapaxes``. tt and xp have ``torch.matmul(p[:G m].T, dy[:G m])``
-  as their library row.
+  ``jnp.swapaxes``; bitwise tt's result. tt and xp have
+  ``torch.matmul(p[:G m].T, dy[:G m])`` as their library row.
+
+All three form their products as 3xTF32 on the tensor cores, on one
+mainloop (ops/cuda_bwd_dots.py), so their rows compare layouts on one
+route: xp - tt is the transposing stage's cost, base's the normal form's
+with a column-sum epilogue; each row is bound at the f32 FMAs and 3xTF32
+together.
 
 ``vmem_limit_bytes`` has no counterpart on the card. Each row is checked
 and timed as proto_bwd_dots's (``proto_bwd_dots.dot_row``); the last line

@@ -1,5 +1,6 @@
-"""The tensor-core arithmetic of the backward-dot kernels tt and nn
-(csrc/bwd_dots.cu, ``tc::steps_kernel``), emulated on the CPU.
+"""The tensor-core arithmetic of the backward-dot kernels tt, xp, nn and
+base (csrc/bwd_dots.cu, ``tc::steps_kernel`` and ``tc::base_kernel``),
+emulated on the CPU.
 
 The kernels form each step's product on m16n8k8 TF32 MMAs as 3xTF32: each
 operand x is split as hi = tf32(x), lo = tf32(x - hi), both rounded to
@@ -10,16 +11,22 @@ sums are added in step order within a group of steps, and the groups'
 partials in group order (the groups sized from the shapes as ``groups()``
 sizes them). Here each MMA's 8 products are formed exactly in float64 and
 added to the f32 sum with one rounding (the card's MMA may truncate
-instead); ``passes=1`` adds hi*hi alone, one TF32 pass.
+instead); ``passes=1`` adds hi*hi alone, one TF32 pass. xp is tt's
+arithmetic (its transpose only moves values): the same emulation. base
+forms each 128-row tile of a step times w as one K-deep step of the same
+arithmetic, then takes the tile's column sums in the kernel's order and
+adds them in step order as its second kernel does.
 
 The emulated kernels are held against the JAX scripts' Pallas kernels
-(``run_tt``, dots2's ``_k_tt``, dots3's ``_k_tt`` and ``_k_nn``, loaded
-from their files and run in interpret mode as tests/test_torch_bwd_dots.py
-runs them) at that file's small shapes, and against both of
-``cuda_bwd_dots.compare``'s bars; one TF32 pass misses the float64 bar
-there and at dots3's full (384, 104, 256) x 512 steps, where it passes
-the bar against the f32 plain version. The kernels themselves are held to
-both bars on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
+(``run_tt``, dots2's ``_k_tt``, ``_k_xp`` and ``_k_base``, dots3's
+``_k_tt`` and ``_k_nn``, loaded from their files and run in interpret mode
+as tests/test_torch_bwd_dots.py runs them) at that file's small shapes,
+and against both of ``cuda_bwd_dots.compare``'s bars; one TF32 pass misses
+the float64 bar there and at dots3's full (384, 104, 256) x 512 steps,
+where it passes the bar against the f32 plain version; at base's large n
+no bar scaled by the sum of |terms| can refuse it (compare's docstring).
+The kernels themselves are held to both bars on the card
+(tests/test_torch_cuda.py, chip_smoke.py)."""
 
 import functools
 import importlib.util
@@ -109,10 +116,61 @@ def steps_per_group(Mo, No, steps):
     return -(-steps // g)
 
 
+def column_sums_tc(y):
+    """The column sums of a 128-row tile y (128, N) in base's order
+    (csrc/bwd_dots.cu ``column_sums``): a thread's 8 rows of a column (m16
+    tile mt, then its two 8-row halves), the warp's 8 row groups by a
+    butterfly of shuffles (each pair adds the same two values), then the
+    two warps along M."""
+    Y = y.view(2, 4, 2, 8, -1)  # [warp along M, mt, half, row group, col]
+    s = Y[:, 0, 0]
+    for mt in range(4):
+        for h in range(2):
+            if mt or h:
+                s = s + Y[:, mt, h]
+    for d in (1, 2, 4):  # lane ^ 4, ^ 8, ^ 16: row group g ^ 1, ^ 2, ^ 4
+        s = s + s[:, torch.arange(8) ^ d]
+    return s[0, 0] + s[1, 0]
+
+
+def kernel_base_tc(p, w, m, passes=3):
+    """base as the kernel computes it: each 128-row tile of a step (rows
+    past the step's end zeros) times w as one K-deep step, its column sums
+    in the kernel's order; then the reduction's order: a step's tiles,
+    thread j's run of ceil(G / 256) steps, a tree of 8 levels."""
+    G, tps, N = p.shape[0] // m, -(-m // TILE), w.shape[1]
+    partial = []
+    for g in range(G):
+        for t in range(tps):
+            r0 = g * m + t * TILE
+            r1 = min(r0 + TILE, g * m + m)
+            tile = torch.zeros((TILE, p.shape[1]))
+            tile[:r1 - r0] = p[r0:r1]
+            partial.append(column_sums_tc(step_product(tile, w, passes)))
+    per = -(-G // 256)
+    run = torch.zeros((256, N))
+    for j in range(256):
+        v = torch.zeros(N)
+        for g in range(j * per, min(G, j * per + per)):
+            step = torch.zeros(N)
+            for t in range(tps):
+                step = step + partial[g * tps + t]
+            v = v + step
+        run[j] = v
+    half = 128
+    while half:
+        run[:half] = run[:half] + run[half:2 * half]
+        half //= 2
+    return run[:1]
+
+
 def kernel_tc(kind, a, b, *, m=None, steps=None, passes=3):
-    """tt or nn as the kernel computes it: the step products, added in step
-    order within each group, the groups' partials in group order."""
-    if kind == "tt":
+    """tt, xp (tt's arithmetic) or nn as the kernel computes it: the step
+    products, added in step order within each group, the groups' partials
+    in group order; base by :func:`kernel_base_tc`."""
+    if kind == "base":
+        return kernel_base_tc(a, b, m, passes)
+    if kind in ("tt", "xp"):
         G = a.shape[0] // m
         steps = G if steps is None else steps
         products = [step_product(a[g * m:g * m + m].T, b[g * m:g * m + m],
@@ -121,7 +179,7 @@ def kernel_tc(kind, a, b, *, m=None, steps=None, passes=3):
     else:
         one = step_product(a, b, passes)
         step = lambda s: one  # noqa: E731
-    per = steps_per_group(a.shape[1] if kind == "tt" else a.shape[0],
+    per = steps_per_group(a.shape[0] if kind == "nn" else a.shape[1],
                           b.shape[1], steps)
     partials = []
     for s0 in range(0, steps, per):
@@ -177,6 +235,34 @@ def test_tt_tc_matches_dots2_k_tt(dots2, rows, m):
     _held_to_both_bars("tt", got, p, dy, m=m)
 
 
+@pytest.mark.parametrize("rows,m", [(64, 8), (64, 16), (40, 16)])
+def test_xp_tc_matches_dots2_k_xp(dots2, rows, m):
+    K, N = 24, 8
+    p, dy = _draw(rows + m, (rows, K), (rows, N))
+    f = dots2._make(dots2._k_xp, p.shape, dy.shape, m, (K, N),
+                    a_follows_grid=True)
+    want = np.asarray(f(jnp.asarray(p.numpy()), jnp.asarray(dy.numpy())))
+    got = kernel_tc("xp", p, dy, m=m)
+    _close(got.numpy(), want)
+    _held_to_both_bars("xp", got, p, dy, m=m)
+
+
+@pytest.mark.parametrize("rows,m,K,N", [(64, 8, 24, 8), (64, 16, 24, 8),
+                                        (40, 16, 24, 8), (400, 200, 16, 8),
+                                        (300, 130, 16, 136)])
+def test_base_tc_matches_dots2_k_base(dots2, rows, m, K, N):
+    """base's emulation, 128-row tiles of the steps (m 130 and 200: two
+    tiles a step, the second ragged; N 136: two column tiles) against
+    dots2's ``_k_base``."""
+    p, w = _draw(rows + m + K, (rows, K), (K, N))
+    f = dots2._make(dots2._k_base, p.shape, w.shape, m, (1, N),
+                    a_follows_grid=False)
+    want = np.asarray(f(jnp.asarray(p.numpy()), jnp.asarray(w.numpy())))
+    got = kernel_tc("base", p, w, m=m)
+    _close(got.numpy(), want)
+    _held_to_both_bars("base", got, p, w, m=m)
+
+
 @pytest.mark.parametrize("kind", ["tt", "nn"])
 @pytest.mark.parametrize("M,K,N", [(16, 24, 8), (8, 16, 24)])
 def test_dots3_tc_matches_the_jax_kernel(dots3, kind, M, K, N):
@@ -201,14 +287,22 @@ def test_dots3_tc_matches_the_jax_kernel(dots3, kind, M, K, N):
 @pytest.mark.parametrize("kind,rows,m,K,N,steps", [
     ("tt", 64, 8, 16, 8, None), ("tt", 40, 16, 24, 24, None),
     ("tt", 16, 16, 24, 8, STEPS3), ("nn", 8, 8, 16, 24, STEPS3),
-    ("nn", 24, 24, 104, 130, 7)])
+    ("nn", 24, 24, 104, 130, 7), ("xp", 64, 8, 16, 8, None),
+    ("xp", 40, 16, 24, 24, None), ("base", 64, 8, 16, 8, None),
+    ("base", 40, 16, 24, 24, None), ("base", 100, 24, 104, 130, None)])
 def test_float64_bar_refuses_one_tf32_pass(kind, rows, m, K, N, steps):
     """At the small shapes one TF32 pass (emulated in the kernel's order,
     and cuda_bwd_dots.one_pass) lies over the float64 bar, 3xTF32 within a
-    tenth of it."""
+    tenth of it (base also at chip_smoke's BWD_SMALL, n = 9,984 terms an
+    element, where by compare's derivation a standard deviation of one
+    pass's error is 2.4 times the bar)."""
     p, dy = _draw(rows * K + N, (rows, K), (rows, N))
-    a, b = (p, dy) if kind == "tt" else (p[:m].T.contiguous(), dy[:m])
-    kw = {"m": m, "steps": steps} if kind == "tt" else {"steps": steps}
+    if kind in ("tt", "xp"):
+        a, b, kw = p, dy, {"m": m, "steps": steps}
+    elif kind == "nn":
+        a, b, kw = p[:m].T.contiguous(), dy[:m], {"steps": steps}
+    else:
+        a, b, kw = p, _draw(K * N, (K, N))[0], {"m": m}
     three = bd.measure(kind, kernel_tc(kind, a, b, **kw), a, b, **kw)
     assert three["share_of_bar64"] <= 0.1, three
     for one in (kernel_tc(kind, a, b, **kw, passes=1),
@@ -217,6 +311,20 @@ def test_float64_bar_refuses_one_tf32_pass(kind, rows, m, K, N, steps):
         assert r["share_of_bar64"] > 3.0, r
         with pytest.raises(RuntimeError, match="off the"):
             bd.compare(kind, one, a, b, **kw)
+
+
+def test_float64_bar_cannot_refuse_base_one_pass_at_large_n():
+    """compare's derivation: at n terms an element one TF32 pass of base
+    lies 237 / sqrt(n) of the float64 bar off a standard deviation, so at
+    n = 1,048,576 (4,096 rows of K = 256, m 512: four 128-row tiles a step)
+    it passes the bar, as it would at dots2's n = 50.3 M; the emulated
+    3xTF32 kernel stays within a tenth of it there too."""
+    rows, m, K, N = 4096, 512, 256, 8
+    p, w = _draw(21, (rows, K), (K, N))
+    three = bd.measure("base", kernel_tc("base", p, w, m=m), p, w, m=m)
+    one = bd.measure("base", bd.one_pass("base", p, w, m=m), p, w, m=m)
+    assert three["share_of_bar"] <= 0.1 and three["share_of_bar64"] <= 0.1
+    assert one["share_of_bar64"] < 1.0, one
 
 
 @pytest.mark.parametrize("kind", ["tt", "nn"])
@@ -255,10 +363,14 @@ def test_tf32_round_is_the_kernels_rounding():
     ("tt", (98304, 192, 104, 256), None, 0.04229, "bytes"),
     ("tt", (384, 384, 512, 256), 512, 0.2222, "operations"),
     ("nn", (384, 104, 256), 512, 0.04512, "operations"),
-    ("nn", (384, 256, 512), 512, 0.2222, "operations")])
+    ("nn", (384, 256, 512), 512, 0.2222, "operations"),
+    ("xp", (98304, 384, 512, 256), None, 0.1111, "operations"),
+    ("xp", (98304, 1536, 512, 256), None, 0.1111, "operations"),
+    ("base", (98304, 384, 512, 256), None, 0.1111, "operations"),
+    ("base", (98304, 1536, 512, 256), None, 0.1111, "operations")])
 def test_tc_rows_are_bound_at_the_combined_rate(kind, shape, steps, ms, by):
-    """tt and nn at the f32 FMAs and 3xTF32 together, 67 + 495 / 3 =
-    232 TFLOP/s (xp, nt and base keep the f32 rate)."""
+    """tt, xp, base and nn at the f32 FMAs and 3xTF32 together, 67 + 495 /
+    3 = 232 TFLOP/s (nt keeps the f32 rate)."""
     k = bd.kind_of(kind)
     assert k.rate == "f32_3xtf32" and k.route == bd.TENSOR_CORES
     b_ms, b_by = harness.bound_ms(bd.macs(kind, shape, steps),
@@ -267,10 +379,9 @@ def test_tc_rows_are_bound_at_the_combined_rate(kind, shape, steps, ms, by):
 
 
 def test_the_fma_kinds_keep_the_f32_rate():
-    assert bd.TC_KINDS == ("tt", "nn")
-    for kind in ("xp", "nt", "base"):
-        assert bd.kind_of(kind).rate == "f32"
-        assert bd.kind_of(kind).route == "f32 FMAs"
+    assert bd.TC_KINDS == ("tt", "xp", "base", "nn")
+    assert bd.kind_of("nt").rate == "f32"
+    assert bd.kind_of("nt").route == "f32 FMAs"
 
 
 @pytest.mark.parametrize("kind", ["tt", "nn"])
@@ -282,6 +393,17 @@ def test_library_same_work_stacks_every_step(kind):
     kw = {"m": 8, "steps": 5} if kind == "tt" else {"steps": 5}
     got = proto_bwd_dots.library_call(kind, a, dy, **kw, same_work=True)()
     _close(got.numpy(), bd.plain(kind, a, dy, **kw).numpy())
+
+
+def test_library_same_work_of_base_is_every_product():
+    """base's same-work column: ``torch.matmul(p[:G m], w)``, every
+    product without the column sums, whose sums are base's function; the
+    library column's einsum sums the rows first."""
+    p, w = _draw(6, (40, 16), (16, 24))
+    y = proto_bwd_dots.library_call("base", p, w, m=16, same_work=True)()
+    assert y.shape == (32, 24)
+    _close(y.sum(0, keepdim=True).numpy(),
+           bd.plain("base", p, w, m=16).numpy())
 
 
 def test_the_stopped_kernel_is_the_cards_alone():

@@ -1366,30 +1366,78 @@ def test_bwd_dot_kernels_are_bitwise_repeatable(dev, kind):
 @pytest.mark.parametrize("kind,K,N,steps,groups", [
     ("tt", 512, 256, 256, 16),   # 8 128x128 tiles, 1 an SM: 128 of 132
     ("nn", 104, 256, 512, 64),   # 2 tiles: 66 slots, 8 steps a group
-    ("xp", 512, 256, 256, 8),    # 2 blocks an SM: 256 of 264 slots
+    ("xp", 512, 256, 256, 16),   # tt's tile and groups
     ("tt", 128, 192, 4, 4),      # fewer steps than slots: a step a group
     ("tt", 1600, 1600, 5, 1)])   # more tiles than slots: one group
 def test_bwd_dot_groups_fill_one_wave(dev, kind, K, N, steps, groups):
     """csrc/bwd_dots.cu sizes the groups from the shapes alone: at most one
-    wave of the blocks its launch bounds guarantee on 132 SMs (tt and nn:
-    one 128 x 128 tile an SM; xp: two 64 x 64)."""
+    wave of the blocks its launch bounds guarantee on 132 SMs (tt, xp and
+    nn: one 128 x 128 tile an SM)."""
     n = cuda_bwd_dots._scratch(kind, K, N, steps, dev).numel()
     assert n == (0 if groups == 1 else groups * K * N)
     assert cuda_bwd_dots.plan(kind, K, N, steps).groups == groups
 
 
 @pytest.mark.parametrize("kind,tile,resident", [("tt", 128, 1), ("nn", 128, 1),
-                                                ("xp", 64, 2)])
+                                                ("xp", 128, 1)])
 def test_bwd_dot_plan_fits_the_card(dev, kind, tile, resident):
-    """The occupancy the groups assume is the card's: tt's and nn's ring
-    (4 stages of 32 contraction rows) leaves one block an SM, xp two."""
+    """The occupancy the groups assume is the card's: the ring (4 stages
+    of 32 contraction rows; xp's 3 and its two transposed planes) leaves
+    one block an SM."""
     pl = cuda_bwd_dots.plan(kind, 512, 256, 256)
     assert (pl.tile_m, pl.tile_n) == (tile, tile)
     assert pl.resident_per_sm == resident
     assert pl.tiles * pl.groups <= 132 * resident
-    if kind != "xp":
-        assert (pl.chunk, pl.stages, pl.threads) == (32, 4, 256)
-        assert 128 * 1024 < pl.smem_bytes <= 227 * 1024
+    assert (pl.chunk, pl.threads) == (32, 256)
+    assert pl.stages == (3 if kind == "xp" else 4)
+    assert 128 * 1024 < pl.smem_bytes <= 227 * 1024
+
+
+@pytest.mark.parametrize("m,N,G,items", [(384, 256, 256, 1536),
+                                         (1536, 256, 64, 1536),
+                                         (24, 130, 4, 8), (1, 1, 1, 1)])
+def test_bwd_dot_base_plan_is_one_persistent_wave(dev, m, N, G, items):
+    """base's items are the steps' 128-row tiles by 128-column tiles; at
+    most one persistent block an SM walks them, and one fits an SM."""
+    pl = cuda_bwd_dots.plan("base", m, N, G)
+    assert (pl.tile_m, pl.tile_n, pl.chunk, pl.stages) == (128, 128, 32, 4)
+    assert pl.tiles == items and pl.groups == min(items, 132)
+    assert pl.steps_per_group == -(-items // pl.groups)
+    assert pl.resident_per_sm == 1
+    assert pl.smem_bytes <= 227 * 1024
+
+
+@pytest.mark.parametrize("rows,m,K,N", [(100, 24, 104, 130), (1, 1, 1, 1),
+                                        (300, 37, 65, 63), (3000, 384, 104,
+                                                            256),
+                                        (98304, 384, 512, 256),
+                                        (98304, 1536, 512, 256)])
+def test_bwd_dot_xp_is_tt_bitwise(dev, rows, m, K, N):
+    """xp's transpose only moves values into the plane its fragments are
+    read from: the same MMAs on the same values as tt, so the same bits,
+    ragged (K, N not multiples of 4: 4-byte copies) and at dots2's full
+    shapes."""
+    p, dy, kw = _bwd_operands("xp", dev, rows, m, K, N)
+    before = BWD_KERNELS["xp"].launches
+    xp = cuda_bwd_dots.bwd_dot_xp(p, dy, m)
+    tt = cuda_bwd_dots.bwd_dot_tt(p, dy, m)
+    torch.cuda.synchronize()
+    assert BWD_KERNELS["xp"].launches == before + 1
+    assert torch.equal(xp, tt)
+
+
+@pytest.mark.parametrize("rows,m,K,N", [(40, 20, 16, 8), (1000, 127, 96, 64),
+                                        (1000, 128, 104, 130),
+                                        (1200, 200, 512, 256),
+                                        (2600, 1300, 67, 129),
+                                        (3000, 384, 512, 256)])
+def test_bwd_dot_base_matches_plain_at_ragged_m(dev, rows, m, K, N):
+    """base against its plain version and the float64 version at m under
+    128, at 128, not a multiple of 128 (a ragged last tile a step), with
+    ragged K and N (4-byte copies) and a tail of rows past G m."""
+    a, b, kw = _bwd_operands("base", dev, rows, m, K, N)
+    r = cuda_bwd_dots.check("base", a, b, **kw)
+    assert r["share_of_bar"] <= 1.0 and r["share_of_bar64"] <= 1.0
 
 
 @pytest.mark.parametrize("stop", cuda_bwd_dots.STOPS)
