@@ -22,8 +22,9 @@ prints no result line):
    K1 and K1-bf16 at the edges of the kernel's own wave (roi_cnn_plan: a
    wave, a frame either side, two waves and a frame), twice on the same
    frames and on sub-batches (bitwise-equal rows);
-   K2's two kernels each against its own plain version (gru_proj against
-   the matmul, gru_seq over its output against the masked recurrence,
+   K2's two kernels each against its own plain version (gru_proj on each
+   of its routes, small M and large M, against the matmul and twice
+   bitwise, gru_seq over its output against the masked recurrence,
    gru_seq twice bitwise) at B=1, 64, 256 and 1024 (the split tile and
    three tiled ones), D=212 and 384, both directions a launch;
 4. the serving path at full width (random weights from a seed): the
@@ -54,7 +55,13 @@ prints no result line):
    100% fails), and at N=8192 by stage (its check entry's stops); K2 (one bidirectional layer, D=212, T=32) at B=1, 256 and 1024:
    the layer and each of its two kernels with the host's launches held
    out, beside torch.nn.GRU and torch.addmm, with its plan (C, BT, the
-   route of Wh) and bounds (a time under its bound fails); K4 and K5 at
+   route of Wh) and bounds (the layer and gru_proj at the f32 FMAs and
+   3xTF32 together; a time under its bound fails); gru_proj alone at
+   D=212 and 384, M=32, 8,192 and 32,768 (B=1, 256 and 1024) and at the
+   other shapes the paths give it (M=2,048: the checks' B=64; 5,120: CTC;
+   5,760: the sweep; 1,024), on the route it takes, on each route, the
+   large route at each tile width and with one TF32 pass (timing stops),
+   beside torch.addmm, with its plan (route, tile, blocks); K4 and K5 at
    the sweep's shape (64 x 90 = 5,760 frames) and at N=8192 beside their
    bounds (K5 at K1's, beside K1's time at the same N; K4 at the int8
    rate; over 100% fails), by stage at N=8192 (their stops), K4 with stage
@@ -88,6 +95,9 @@ prints no result line):
    and ftile) and mosaic_micro at full size, with the launch counts over
    each, whose rows give the kernels' times, bounds (a row above 100% of
    its bound fails), and the plain versions' and library calls' times;
+   and DC's bf16 kernel in each variant (clusters of 1, 2, 3 and 6
+   blocks), each bitwise the checked output, with its plan
+   (cluster, stages, shared memory) and time beside the bound;
 11. the backward-dot probes (silent_speech_tpu_torch/scripts): the tt, xp,
    nt, base and nn kernels against their plain versions at small ragged
    shapes (rows 100, m 24, K 104, N 130; dots3's form at 7 steps), tt, xp,
@@ -361,6 +371,21 @@ def k1_bound(N: int, macs: int, nbytes: float,
                     PEAK_F32_FLOPS + PEAK_TF32_FLOPS / 3)
 
 
+def tc_bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time of f32 work that may run on the f32 FMAs and the
+    tensor cores' 3xTF32 together (67 + 495/3 = 232 TFLOP/s), or of its
+    bytes."""
+    return bound_ms(flops, nbytes, PEAK_F32_FLOPS + PEAK_TF32_FLOPS / 3)
+
+
+def proj_bound(M: int, K: int, N: int) -> tuple[float, str]:
+    """gru_proj's least time for x (M, K) @ Wi (K, N) + bi: its multiply-
+    adds at the FMAs and 3xTF32 together (:func:`tc_bound`; its large
+    route runs them as 3xTF32), or x, Wi and bi read once and xp written
+    once."""
+    return tc_bound(2 * M * K * N, 4 * (M * K + K * N + N + M * N))
+
+
 def check_bound(name: str, ms: float, bound: float) -> float:
     """The share of its bound a row reaches; over 100% fails (the kernel
     did less work than the function needs)."""
@@ -446,7 +471,7 @@ def device_breakdown(fn, calls: int = 3) -> dict:
             cat = "K1 roi_cnn"
         elif "gru_seq" in name:
             cat = "K2 gru_seq"
-        elif "gru_proj_kernel" in name:
+        elif "gru_proj" in name:
             cat = "K2 gru_proj"
         elif name.startswith("Memset"):
             cat = "memset"
@@ -1201,11 +1226,13 @@ def check_k2_parts(gru_p: dict, lengths: torch.Tensor, dev
     """Each of K2's two kernels against its own plain version (TF32 off)
     on the layers' shapes (D=212 and 384, H=192, both directions in one
     launch as the model runs them) at B=1, 64, B_SERVE and 1024 (the split
-    tile and three tiled ones), T_SERVE: gru_proj
-    against the matmul, gru_seq over gru_proj's output against the masked
+    tile and three tiled ones), T_SERVE: gru_proj on each of its routes
+    (small M and large M; the one the kernel takes at the shape printed
+    with its plan) against the matmul and twice on the same inputs
+    (bitwise equal), gru_seq over gru_proj's output against the masked
     recurrence, and gru_seq twice on the same inputs (bitwise equal).
-    Prints the plan (C, BT, the route of Wh). Returns the two largest
-    errors."""
+    Prints the plans (gru_seq: C, BT, the route of Wh). Returns the two
+    largest errors."""
     from silent_speech_tpu_torch.infer.predictor import full_f32
     from silent_speech_tpu_torch.ops import cuda_gru
     from silent_speech_tpu_torch.ops.nn import gru_dir_init
@@ -1215,6 +1242,7 @@ def check_k2_parts(gru_p: dict, lengths: torch.Tensor, dev
     for D, pf in gru_p.items():
         pb = {k: v.to(dev) for k, v in gru_dir_init(D, 192, gen).items()}
         pack = cuda_gru.pack_layer([(pf, False), (pb, True)])
+        N = pack.wi.shape[1]
         for B in (1, 64, B_SERVE, 1024):
             x = torch.randn(B, T_SERVE, D, generator=gen).to(dev)
             L = torch.randint(1, T_SERVE + 1, (B,), generator=gen)
@@ -1223,7 +1251,8 @@ def check_k2_parts(gru_p: dict, lengths: torch.Tensor, dev
             pl = cuda_gru.plan(B, 192, 2)
             label = (f"B={B} D={D} (C={pl.C} BT={pl.BT} Wh in "
                      f"{'shared' if pl.smem_w else 'device'} memory)")
-            xp = cuda_gru.gru_proj(x, pack.wi, pack.bi, impl="kernel")
+            xp = cuda_gru.gru_proj(x, pack.wi, pack.bi, impl="kernel",
+                                   wt=pack.wt)
             y = cuda_gru.gru_recurrence(xp, L, pack, impl="kernel")
             again = cuda_gru.gru_recurrence(xp, L, pack, impl="kernel")
             torch.cuda.synchronize()
@@ -1232,8 +1261,24 @@ def check_k2_parts(gru_p: dict, lengths: torch.Tensor, dev
             with full_f32():
                 ref_xp = cuda_gru.gru_proj_plain(x, pack.wi, pack.bi)
                 ref_y = cuda_gru.gru_recurrence(xp, L, pack, impl="plain")
-            proj_err = max(proj_err, check_close(f"gru_proj {label}", xp,
-                                                 ref_xp, BAR_GRU))
+            taken = cuda_gru.proj_plan(B * T_SERVE, D, N)
+            for route in cuda_gru.PROJ_ROUTES:
+                got = cuda_gru.gru_proj(x, pack.wi, pack.bi, impl="kernel",
+                                        route=route, wt=pack.wt)
+                rep = cuda_gru.gru_proj(x, pack.wi, pack.bi, impl="kernel",
+                                        route=route, wt=pack.wt)
+                torch.cuda.synchronize()
+                rp = cuda_gru.proj_plan(B * T_SERVE, D, N, route)
+                chosen = ", the shapes' choice" if route == taken.route \
+                    else ""
+                name = (f"gru_proj B={B} D={D} route {route} ({rp.bm} x "
+                        f"{rp.bn} tiles, {rp.blocks} blocks{chosen})")
+                if not torch.equal(got, rep):
+                    fail(f"{name}: two calls on the same inputs differ")
+                if route == taken.route and not torch.equal(got, xp):
+                    fail(f"{name}: the forced route differs from the chosen")
+                proj_err = max(proj_err, check_close(name, got, ref_xp,
+                                                     BAR_GRU))
             seq_err = max(seq_err, check_close(
                 f"gru_seq (recurrence) {label}", y, ref_y, BAR_GRU))
     return proj_err, seq_err
@@ -1247,9 +1292,11 @@ def time_k2(p: dict, x: torch.Tensor, lengths: torch.Tensor, dev,
     the same inputs, all with the host's launches held out (held_ms; the
     library also with CUDA events as the host launches, the smaller
     taken); the plain versions with CUDA events (TF32 off); the bounds
-    over this run's lengths. ``x`` and ``lengths`` are B_SERVE's inputs;
-    the other B draw theirs from SEED + 8. Fails if a time is under its
-    bound. Returns {B: {key: value}}."""
+    over this run's lengths (the layer's and gru_proj's at the f32 FMAs and
+    3xTF32 together, :func:`tc_bound`: gru_proj's large route runs
+    3xTF32; gru_seq's at the f32 rate). ``x`` and ``lengths`` are
+    B_SERVE's inputs; the other B draw theirs from SEED + 8. Fails if a
+    time is under its bound. Returns {B: {key: value}}."""
     from silent_speech_tpu_torch.infer.predictor import full_f32
     from silent_speech_tpu_torch.ops import cuda_gru
     from silent_speech_tpu_torch.ops import gru as gru_ops
@@ -1269,7 +1316,8 @@ def time_k2(p: dict, x: torch.Tensor, lengths: torch.Tensor, dev,
         Ld = L.to(dev)
         S = int(L.sum())
         pl = cuda_gru.plan(B, H, 2)
-        xp = cuda_gru.gru_proj(xb, pack.wi, pack.bi, impl="kernel")
+        xp = cuda_gru.gru_proj(xb, pack.wi, pack.bi, impl="kernel",
+                               wt=pack.wt)
         r = {"C": pl.C, "BT": pl.BT, "wh_in": "shared memory" if pl.smem_w
              else "device memory", "blocks": pl.blocks,
              "threads": pl.threads, "smem_bytes": pl.smem,
@@ -1277,7 +1325,7 @@ def time_k2(p: dict, x: torch.Tensor, lengths: torch.Tensor, dev,
         r["layer_ms"] = held_ms(lambda: cuda_gru.bigru_kernel(
             xb, Ld, layer, impl="kernel"), dev)
         r["proj_ms"] = held_ms(lambda: cuda_gru.gru_proj(
-            xb, pack.wi, pack.bi, impl="kernel"), dev)
+            xb, pack.wi, pack.bi, impl="kernel", wt=pack.wt), dev)
         r["seq_ms"] = held_ms(lambda: cuda_gru.gru_recurrence(
             xp, Ld, pack, impl="kernel"), dev)
         with full_f32():  # TF32 is another function (PERF.md, PR 8)
@@ -1296,12 +1344,10 @@ def time_k2(p: dict, x: torch.Tensor, lengths: torch.Tensor, dev,
                 pack.bi, x2, pack.wi), dev)
             r["seq_plain_ms"] = cuda_ms(lambda: cuda_gru.gru_recurrence(
                 xp, Ld, pack, impl="plain"), 5, warmup=1)
-        r["layer_bound_ms"], r["layer_bound_by"] = bound_ms(
+        r["layer_bound_ms"], r["layer_bound_by"] = tc_bound(
             2 * 2 * S * (D + H) * 3 * H,
             4 * (xb.numel() + 2 * ((D + H) * 3 * H + 6 * H) + B * T * 2 * H))
-        r["proj_bound_ms"], r["proj_bound_by"] = bound_ms(
-            2 * B * T * D * 6 * H,
-            4 * (B * T * D + D * 6 * H + 6 * H + B * T * 6 * H))
+        r["proj_bound_ms"], r["proj_bound_by"] = proj_bound(B * T, D, 6 * H)
         r["seq_bound_ms"], r["seq_bound_by"] = bound_ms(
             2 * 2 * S * H * 3 * H,
             4 * (B * T * 6 * H + 2 * (H * 3 * H + 3 * H) + B * T * 2 * H + B))
@@ -1330,6 +1376,137 @@ def time_k2(p: dict, x: torch.Tensor, lengths: torch.Tensor, dev,
                 fail(f"K2 {key[:-1]} B={B}: {r[key + 'ms']:.4f} ms is "
                      f"under its bound {r[key + 'bound_ms']:.4f} ms")
         out[B] = r
+    return out
+
+
+# gru_proj's shapes on the paths, rows M = B T at N = 1152: K2_B's at
+# T_SERVE (live and serving), the checks' B=64, the CTC step's B=64 x
+# T=80, the sweep's B=64 x max_t 90, and M=1,024
+K2P_M = (("B=1", 1 * T_SERVE), ("M=1024", 1024), ("B=64", 64 * T_SERVE),
+         ("ctc M=5120", 5120), ("sweep M=5760", 5760),
+         ("B=256", 256 * T_SERVE), ("B=1024", 1024 * T_SERVE))
+
+
+def time_k2p(gru_p: dict, dev, card: str) -> dict:
+    """gru_proj (K2p) alone on a layer's shapes, both directions (N = 6H =
+    1152), D=212 and 384 (the serving model's two layers), at each M of
+    K2P_M: the kernel on the route it takes and on each route; the large
+    route at each tile width of PROJ_BNS and with one TF32 pass at the
+    chosen width (another function: what the two extra passes cost), both
+    through the timing stop gru_proj_stop, whose 3-pass output at the
+    chosen width must be bitwise gru_proj's; all with the host's launches
+    held out (held_ms); the plain version with CUDA events (TF32 off),
+    torch.addmm (the library call, held_ms); the bound (:func:`proj_bound`);
+    the plan. Fails if the kernel runs under its bound. Returns {"D=..":
+    {label: {key: value}}}."""
+    from silent_speech_tpu_torch.infer.predictor import full_f32
+    from silent_speech_tpu_torch.ops import cuda_gru
+
+    gen = torch.Generator().manual_seed(SEED + 9)
+    out = {}
+    for D, p in gru_p.items():
+        pack = cuda_gru.pack_layer([(p, False), (p, True)])
+        N = pack.wi.shape[1]
+        rows = {}
+        for label, M in K2P_M:
+            x = torch.randn(M, D, generator=gen).to(dev)
+            pl = cuda_gru.proj_plan(M, D, N)
+
+            def call(route=None):
+                return lambda: cuda_gru.gru_proj(
+                    x, pack.wi, pack.bi, impl="kernel", route=route,
+                    wt=pack.wt)
+
+            def stop(bn=0, passes=3):
+                return lambda: cuda_gru.gru_proj_stop(
+                    x, pack.wt, pack.bi, bn=bn, passes=passes)
+            large = cuda_gru.gru_proj(x, pack.wi, pack.bi, impl="kernel",
+                                      route="large", wt=pack.wt)
+            if not torch.equal(stop()(), large):
+                fail(f"gru_proj_stop M={M} D={D}: not bitwise the large "
+                     "route's output")
+            r = {"M": M, "route": pl.route, "tile": f"{pl.bm}x{pl.bn}",
+                 "tiles": pl.tiles, "blocks": pl.blocks, "smem_bytes":
+                 pl.smem, "stages": pl.stages, "ms": held_ms(call(), dev)}
+            for route in cuda_gru.PROJ_ROUTES:
+                r[route + "_ms"] = held_ms(call(route), dev)
+            for bn in cuda_gru.PROJ_BNS:
+                r[f"large_bn{bn}_ms"] = held_ms(stop(bn), dev)
+            r["large_one_pass_ms"] = held_ms(stop(passes=1), dev)
+            with full_f32():
+                r["plain_ms"] = cuda_ms(lambda: cuda_gru.gru_proj_plain(
+                    x, pack.wi, pack.bi), 20)
+                r["library_ms"] = held_ms(lambda: torch.addmm(
+                    pack.bi, x, pack.wi), dev)
+            r["bound_ms"], r["bound_by"] = proj_bound(M, D, N)
+            r["share_of_bound"] = check_bound(
+                f"gru_proj M={M} D={D}", r["ms"], r["bound_ms"])
+            widths = ", ".join(f"BN {bn} {r[f'large_bn{bn}_ms']:.4f}"
+                               for bn in cuda_gru.PROJ_BNS)
+            print(f"  gru_proj {label} (M={M}) D={D} N={N} (route "
+                  f"{pl.route}, {pl.bm} x {pl.bn} tiles, {pl.tiles} tiles on "
+                  f"{pl.blocks} blocks, {pl.smem} B of shared memory, "
+                  f"{pl.stages} stage(s)): {r['ms']:.4f} ms "
+                  f"({r['share_of_bound']:.1%} of its bound "
+                  f"{r['bound_ms']:.4f} ms, {r['bound_by']}); routes small "
+                  f"{r['small_ms']:.4f}, large {r['large_ms']:.4f} ({widths}"
+                  f"), large with one TF32 pass {r['large_one_pass_ms']:.4f}"
+                  f"; plain {r['plain_ms']:.4f}; torch.addmm "
+                  f"{r['library_ms']:.4f}: "
+                  f"{'' if r['ms'] < r['library_ms'] else 'NOT '}faster "
+                  f"x{r['library_ms'] / r['ms']:.2f} {card}")
+            rows[label] = r
+        out[f"D={D}"] = rows
+    return out
+
+
+def time_dc_variants(dev, card: str) -> dict:
+    """The bf16 chain (DC-bf16) at probe_int8's size (256 steps, K=384
+    and 512) in each of its variants, clusters of 1, 2, 3 and 6 blocks,
+    with the host's launches held out
+    (proto_parity_cnn.device_ms, RATE_ITERS calls), each variant's output
+    bitwise the check instantiation's of the kernel's own choice
+    (:func:`ops.cuda_dot_chain.plan`), beside the bf16 bound (over 100%
+    fails). Returns {"K=..": {"chosen": plan, "c<C>": {...}}}."""
+    from silent_speech_tpu_torch.ops import cuda_dot_chain as dc
+    from silent_speech_tpu_torch.scripts import proto_parity_cnn as harness
+
+    rng = np.random.default_rng(SEED + 12)
+    x = torch.from_numpy(rng.integers(0, 256, (dc.GRID * 8, 128),
+                                      dtype=np.uint8)).to(dev)
+    args = harness.Args(0, dev, RATE_ITERS)
+    out = {}
+    for K in dc.KS:
+        w = dc.make_weights("bf16", K).to(dev)
+        packed = dc.pack_weights(w, "bf16")
+        want, _, _ = dc.dot_chain(x, w, "bf16", packed=packed, check=True)
+        b_ms, b_by = harness.bound_ms(dc.macs(dc.GRID, K),
+                                      dc.bytes_moved(dc.GRID, K, "bf16"),
+                                      "bf16")
+        chosen = dc.plan(K)
+        rows = {"chosen": chosen._asdict(), "bound_ms": b_ms,
+                "bound_by": b_by}
+        print(f"  dot_chain bf16 K={K}: the kernel's choice clusters of "
+              f"{chosen.cluster}, {chosen.stages} stages of "
+              f"{chosen.chunk} B, {chosen.smem} B of shared memory a block, "
+              f"{chosen.clusters} clusters at once on {chosen.sms_used} of "
+              f"{chosen.sms} SMs; bound {b_ms:.4f} ms ({b_by}) {card}")
+        for c in dc.BF16_CLUSTERS:
+            got = dc.dot_chain(x, w, "bf16", packed=packed, cluster=c)
+            if not torch.equal(got, want):
+                fail(f"dot_chain bf16 K={K} cluster {c}: not bitwise the "
+                     "check instantiation's output")
+            pl = dc.plan(K, c)
+            ms = harness.device_ms(lambda: dc.dot_chain(
+                x, w, "bf16", packed=packed, cluster=c), args)
+            share = check_bound(f"dot_chain bf16 K={K} c{c}", ms, b_ms)
+            rows[f"c{c}"] = {"ms": ms, "share_of_bound": share,
+                             "clusters": pl.clusters,
+                             "sms_used": pl.sms_used}
+            print(f"    clusters of {c} ({pl.clusters} at once on "
+                  f"{pl.sms_used} SMs): {ms:.4f} ms, {share:.1%} of the "
+                  f"bound {card}")
+        out[f"K={K}"] = rows
     return out
 
 
@@ -2934,6 +3111,7 @@ def main() -> int:
               f"{B_SWEEP / ms * 1e3:.1f} clips/s {card}")
     x = torch.randn(B_SERVE, T_SERVE, 212, generator=gen).to(dev)
     k2 = time_k2(gru_p[212], x, lengths, dev, card)
+    k2p = time_k2p(gru_p, dev, card)
     for B in (B_SERVE, 1024):
         Xs = rng.standard_normal((B, T_SERVE, cfg.x_dim)).astype(np.float32)
         Ls = np.full((B,), T_SERVE, np.int32)
@@ -3012,6 +3190,8 @@ def main() -> int:
     print(f"forward rate probes, the scripts at full size, {RATE_ITERS} timed "
           f"calls a row {card}:")
     rate_counts, rate_ms = run_rate_probe_scripts(card)
+    print(f"the bf16 chain's variants, {RATE_ITERS} timed calls each {card}:")
+    rate_ms["dot_chain"]["bf16_variants"] = time_dc_variants(dev, card)
 
     # ---- 11. the backward-dot probes: kernels vs plain, the scripts
     print("backward-dot probes, kernel vs plain (TF32 off):")
@@ -3072,7 +3252,8 @@ def main() -> int:
          "library_ms": k2[B_SERVE]["proj_library_ms"],
          "by_batch": {str(B): {k: r[k] for k in (
              "proj_ms", "proj_plain_ms", "proj_library_ms", "proj_bound_ms")}
-             for B, r in k2.items()}},
+             for B, r in k2.items()},
+         "by_shape": k2p},
         {"name": "roi_cnn_bwd", "route": "cuda",
          "source": "silent_speech_tpu_torch/csrc/roi_cnn_bwd.cu",
          "replaces": "silent_speech_tpu/ops/pallas_cnn2_grad.py:319",

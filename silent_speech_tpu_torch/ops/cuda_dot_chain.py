@@ -34,12 +34,27 @@ bitwise. In ``bf16`` it also returns a trace, one row of each 64-row tile
 after each product, which :func:`check_rounding` holds product by product
 against the bf16 rounding of the exact product of the row before. The
 timed instantiation writes only the TPU kernel's output.
+
+**The bf16 kernel** (csrc/dot_chain.cu, namespace chain16). What bounds it
+is the bf16 multiply-adds (0.41 / 0.73 ms at K=384 / 512 for 256 steps)
+and, behind them, W: a 64-row tile re-reads the whole of W every product.
+A block's copy warp streams W in chunks (64 k-columns of W^T for half the
+n, packed contiguous by :func:`pack_weights`) into a ring of stages by TMA
+bulk copies with mbarriers, shared by the blocks of a cluster (each copies
+its share of a chunk into every block's stage, multicast), while two
+warpgroups multiply: wgmma m64n(K/2)k16 reading y and the chunk from
+shared memory in the 128-byte swizzle. :func:`plan` reads the kernel's
+choice of cluster size on the card, :func:`bf16_geometry` mirrors its
+shared memory; every cluster size (``cluster`` of :func:`dot_chain`)
+computes the same bits. Its CPU tests (the geometry, the packing) are
+tests/test_torch_dot_chain_bf16.py.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -59,7 +74,95 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = _kernels.Kernel(
     "dot_chain", "dot_chain",
     [_P, _P, _P, _P, _P, _P,      # x, packed W, out, moments, trace, sink
-     _I, _I, _I, _I, _P])         # sink_at, steps, K, mode, stream
+     _I, _I, _I, _I, _I, _P])     # sink_at, steps, K, mode, variant, stream
+
+# the bf16 chain's geometry (csrc/dot_chain.cu, namespace chain16), which
+# bf16_geometry mirrors: clusters of BF16_CLUSTERS blocks along a step's
+# TILES (each divides it); a chunk is 64 k-columns of W^T
+# for half of the n, BF16_ROW bytes an n; BF16_ALIGN bytes to start the
+# planes on the swizzle's period, the y tile (TM x K bf16) and a ring of at
+# most BF16_MAX_STAGES chunks with two 8-byte barriers each fill what a
+# block's static shared memory (at most 1 KB) leaves of SMEM_BYTES
+BF16_CLUSTERS = (1, 2, 3, 6)
+BF16_KA, BF16_ROW, BF16_MAX_STAGES, BF16_THREADS = 64, 128, 8, 288
+BF16_ALIGN, SMEM_BYTES = 1024, 232448
+
+
+class Bf16Geometry(NamedTuple):
+    """The bf16 chain's shared memory at K (:func:`bf16_geometry`): bytes
+    a chunk, of the y tile, ring stages and the block's dynamic bytes."""
+
+    chunk: int
+    y_bytes: int
+    stages: int
+    smem: int
+
+
+def bf16_geometry(K: int) -> Bf16Geometry:
+    """csrc/dot_chain.cu's ``chain16::Geo<K>``."""
+    if K % 128:
+        raise ValueError(f"K must be a multiple of 128, got {K}")
+    chunk, y = K // 2 * BF16_ROW, TM * K * 2
+    budget = SMEM_BYTES - 1024 - BF16_ALIGN
+    stages = min(BF16_MAX_STAGES, (budget - y - 16 * BF16_MAX_STAGES)
+                 // chunk)
+    return Bf16Geometry(chunk, y, stages,
+                        BF16_ALIGN + y + stages * (chunk + 16))
+
+
+class Plan(NamedTuple):
+    """The bf16 chain's launch on the card (csrc/dot_chain.cu's
+    dot_chain_plan): blocks a ``cluster``, ring ``stages``, dynamic
+    ``smem`` bytes a block, ``chunk`` bytes, ``threads`` a block, the
+    ``clusters`` of that size the card runs at once, the SMs they cover
+    (``sms_used``) and the card's ``sms``."""
+
+    cluster: int
+    stages: int
+    smem: int
+    chunk: int
+    threads: int
+    clusters: int
+    sms_used: int
+    sms: int
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(device: int, K: int, variant: int) -> Plan:
+    lib = _kernels.library()
+    fn = lib.dot_chain_plan
+    fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 8)()
+    with torch.cuda.device(device):
+        err = fn(K, variant, out)
+    if err:
+        raise RuntimeError(f"dot_chain_plan(K={K}, variant={variant}): CUDA "
+                           f"error {err}: "
+                           f"{lib.sst_cuda_error_string(err).decode()}")
+    return Plan(*out)
+
+
+def _variant(cluster: int) -> int:
+    """csrc/dot_chain.cu's variant code: the cluster size (0: the
+    kernel's choice)."""
+    if cluster not in (0,) + BF16_CLUSTERS:
+        raise ValueError(f"cluster must be 0 (the kernel's choice) or one "
+                         f"of {BF16_CLUSTERS}, got {cluster}")
+    return cluster
+
+
+def plan(K: int, cluster: int = 0, device=None) -> Plan:
+    """The bf16 chain's launch at K on a card (the current one by
+    default); ``cluster`` 0 for the kernel's choice (the largest cluster
+    whose clusters cover at least 15/16 of the SMs at once)."""
+    if K not in KS:
+        raise ValueError(f"the kernel takes K in {KS}, got {K}")
+    variant = _variant(cluster)
+    device = torch.device("cuda" if device is None else device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return _plan(index, K, variant)
 
 
 def _check_mode(mode: str, K: int) -> None:
@@ -83,12 +186,22 @@ def make_weights(mode: str, K: int) -> torch.Tensor:
 
 
 def pack_weights(w: torch.Tensor, mode: str) -> torch.Tensor:
-    """W as the kernel reads it: f32 k-major for ``f32``; W transposed
-    (n-major) in bf16 or int8 for the tensor-core modes."""
+    """W as the kernel reads it, (K, K): f32 k-major for ``f32``; W
+    transposed (n-major) in int8 for the int modes; for ``bf16`` W
+    transposed in bf16, in the chain's chunk layout: atom a (64 k-columns)
+    after atom, each n's 128 bytes in turn, its 16-byte unit u (W^T[n, 64 a
+    + 8 u ... + 7]) stored at unit u ^ (n % 8), so that a chunk is one
+    contiguous copy in wgmma's 128-byte swizzle."""
     if mode == "f32":
         return w.to(torch.float32).contiguous()
-    dtype = torch.bfloat16 if mode == "bf16" else torch.int8
-    return w.t().to(dtype).contiguous()
+    if mode != "bf16":
+        return w.t().to(torch.int8).contiguous()
+    K = w.shape[0]
+    units = w.t().to(torch.bfloat16).reshape(K, K // BF16_KA, 8, 8)
+    n = torch.arange(K, device=w.device)[:, None]
+    swizzle = torch.arange(8, device=w.device)[None, :] ^ (n % 8)
+    units = units.permute(1, 0, 2, 3)[:, n, swizzle]  # [a][n][u ^ n % 8]
+    return units.reshape(K, K).contiguous()
 
 
 def _steps(x: torch.Tensor) -> int:
@@ -204,7 +317,7 @@ def chain_moments(y: torch.Tensor) -> torch.Tensor:
 
 def dot_chain(x: torch.Tensor, w: torch.Tensor, mode: str, *,
               impl: str = "auto", packed: Optional[torch.Tensor] = None,
-              check: bool = False):
+              check: bool = False, cluster: int = 0):
     """probe_int8's kernel (``build(mode, K)`` called on x): x (steps * 8,
     128) uint8, w (K, K) f32 (f32, bf16) or int8 (int8, int8i), K 384 or 512
     for the kernel. Returns the (steps, 8, 128) f32 output, or with
@@ -212,8 +325,13 @@ def dot_chain(x: torch.Tensor, w: torch.Tensor, mode: str, *,
     trace of :func:`trace_plain` in bf16 and None in the other modes).
 
     ``packed`` is :func:`pack_weights` of ``w``, built once by the caller;
-    without it every launch packs anew. ``impl`` as in ``ops._kernels``."""
+    without it every launch packs anew. ``impl`` as in ``ops._kernels``.
+    ``cluster``: the bf16 chain's blocks a cluster, 0 for the kernel's
+    choice (:func:`plan`); every cluster size computes the same bits."""
     K = _check_w(w, mode)
+    variant = _variant(cluster)
+    if variant and mode != "bf16":
+        raise ValueError(f"cluster is the bf16 chain's, not {mode!r}'s")
     steps = _steps(x)
     if not _kernels.use_kernel(impl, x):
         y = chain_plain(x, w, mode)
@@ -252,7 +370,7 @@ def dot_chain(x: torch.Tensor, w: torch.Tensor, mode: str, *,
                       _kernels.ptr(out), _kernels.ptr(mom) if check else null,
                       null if trace is None else _kernels.ptr(trace),
                       _kernels.ptr(sink), -1, steps, K, _MODE_CODE[mode],
-                      _kernels.stream_ptr(x.device))
+                      variant, _kernels.stream_ptr(x.device))
     if not check:
         return out
     return out, mom.sum(dim=1), trace

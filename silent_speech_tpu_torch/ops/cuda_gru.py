@@ -7,8 +7,17 @@ the TPU tiling knobs, plus ``impl`` (see ``ops._kernels``). Each layer is
 two launches, both directions sharing each:
 
 - ``gru_proj`` (csrc/gru_proj.cu): ``xp = x Wi + bi`` for every (b, t) and
-  both directions, one (B T, D) x (D, 6H) product in f32 FMAs; plain
-  version :func:`gru_proj_plain` (a matmul);
+  both directions, one (B T, D) x (D, 6H) product in f32's class of error,
+  by one of two routes that the kernel chooses from the shapes
+  (:func:`proj_geometry` mirrors the choice, :func:`proj_plan` reads it on
+  the card): small M (the live path) on the f32 FMAs, 32 x 32 output tiles
+  with K split across warps, bound by latency; large M as 3xTF32 on the
+  tensor cores' wgmma (x split hi / lo in registers, Wi^T's hi and lo
+  planes packed once by :func:`pack_wi_tc`), persistent blocks over 128 x
+  192 or 128 x 144 tiles fed by a cp.async ring, bound by the multiply-
+  adds at the f32 FMAs and 3xTF32 together (232 TFLOP/s); plain version
+  :func:`gru_proj_plain` (a matmul); its CPU tests of the route's
+  arithmetic and of the plan's mirror are tests/test_torch_gru_proj_tc.py;
 - ``gru_seq`` (csrc/gru_seq.cu): the masked recurrence over xp, one
   thread-block cluster of C blocks a (direction, tile of BT rows), each
   block holding its slice of Wh in shared memory for all T steps, the
@@ -35,7 +44,7 @@ import collections
 import ctypes
 import functools
 import threading
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -46,8 +55,15 @@ from . import gru as gru_ops
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 PROJ = _kernels.Kernel("gru_proj", "gru_proj_forward",
-                       [_P, _P, _P, _P,     # x, w, bias, xp
-                        _I, _I, _I, _P])    # M, K, N, stream
+                       [_P, _P, _P, _P, _P,  # x, w, wt, bias, xp
+                        _I, _I, _I, _I,      # M, K, N, route
+                        _P])                 # stream
+# the large route at a chosen tile width and number of TF32 passes, to time
+# the parts and the tile choice (gru_proj_stop)
+PROJ_STOP = _kernels.Kernel("gru_proj_stop", "gru_proj_stop",
+                            [_P, _P, _P, _P,      # x, wt, bias, xp
+                             _I, _I, _I, _I, _I,  # M, K, N, bn, passes
+                             _P])                 # stream
 SEQ = _kernels.Kernel(
     "gru_seq", "gru_seq_forward",
     [_P, _P, _P, _P,                        # xp, lengths, whp, bh
@@ -87,6 +103,111 @@ def cluster_size(H: int) -> int:
         if Hk * 3 * Up * 4 <= W_SLICE_TARGET:
             return C
     return CLUSTERS[-1]
+
+
+# csrc/gru_proj.cu's routes and tiles, which proj_geometry mirrors: the
+# small route for M <= PROJ_SMALL_M and K <= PROJ_KMAX, 32 x 32 tiles of 8
+# warps, each warp a share of K rounded up to 4; the large route 128 x BN
+# tiles (BN of PROJ_BNS, the one whose waves of PROJ_SMS tiles cost the
+# least, waves x (BN + PROJ_TILE_COST), ties to the wider), chunks of
+# PROJ_BK rows of K through a ring of at most PROJ_MAX_STAGES cp.async
+# stages (Wi^T's hi and lo planes of the tile's columns, x's raw rows of
+# stride PROJ_BK + 4) on a 1,024-byte start.
+PROJ_ROUTES = ("small", "large")
+PROJ_SMALL_M, PROJ_KMAX, PROJ_SMS = 512, 832, 132
+PROJ_BNS, PROJ_BK, PROJ_MAX_STAGES, PROJ_THREADS = (192, 144), 32, 4, 256
+PROJ_TILE_COST = 64  # a tile's time: about BN + PROJ_TILE_COST columns'
+SMEM_BYTES = 232448  # a block's shared memory on the H100
+
+
+class ProjGeometry(NamedTuple):
+    """How ``gru_proj`` runs (M, K, N), from the shapes alone
+    (:func:`proj_geometry`): the ``route``, the output tile ``bm`` x
+    ``bn``, the ``tiles``, dynamic shared memory bytes a block, cp.async
+    ``stages`` (1: the small route stages all of K at once) and threads a
+    block. The large route launches min(tiles, the card's resident
+    blocks) persistent blocks (:func:`proj_plan`'s ``blocks``)."""
+
+    route: str
+    bm: int
+    bn: int
+    tiles: int
+    smem: int
+    stages: int
+    threads: int
+
+
+def _proj_route(M: int, K: int, route: Optional[str]) -> str:
+    if route is None:
+        return "small" if M <= PROJ_SMALL_M and K <= PROJ_KMAX else "large"
+    if route not in PROJ_ROUTES:
+        raise ValueError(f"unknown route {route!r}; one of {PROJ_ROUTES}")
+    if route == "small" and K > PROJ_KMAX:
+        raise ValueError(f"the small route takes K <= {PROJ_KMAX}, got {K}")
+    return route
+
+
+def proj_geometry(M: int, K: int, N: int,
+                  route: Optional[str] = None) -> ProjGeometry:
+    """The route and tile csrc/gru_proj.cu takes for x (M, K) @ Wi (K, N)
+    (``route``: None for the shapes' choice, or "small" / "large")."""
+    if M < 1 or K < 1 or N < 1:
+        raise ValueError(f"M, K, N must be positive, got {M}, {K}, {N}")
+    if _proj_route(M, K, route) == "small":
+        kw = _ceil(K, 4 * 8) * 4
+        stage = 32 * (8 * kw + 4) + 8 * kw * 36
+        return ProjGeometry("small", 32, 32, _ceil(M, 32) * _ceil(N, 32),
+                            4 * max(stage, 8 * 32 * 32), 1, PROJ_THREADS)
+    costs = [(_ceil(_ceil(M, 128) * _ceil(N, bn), PROJ_SMS)
+              * (bn + PROJ_TILE_COST), -bn) for bn in PROJ_BNS]
+    bn = -min(costs)[1]
+    stage = 2 * bn * 4 * PROJ_BK + 128 * (PROJ_BK + 4) * 4
+    stages = min(PROJ_MAX_STAGES, (SMEM_BYTES - 1024) // stage)
+    return ProjGeometry("large", 128, bn, _ceil(M, 128) * _ceil(N, bn),
+                        1024 + stages * stage, stages, PROJ_THREADS)
+
+
+class ProjPlan(NamedTuple):
+    """``gru_proj``'s launch on the card (csrc/gru_proj.cu's
+    gru_proj_plan): :class:`ProjGeometry`'s fields and ``blocks``, the
+    blocks launched (the large route: persistent, at most the card's
+    resident blocks)."""
+
+    route: str
+    bm: int
+    bn: int
+    tiles: int
+    blocks: int
+    smem: int
+    stages: int
+    threads: int
+
+
+@functools.lru_cache(maxsize=256)
+def _proj_plan(device: int, M: int, K: int, N: int, code: int) -> ProjPlan:
+    lib = _kernels.library()
+    fn = lib.gru_proj_plan
+    fn.argtypes = [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 8)()
+    with torch.cuda.device(device):
+        err = fn(M, K, N, code, out)
+    if err:
+        raise RuntimeError(f"gru_proj_plan(M={M}, K={K}, N={N}): CUDA error "
+                           f"{err}: {lib.sst_cuda_error_string(err).decode()}")
+    return ProjPlan(PROJ_ROUTES[out[0]], *out[1:])
+
+
+def proj_plan(M: int, K: int, N: int, route: Optional[str] = None,
+              device=None) -> ProjPlan:
+    """``gru_proj``'s launch for x (M, K) @ Wi (K, N) on a card (the
+    current one by default), as the kernel chooses it."""
+    proj_geometry(M, K, N, route)  # raises on what the kernel refuses
+    device = torch.device("cuda" if device is None else device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    code = -1 if route is None else PROJ_ROUTES.index(route)
+    return _proj_plan(index, M, K, N, code)
 
 
 class Plan(NamedTuple):
@@ -155,9 +276,10 @@ def pack_wh(wh: torch.Tensor, C: int) -> torch.Tensor:
 
 class LayerPack(NamedTuple):
     """A layer's weights laid out for the kernels (:func:`pack_layer`): Wi
-    and bi of the directions side by side for ``gru_proj``, each
-    direction's Wh in the per-block order (:func:`pack_wh`) and bh for
-    ``gru_seq``, and the JAX-layout Wh for the plain version."""
+    and bi of the directions side by side for ``gru_proj`` (and Wi split
+    for its large route, :func:`pack_wi_tc`), each direction's Wh in the
+    per-block order (:func:`pack_wh`) and bh for ``gru_seq``, and the
+    JAX-layout Wh for the plain version."""
 
     wi: torch.Tensor        # (D, ndir 3H)
     bi: torch.Tensor        # (ndir 3H,)
@@ -166,6 +288,7 @@ class LayerPack(NamedTuple):
     wh: tuple               # ndir x (H, 3H)
     reverse: tuple          # ndir x bool
     C: int
+    wt: torch.Tensor        # (2, ndir 3H, D rounded up to PROJ_BK)
 
 
 def pack_layer(dirs: Sequence[tuple[dict, bool]]) -> LayerPack:
@@ -189,13 +312,13 @@ def pack_layer(dirs: Sequence[tuple[dict, bool]]) -> LayerPack:
                                  f"{tuple(w.shape)} on {w.device}")
     C = cluster_size(H)
     with torch.no_grad():
+        wi = torch.cat([p["wi"] for p, _ in dirs], 1).contiguous()
         return LayerPack(
-            torch.cat([p["wi"] for p, _ in dirs], 1).contiguous(),
-            torch.cat([p["bi"] for p, _ in dirs]).contiguous(),
+            wi, torch.cat([p["bi"] for p, _ in dirs]).contiguous(),
             torch.stack([pack_wh(p["wh"], C) for p, _ in dirs]),
             torch.stack([p["bh"] for p, _ in dirs]).contiguous(),
             tuple(p["wh"] for p, _ in dirs),
-            tuple(bool(r) for _, r in dirs), C)
+            tuple(bool(r) for _, r in dirs), C, pack_wi_tc(wi))
 
 
 _PACKS: collections.OrderedDict = collections.OrderedDict()
@@ -246,10 +369,33 @@ def gru_proj_plain(x: torch.Tensor, wi: torch.Tensor,
     return x @ wi + bi
 
 
+def pack_wi_tc(wi: torch.Tensor) -> torch.Tensor:
+    """Wi (K, N) f32 as the large route reads it: (2, N, KP) f32, Wi^T
+    split hi = tf32(w), lo = tf32(w - hi) (csrc/mma_tf32.cuh's split: half
+    a TF32 ulp added to the magnitude bits, the 13 low bits cleared), K
+    padded with zeros to KP, a multiple of PROJ_BK."""
+    K, N = wi.shape
+    kp = _ceil(K, PROJ_BK) * PROJ_BK
+    wt = F.pad(wi.t().to(torch.float32), (0, kp - K)).contiguous()
+
+    def tf32(v: torch.Tensor) -> torch.Tensor:
+        return ((v.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    hi = tf32(wt)
+    return torch.stack([hi, tf32(wt - hi)]).contiguous()
+
+
 def gru_proj(x: torch.Tensor, wi: torch.Tensor, bi: torch.Tensor, *,
-             impl: str = "auto") -> torch.Tensor:
+             impl: str = "auto", route: Optional[str] = None,
+             wt: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``xp = x Wi + bi`` over every row of x (..., D): wi (D, N), bi (N,).
-    Returns (..., N)."""
+    Returns (..., N). ``route``: the kernel's route, None for the one it
+    chooses from the shapes, or "small" / "large" (:func:`proj_geometry`),
+    both the same function; ``wt``: :func:`pack_wi_tc` of ``wi``, which
+    the large route reads, built once by the caller (without it a large
+    launch packs anew)."""
+    if route not in (None,) + PROJ_ROUTES:
+        raise ValueError(f"unknown route {route!r}; one of {PROJ_ROUTES}")
     if not _kernels.use_kernel(impl, x):
         return gru_proj_plain(x, wi, bi)
     D, N = wi.shape
@@ -263,9 +409,22 @@ def gru_proj(x: torch.Tensor, wi: torch.Tensor, bi: torch.Tensor, *,
     xp = torch.empty(x.shape[:-1] + (N,), dtype=torch.float32,
                      device=x.device)
     M = xp.numel() // N
-    if M:
-        PROJ.launch(_kernels.ptr(x), _kernels.ptr(wi), _kernels.ptr(bi),
-                    _kernels.ptr(xp), M, D, N, _kernels.stream_ptr(x.device))
+    if not M:
+        return xp
+    null = ctypes.c_void_p(0)
+    if proj_geometry(M, D, N, route).route == "large":
+        if wt is None:
+            wt = pack_wi_tc(wi)
+        _check_f32("wt", wt, x.device)
+        if wt.shape != (2, N, _ceil(D, PROJ_BK) * PROJ_BK):
+            raise ValueError(f"wt must be pack_wi_tc(wi), (2, {N}, "
+                             f"{_ceil(D, PROJ_BK) * PROJ_BK}), got "
+                             f"{tuple(wt.shape)}")
+    code = -1 if route is None else PROJ_ROUTES.index(route)
+    PROJ.launch(_kernels.ptr(x), _kernels.ptr(wi),
+                null if wt is None else _kernels.ptr(wt), _kernels.ptr(bi),
+                _kernels.ptr(xp), M, D, N, code,
+                _kernels.stream_ptr(x.device))
     return xp
 
 
@@ -280,6 +439,34 @@ def gru_recurrence_plain(xp: torch.Tensor, lengths: torch.Tensor,
         xp = gru_ops.flip_padded(xp, lengths)
     y = gru_ops.gru_recurrence(xp, lengths, wh, bh)[0]
     return gru_ops.flip_padded(y, lengths) if reverse else y
+
+
+def gru_proj_stop(x: torch.Tensor, wt: torch.Tensor, bi: torch.Tensor, *,
+                  bn: int = 0, passes: int = 3) -> torch.Tensor:
+    """``gru_proj``'s large route at tile width ``bn`` (one of PROJ_BNS; 0
+    for the shapes' choice) with ``passes`` TF32 passes, on the card only,
+    to time the tile choice and the passes: 3 is the route's function
+    (bitwise ``gru_proj`` on the large route at the same tile width), 1
+    forms hi*hi alone (one TF32 pass: another function). x (M, K) and
+    ``wt`` (:func:`pack_wi_tc`) on the card, K and N multiples of 4."""
+    if bn not in (0,) + PROJ_BNS or passes not in (1, 3):
+        raise ValueError(f"bn in {(0,) + PROJ_BNS} and passes 1 or 3, got "
+                         f"{bn}, {passes}")
+    if not x.is_cuda:
+        raise ValueError("gru_proj_stop times the card's kernel: it needs "
+                         f"CUDA tensors, got one on {x.device}")
+    M, K = x.shape
+    N = bi.shape[0]
+    for name, t in (("x", x), ("wt", wt), ("bi", bi)):
+        _check_f32(name, t, x.device)
+    if K % 4 or N % 4 or wt.shape != (2, N, _ceil(K, PROJ_BK) * PROJ_BK):
+        raise ValueError(f"K and N multiples of 4 and wt pack_wi_tc's, got "
+                         f"K={K} N={N} wt {tuple(wt.shape)}")
+    xp = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    PROJ_STOP.launch(_kernels.ptr(x), _kernels.ptr(wt), _kernels.ptr(bi),
+                     _kernels.ptr(xp), M, K, N, bn, passes,
+                     _kernels.stream_ptr(x.device))
+    return xp
 
 
 def gru_recurrence(xp: torch.Tensor, lengths: torch.Tensor,
@@ -321,7 +508,8 @@ def gru_recurrence(xp: torch.Tensor, lengths: torch.Tensor,
 def _layer(x: torch.Tensor, lengths: torch.Tensor,
            pack: LayerPack) -> torch.Tensor:
     """One layer through the two kernels: gru_proj, then gru_seq."""
-    xp = gru_proj(x.contiguous(), pack.wi, pack.bi, impl="kernel")
+    xp = gru_proj(x.contiguous(), pack.wi, pack.bi, impl="kernel",
+                  wt=pack.wt)
     return gru_recurrence(xp, lengths, pack, impl="kernel")
 
 

@@ -327,8 +327,27 @@ def test_float64_bar_cannot_refuse_base_one_pass_at_large_n():
     assert one["share_of_bar64"] < 1.0, one
 
 
+@pytest.fixture
+def steps_once(monkeypatch):
+    """cuda_bwd_dots' step sums (``_steps_plain``, under its plain, float64
+    and one-pass versions) with each distinct step product computed once
+    and then added in step order as there: the same adds of the same
+    products. dots3 repeats one product 512 times, and 512 small matmuls a
+    version, with every xdist worker's threads on the same cores, took
+    most of this file's time."""
+    def steps_plain(product, G, m, steps):
+        products, out = {}, None
+        for s in range(steps):
+            g = s % G
+            if g not in products:
+                products[g] = product(slice(g * m, g * m + m))
+            out = products[g] if out is None else out + products[g]
+        return out
+    monkeypatch.setattr(bd, "_steps_plain", steps_plain)
+
+
 @pytest.mark.parametrize("kind", ["tt", "nn"])
-def test_float64_bar_refuses_one_pass_at_dots3_full_size(kind):
+def test_float64_bar_refuses_one_pass_at_dots3_full_size(kind, steps_once):
     """dots3 at (M, K, N) = (384, 104, 256), 512 steps of one product: the
     bar against the f32 plain version (4 sqrt(n) 2^-24 of the sum of
     |terms|, n = 196,608) lets one TF32 pass through; the float64 bar

@@ -8,7 +8,8 @@ wave, emb 1-64, and its recomputed conv3 means bitwise K1's; K2's two kernels (g
 gru_seq) each against its plain version at B 1-256, D 180-384, H 16-1024
 (clusters of 1, 4 and 8, Wh from device memory at H 512 and 1024), both
 directions, lengths 0, 1 and T, bitwise repeatable, on a side stream, and
-refusing autograd;
+refusing autograd; gru_proj on both routes at ragged M, K and N, bitwise
+repeatable, its plan the Python mirror's;
 a train step through the kernels against the plain path; the serving
 modes' CNN kernels (K1-bf16, K4 int8, K5 im2col) on ragged and single
 frames, narrow embeddings, the inputs they refuse, and the Predictor in
@@ -21,7 +22,9 @@ they refuse; the CNN-front prototypes' kernels (the parity conv1 + pool1
 kernel in both layouts and its ablation stops, the front probe's stages,
 K1's debug stops) against their plain versions, and the four scripts' main
 at N=64; the forward rate probes' kernels (the matmul-rate kernel at small
-ragged shapes, the chained-dot kernel in every mode at K=384 and 512, the
+ragged shapes, the chained-dot kernel in every mode at K=384 and 512 (in
+bf16 every cluster size bitwise the check instantiation at
+1, 3 and 256 steps, and its plan), the
 layout kernel in every body) against their plain versions, their launch
 counts, the inputs they refuse, and the three scripts' main at small
 sizes; the backward-dot probes' kernels (tt, xp, nt, and nn with its two
@@ -307,6 +310,70 @@ def test_gru_proj_kernel_matches_plain(dev, B, D, H):
     assert torch.equal(got, again)  # a fixed summation order
     torch.testing.assert_close(got, cuda_gru.gru_proj_plain(x, wi, bi),
                                atol=1e-4, rtol=0)
+
+
+# both routes of gru_proj at ragged M (tiles, waves), ragged K (181: the
+# 4-byte copies; 212: a ragged last chunk) and N (1150)
+PROJ_CASES = [(M, K, N) for M in (1, 33, 257, 1000, 8193)
+              for K, N in ((212, 1152), (384, 1152), (181, 1150))]
+
+
+@pytest.mark.parametrize("route", cuda_gru.PROJ_ROUTES)
+@pytest.mark.parametrize("M,K,N", PROJ_CASES)
+def test_gru_proj_routes_match_plain(dev, route, M, K, N):
+    g = torch.Generator().manual_seed(M + K + N)
+    x = torch.randn(M, K, generator=g).to(dev)
+    wi = (torch.randn(K, N, generator=g) / K ** 0.5).to(dev)
+    bi = torch.randn(N, generator=g).to(dev)
+    before = cuda_gru.PROJ.launches
+    got = cuda_gru.gru_proj(x, wi, bi, impl="kernel", route=route)
+    again = cuda_gru.gru_proj(x, wi, bi, impl="kernel", route=route)
+    torch.cuda.synchronize()
+    assert cuda_gru.PROJ.launches == before + 2
+    assert torch.equal(got, again)  # a fixed summation order
+    torch.testing.assert_close(got, cuda_gru.gru_proj_plain(x, wi, bi),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("M,K", [(1000, 212), (5760, 384), (33, 212)])
+def test_gru_proj_stop_is_the_large_route(dev, M, K):
+    """The timing stop at the shapes' tile width with 3 passes is the
+    large route bitwise; each width is within the bar of the plain
+    version; one TF32 pass is another function, and counts apart."""
+    g = torch.Generator().manual_seed(M + K)
+    N = 1152
+    x = torch.randn(M, K, generator=g).to(dev)
+    wi = (torch.randn(K, N, generator=g) / K ** 0.5).to(dev)
+    bi = torch.randn(N, generator=g).to(dev)
+    wt = cuda_gru.pack_wi_tc(wi)
+    want = cuda_gru.gru_proj(x, wi, bi, impl="kernel", route="large", wt=wt)
+    before = cuda_gru.PROJ.launches
+    assert torch.equal(cuda_gru.gru_proj_stop(x, wt, bi), want)
+    plain = cuda_gru.gru_proj_plain(x, wi, bi)
+    for bn in cuda_gru.PROJ_BNS:
+        torch.testing.assert_close(cuda_gru.gru_proj_stop(x, wt, bi, bn=bn),
+                                   plain, atol=1e-4, rtol=0)
+    one = cuda_gru.gru_proj_stop(x, wt, bi, passes=1)
+    torch.cuda.synchronize()
+    assert cuda_gru.PROJ.launches == before
+    assert (one - plain).abs().max().item() > 1e-4
+    with pytest.raises(ValueError, match="bn in"):
+        cuda_gru.gru_proj_stop(x, wt, bi, bn=128)
+
+
+@pytest.mark.parametrize("M,K,N", [(32, 212, 1152), (32, 384, 1152),
+                                   (8192, 212, 1152), (32768, 384, 1152),
+                                   (5760, 212, 1152), (1000, 181, 1150)])
+def test_gru_proj_plan_is_the_mirror(dev, M, K, N):
+    """The kernel's route and tile are proj_geometry's; the large route
+    launches one persistent block a resident slot, at most one a tile."""
+    for route in (None,) + cuda_gru.PROJ_ROUTES:
+        pl = cuda_gru.proj_plan(M, K, N, route)
+        geo = cuda_gru.proj_geometry(M, K, N, route)
+        assert pl._asdict() == {**geo._asdict(), "blocks": pl.blocks}
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        want = geo.tiles if geo.route == "small" else min(geo.tiles, sms)
+        assert pl.blocks == want
 
 
 @pytest.mark.parametrize("dirs", ["fwd", "rev", "both"])
@@ -1258,6 +1325,47 @@ def test_dot_chain_kernel_matches_plain(dev, mode, K):
                 cuda_dot_chain.trace_plain(x, w, keep), x, w) > 0
 
 
+@pytest.mark.parametrize("K", cuda_dot_chain.KS)
+@pytest.mark.parametrize("steps", [1, 3, 256])
+def test_dot_chain_bf16_every_cluster_is_the_check(dev, K, steps):
+    """The bf16 chain at 1, 3 and 256 steps: the check instantiation
+    against the plain version, its trace's rounding (the f32- and f16-held
+    controls fail it), and the timed output of every cluster size bitwise
+    the checked one."""
+    rng = np.random.default_rng(K + steps)
+    x = torch.from_numpy(rng.integers(0, 256, (steps * 8, 128),
+                                      dtype=np.uint8)).to(dev)
+    w = cuda_dot_chain.make_weights("bf16", K).to(dev)
+    packed = cuda_dot_chain.pack_weights(w, "bf16")
+    cuda_dot_chain.check(x, w, "bf16", packed=packed)
+    out, _, trace = cuda_dot_chain.dot_chain(x, w, "bf16", packed=packed,
+                                             check=True)
+    for keep in (torch.float32, torch.float16):
+        assert cuda_dot_chain.rounding_outside(
+            cuda_dot_chain.trace_plain(x, w, keep), x, w) > 0
+    assert cuda_dot_chain.rounding_outside(trace, x, w) == 0
+    for c in cuda_dot_chain.BF16_CLUSTERS:
+        got = cuda_dot_chain.dot_chain(x, w, "bf16", packed=packed,
+                                       cluster=c)
+        assert torch.equal(got, out), c
+
+
+@pytest.mark.parametrize("K", cuda_dot_chain.KS)
+def test_dot_chain_bf16_plan_fits_the_card(dev, K):
+    geo = cuda_dot_chain.bf16_geometry(K)
+    chosen = cuda_dot_chain.plan(K)
+    assert chosen.cluster in cuda_dot_chain.BF16_CLUSTERS
+    assert 16 * chosen.sms_used >= 15 * chosen.sms or chosen.cluster == 1
+    for c in cuda_dot_chain.BF16_CLUSTERS:
+        pl = cuda_dot_chain.plan(K, c)
+        assert cuda_dot_chain.TILES % pl.cluster == 0 and pl.cluster == c
+        assert (pl.stages, pl.smem, pl.chunk) == (geo.stages, geo.smem,
+                                                  geo.chunk)
+        assert pl.clusters >= 1 and pl.sms_used == pl.clusters * c
+        if c > chosen.cluster:
+            assert 16 * pl.sms_used < 15 * pl.sms  # too few SMs
+
+
 def test_rate_probe_kernels_refuse_what_they_do_not_take(dev):
     x = torch.zeros((16, 128), dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError, match="K in"):
@@ -1268,6 +1376,11 @@ def test_rate_probe_kernels_refuse_what_they_do_not_take(dev):
         cuda_dot_chain.dot_chain(x, w, "int8", packed=w.float())
     with pytest.raises(ValueError, match="uint8"):
         cuda_dot_chain.dot_chain(x[:, :64], w, "int8")
+    with pytest.raises(ValueError, match="cluster"):
+        cuda_dot_chain.dot_chain(x, w, "int8", cluster=2)
+    with pytest.raises(ValueError, match="cluster"):
+        cuda_dot_chain.dot_chain(x, cuda_dot_chain.make_weights(
+            "bf16", 384).to(dev), "bf16", cluster=4)
     a, b = cuda_mm_rate.make_problem(8, 16, 8, dev)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_mm_rate.mm_rate(a.t(), b[:8].t().contiguous())
