@@ -91,32 +91,38 @@ prints no result line):
    ones, the chained-dot kernel (DC) in its four modes at K=384 and 512,
    and the layout kernel (LP) in its nine bodies, each against its plain
    version (DC in bf16 also product by product, with two controls that
-   must fail); then the main() of probe_int8, bench_fused_cnn (mxu, main
-   and ftile) and mosaic_micro at full size, with the launch counts over
-   each, whose rows give the kernels' times, bounds (a row above 100% of
-   its bound fails), and the plain versions' and library calls' times;
+   must fail; LP's product body, 3xTF32, also against the float64
+   version, with one TF32 pass as the control that must fail, its copied
+   lanes bitwise); then the main() of probe_int8, bench_fused_cnn (mxu,
+   main and ftile) and mosaic_micro at full size, with the launch counts
+   over each, whose rows give the kernels' times, bounds (a row above
+   100% of its bound fails), and the plain versions' and library calls'
+   times (MR's: one matmul of its stacked operands, the same work; LP's
+   product body: its product part, and with the copy the same work);
    and DC's bf16 kernel in each variant (clusters of 1, 2, 3 and 6
    blocks), each bitwise the checked output, with its plan
    (cluster, stages, shared memory) and time beside the bound;
 11. the backward-dot probes (silent_speech_tpu_torch/scripts): the tt, xp,
    nt, base and nn kernels against their plain versions at small ragged
-   shapes (rows 100, m 24, K 104, N 130; dots3's form at 7 steps), tt, xp,
-   base and nn (3xTF32 on the tensor cores) also against the float64
-   version, xp bitwise tt there and at dots2's full shapes, tt, xp, base
-   and nn twice on the same full-size inputs (bitwise equal), nt's tail
+   shapes (rows 100, m 24, K 104, N 130; dots3's form at 7 steps), all
+   five (3xTF32 on the tensor cores) also against the float64
+   version, xp bitwise tt there and at dots2's full shapes, all five
+   twice on the same full-size inputs (bitwise equal), nt's tail
    rows exact zeros, one TF32 pass outside the float64 bar (the control:
-   tt, xp and nn at full size, base at the small shape, where the bar's
-   derivation says it can refuse it), the four kernels' launch plans; then
+   tt, xp and nn at full size, nt at the small shape and dots1's three,
+   base at the small shape, where the bar's derivation says it can refuse
+   it), nt's 3-pass stop bitwise nt, the five kernels' launch plans; then
    the main() of proto_bwd_dots, proto_bwd_dots2 and proto_bwd_dots3 at
    full size, with the launch counts over each, whose rows hold each
    kernel against its plain version (the tensor-core kinds also float64)
-   at the scripts' shapes and give its time, bound (tt, xp, base and nn at
+   at the scripts' shapes and give its time, bound (every kind at
    the f32 FMAs and 3xTF32 together; a row above 100% of it fails), and
    the plain version's and the library call's times (the tensor-core
    kinds also the call that does the same work), and xp / tt at each of
    dots2's m (the transposing stage's cost); tt's mainloop by parts at
    dots1's K=512 (its stops: one TF32 pass, the fragment feed without
-   MMAs, the cp.async ring alone) beside torch.matmul;
+   MMAs, the cp.async ring alone) beside torch.matmul; nt at dots1's three
+   shapes in three TF32 passes and one, beside ``dy[:Gm] @ w.T``;
 12. the CTC family at full width (hidden 192, 3 GRU layers, emb 32, 27
    classes, random weights from the seed; ``check_ctc``): its forward on K1
    and K2 against the plain version at B=64, T=80 (log-probabilities within
@@ -1397,10 +1403,13 @@ def time_k2p(gru_p: dict, dev, card: str) -> dict:
     chosen width must be bitwise gru_proj's; all with the host's launches
     held out (held_ms); the plain version with CUDA events (TF32 off),
     torch.addmm (the library call, held_ms); the bound (:func:`proj_bound`);
-    the plan. Fails if the kernel runs under its bound. Returns {"D=..":
+    the plan; the large route's output against the float64 product, its
+    share of tf32_bars.bar64 (nt's bar, one step: measured, not held; the
+    route takes a tile's chunks in one wgmma sum, where nt adds the chunks'
+    sums in f32). Fails if the kernel runs under its bound. Returns {"D=..":
     {label: {key: value}}}."""
     from silent_speech_tpu_torch.infer.predictor import full_f32
-    from silent_speech_tpu_torch.ops import cuda_gru
+    from silent_speech_tpu_torch.ops import cuda_gru, tf32_bars
 
     gen = torch.Generator().manual_seed(SEED + 9)
     out = {}
@@ -1425,9 +1434,16 @@ def time_k2p(gru_p: dict, dev, card: str) -> dict:
             if not torch.equal(stop()(), large):
                 fail(f"gru_proj_stop M={M} D={D}: not bitwise the large "
                      "route's output")
+            x64, wi64, bi64 = x.double(), pack.wi.double(), pack.bi.double()
+            ref = x64 @ wi64 + bi64
             r = {"M": M, "route": pl.route, "tile": f"{pl.bm}x{pl.bn}",
                  "tiles": pl.tiles, "blocks": pl.blocks, "smem_bytes":
-                 pl.smem, "stages": pl.stages, "ms": held_ms(call(), dev)}
+                 pl.smem, "stages": pl.stages, "ms": held_ms(call(), dev),
+                 **{"large_" + k: v for k, v in tf32_bars.shares(
+                     large.double(), ref, tf32_bars.bar64(
+                         ref, x64.abs() @ wi64.abs() + bi64.abs()),
+                     "64").items()}}
+            del x64, ref
             for route in cuda_gru.PROJ_ROUTES:
                 r[route + "_ms"] = held_ms(call(route), dev)
             for bn in cuda_gru.PROJ_BNS:
@@ -1451,7 +1467,10 @@ def time_k2p(gru_p: dict, dev, card: str) -> dict:
                   f"{r['bound_ms']:.4f} ms, {r['bound_by']}); routes small "
                   f"{r['small_ms']:.4f}, large {r['large_ms']:.4f} ({widths}"
                   f"), large with one TF32 pass {r['large_one_pass_ms']:.4f}"
-                  f"; plain {r['plain_ms']:.4f}; torch.addmm "
+                  f"; the large route {r['large_share_of_bar64']:.3f} of the "
+                  f"float64 bar (max difference "
+                  f"{r['large_max_abs_err64']:.3e}); plain "
+                  f"{r['plain_ms']:.4f}; torch.addmm "
                   f"{r['library_ms']:.4f}: "
                   f"{'' if r['ms'] < r['library_ms'] else 'NOT '}faster "
                   f"x{r['library_ms'] / r['ms']:.2f} {card}")
@@ -1998,7 +2017,7 @@ def check_rate_probes(dev) -> dict:
     """The rate probes' kernels against their plain versions on the card
     (TF32 off): MR at the six probe shapes (reps 64, grid 64) and at small
     ragged ones (reps 9, grid 2), within 4 sqrt(reps K) 2^-24 of each
-    element's sum of |terms| (ops/cuda_mm_rate.BAR_DEPTH); DC in every mode
+    element's sum of |terms| (ops/tf32_bars.BAR_DEPTH); DC in every mode
     at K=384 and 512, 256 steps and 3, its check instantiation's output and
     moments bitwise for int8 / int8i and within 1e-5 (f32) or 2e-2 (bf16,
     rounding flips) of each value's sum of |terms|
@@ -2007,10 +2026,13 @@ def check_rate_probes(dev) -> dict:
     fail it: the chain held in f32 and in f16 between products), and the
     timed instantiation's output bitwise the check instantiation's; LP's
     nine bodies at 512 steps and 2,
-    bitwise but the product (4 sqrt(512) 2^-24 of each sum of |terms|;
-    scripts/mosaic_micro.check_body), the unaligned body on its written
-    lanes with zeros in the rest. Returns {kernel: {key: value}}; raises on
-    a failure."""
+    bitwise but the product (scripts/mosaic_micro.check_body), the
+    unaligned body on its written lanes with zeros in the rest; the product
+    body's copied lanes bitwise, its product within 4 sqrt(512) 2^-24 of
+    each sum of |terms| and within the float64 bar of
+    ops/cuda_layout_micro.compare_product, which one TF32 pass
+    (cuda_layout_micro.one_pass, the control) must fail. Returns {kernel:
+    {key: value}}; raises on a failure."""
     from silent_speech_tpu_torch.infer.predictor import full_f32
     from silent_speech_tpu_torch.ops import cuda_dot_chain as dc
     from silent_speech_tpu_torch.ops import cuda_layout_micro as lm
@@ -2061,6 +2083,22 @@ def check_rate_probes(dev) -> dict:
                 err = mosaic_micro.check_body(body, x)
                 note("layout_micro", f"{body} steps={steps}",
                      {"max_abs_err": err, "share_of_bar": 0.0})
+            r = lm.compare_product(lm.layout(lm.MATMUL, x), x)
+            control = lm.measure_product(lm.one_pass(x), x)
+            e = errs["layout_micro"]
+            for key, v in (("product_share_of_bar", r["share_of_bar"]),
+                           ("product_share_of_bar64", r["share_of_bar64"]),
+                           ("product_max_abs_err64", r["max_abs_err64"])):
+                e[key] = max(e.get(key, 0.0), v)
+            print(f"  layout_micro {lm.MATMUL} steps={steps}: product "
+                  f"{r['share_of_bar']:.3f} of the f32 bar, "
+                  f"{r['share_of_bar64']:.3f} of the float64 bar (max "
+                  f"difference {r['max_abs_err64']:.3e}); lanes "
+                  f"{lm.MM_N}..{lm.L - 1} bitwise; one TF32 pass "
+                  f"{control['share_of_bar64']:.3f} of the float64 bar")
+            if not control["share_of_bar64"] > 1.0:
+                fail(f"layout_micro {lm.MATMUL}: one TF32 pass passes the "
+                     "float64 bar, which then cannot tell it from 3xTF32")
             del x
     return errs
 
@@ -2137,16 +2175,17 @@ def check_bwd_dots(dev) -> dict:
     (TF32 off) at the small ragged shape BWD_SMALL (every kind; tt and nn
     also in dots3's form, one 24-row tile over 7 steps), within 4 sqrt(n)
     2^-24 of each element's sum of |terms| (ops/cuda_bwd_dots.compare; nt's
-    tail rows exact zeros), the tensor-core kinds (tt, xp, base, nn: 3xTF32)
-    also within compare's float64 bar; xp bitwise tt at BWD_SMALL and at
-    dots2's full shapes (m 384 and 1536); tt, xp, base and nn twice on the
-    same full-size inputs, bitwise equal; one TF32 pass
+    tail rows exact zeros), the tensor-core kinds (all five: 3xTF32) also
+    within compare's float64 bar; xp bitwise tt at BWD_SMALL and at
+    dots2's full shapes (m 384 and 1536); every kind twice on the same
+    full-size inputs, bitwise equal; one TF32 pass
     (cuda_bwd_dots.one_pass) outside the float64 bar, the control that the
     bar tells 3xTF32 from it, where compare's derivation says it can: tt's
-    and xp's dots2 (= dots1) shape, nn's dots3 shape, base at BWD_SMALL
-    (at its full shape the share is printed, not held); the four kernels'
-    launch plans at the full shapes. The scripts' rows hold every kernel
-    at the full shapes. Returns {kernel: {max_abs_err, max_share_of_bar[,
+    and xp's dots2 (= dots1) shape, nn's dots3 shape, nt's (384, 512, 256)
+    and BWD_SMALL (check_nt: dots1's other two), base at BWD_SMALL (at its
+    full shape the share is printed, not held); the five kernels' launch
+    plans at the full shapes. The scripts' rows hold every kernel at the
+    full shapes. Returns {kernel: {max_abs_err, max_share_of_bar[,
     max_share_of_bar64, plan]}}; raises on a failure."""
     from silent_speech_tpu_torch.infer.predictor import full_f32
     from silent_speech_tpu_torch.ops import cuda_bwd_dots as bd
@@ -2184,7 +2223,7 @@ def check_bwd_dots(dev) -> dict:
         if not torch.equal(out[rows // m * m:],
                            torch.zeros_like(out[rows // m * m:])):
             fail("bwd_dot_nt: the tail rows past G m are not zeros")
-        small = {"base": (p, w, {"m": m})}
+        small = {"base": (p, w, {"m": m}), "nt": (dy, w, {"m": m})}
         xp_is_tt(p, dy, m, "BWD_SMALL")
         p, dy, w = (bd.draw(rng, s, dev) for s in ((bd.ROWS, 512),
                                                     (bd.ROWS, 256),
@@ -2193,7 +2232,8 @@ def check_bwd_dots(dev) -> dict:
         d3 = dy[:384].contiguous()
         full = {"tt": (p, dy, {"m": 384}), "xp": (p, dy, {"m": 384}),
                 "base": (p, w, {"m": 384}),
-                "nn": (pk, d3, {"steps": bd.STEPS})}
+                "nn": (pk, d3, {"steps": bd.STEPS}),
+                "nt": (dy, w, {"m": 384})}
         for kind, (a, b, kw) in full.items():
             one, two = bd.run(kind, a, b, **kw), bd.run(kind, a, b, **kw)
             torch.cuda.synchronize()
@@ -2208,7 +2248,8 @@ def check_bwd_dots(dev) -> dict:
             shape = {"tt": (512, 256, bd.ROWS // 384),
                      "xp": (512, 256, bd.ROWS // 384),
                      "base": (384, 256, bd.ROWS // 384),
-                     "nn": (512, 256, bd.STEPS)}[kind]
+                     "nn": (512, 256, bd.STEPS),
+                     "nt": (bd.ROWS // 384 * 384, 512, 256)}[kind]
             pl = bd.plan(kind, *shape)
             errs[BWD_KIND_KERNEL[kind]]["plan"] = pl._asdict()
             print(f"  {BWD_KIND_KERNEL[kind]} {kind} plan at {shape}: {pl}")
@@ -2231,6 +2272,70 @@ def check_bwd_dots(dev) -> dict:
                          "float64 bar, which then cannot tell it from "
                          "3xTF32")
     return errs
+
+
+# dots1's three nt shapes (m, K, N), proto_bwd_dots.SHAPES
+NT_SHAPES = ((192, 104, 256), (384, 512, 256), (384, 256, 512))
+
+
+def check_nt(dev) -> dict:
+    """nt at dots1's three full shapes (98,304 rows): one TF32 pass
+    (cuda_bwd_dots.one_pass) outside compare's float64 bar at each (the
+    control; check_bwd_dots holds it at BWD_SMALL too), and the 3-pass
+    stop (``bwd_dot_nt_stop``) bitwise bwd_dot_nt. Returns
+    {"control_share_of_bar64": {shape: share}}; raises on a failure."""
+    from silent_speech_tpu_torch.infer.predictor import full_f32
+    from silent_speech_tpu_torch.ops import cuda_bwd_dots as bd
+
+    rng = np.random.default_rng(SEED + 14)
+    out = {"control_share_of_bar64": {}}
+    with torch.no_grad(), full_f32():
+        for m, K, N in NT_SHAPES:
+            dy, w = bd.draw(rng, (bd.ROWS, N), dev), bd.draw(rng, (K, N), dev)
+            key = f"{m}x{K}x{N}"
+            if not torch.equal(bd.bwd_dot_nt_stop(dy, w, m),
+                               bd.bwd_dot_nt(dy, w, m)):
+                fail(f"bwd_dot_nt_stop at {key} is not bwd_dot_nt bitwise")
+            control = bd.measure("nt", bd.one_pass("nt", dy, w, m=m), dy, w,
+                                 m=m)
+            out["control_share_of_bar64"][key] = control["share_of_bar64"]
+            print(f"  bwd_dot_nt {key}: the 3-pass stop bitwise bwd_dot_nt; "
+                  f"one TF32 pass {control['share_of_bar64']:.3f} of the "
+                  "float64 bar")
+            if not control["share_of_bar64"] > 1.0:
+                fail(f"bwd_dot nt {key}: one TF32 pass passes the float64 "
+                     "bar, which then cannot tell it from 3xTF32")
+            del dy, w
+    return out
+
+
+def time_nt_variants(dev, card: str) -> dict:
+    """bwd_dot_nt at dots1's three shapes with the host's launches held out:
+    the route, its kernel in one TF32 pass (hi*hi alone, another function:
+    what the second and third passes cost), beside ``dy[:Gm] @ w.T`` (f32,
+    TF32 off). Returns {shape: {variant: ms}}."""
+    from silent_speech_tpu_torch.infer.predictor import full_f32
+    from silent_speech_tpu_torch.ops import cuda_bwd_dots as bd
+
+    rng = np.random.default_rng(SEED + 15)
+    out = {}
+    with torch.no_grad(), full_f32():
+        for m, K, N in NT_SHAPES:
+            dy, w = bd.draw(rng, (bd.ROWS, N), dev), bd.draw(rng, (K, N), dev)
+            Gm = bd.ROWS // m * m
+            row = {"route": held_ms(lambda: bd.bwd_dot_nt(dy, w, m), dev,
+                                    RATE_ITERS),
+                   "one_pass": held_ms(
+                       lambda: bd.bwd_dot_nt_stop(dy, w, m, passes=1), dev,
+                       RATE_ITERS),
+                   "library_ms": held_ms(lambda: torch.matmul(dy[:Gm], w.T),
+                                         dev, RATE_ITERS)}
+            out[f"{m}x{K}x{N}"] = row
+            print(f"  bwd_dot_nt rows={bd.ROWS} (m,K,N)=({m},{K},{N}): "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items())
+                  + f" {card}")
+            del dy, w
+    return out
 
 
 def xp_is_tt(p: torch.Tensor, dy: torch.Tensor, m: int, where: str) -> None:
@@ -3196,10 +3301,15 @@ def main() -> int:
     # ---- 11. the backward-dot probes: kernels vs plain, the scripts
     print("backward-dot probes, kernel vs plain (TF32 off):")
     bwd_errs = check_bwd_dots(dev)
+    print("nt at dots1's shapes: its controls and 3-pass stop:")
+    bwd_errs["bwd_dot_nt"].update(check_nt(dev))
     print(f"backward-dot probes, the scripts at full size, {RATE_ITERS} timed "
           f"calls a row {card}:")
     _, bwd_ms = run_bwd_dot_scripts(card)
     bwd_ms["bwd_dot_tt"]["stages_ms"] = time_bwd_stages(dev, card)
+    print(f"nt in three TF32 passes and one, {RATE_ITERS} timed calls each "
+          f"{card}:")
+    bwd_ms["bwd_dot_nt"]["variants_ms"] = time_nt_variants(dev, card)
 
     # ---- 12. the CTC family, and the official trainer's bf16 and
     # host_data options

@@ -37,7 +37,8 @@
 //
 // tt, xp, nn and base (namespace tc): the products on the tensor cores as
 // 3xTF32 (m16n8k8 TF32 mma.sync, x = hi + lo, three MMAs a product, f32
-// sums; split and mma_tf32 from mma_tf32.cuh, as K1, K3 and K5), so the
+// sums; split and mma_tf32 from mma_tf32.cuh, as K1, K3 and K5; the
+// mainloop's pieces in tc_mainloop.cuh, shared with LP's product), so the
 // multiply-adds bound them at the f32 FMAs and 3xTF32 together (67 +
 // 495/3 = 232 TFLOP/s): 0.111 ms for 98,304 rows at K=512, N=256 (the
 // bytes, 302 MB, take 0.090 ms). A block of 8 warps computes a 128 x 128
@@ -78,10 +79,22 @@
 // second kernel adds them in step order. Its item indices are divided out
 // once an item, not every chunk (14% of its time on an H100).
 //
-// nt: csrc/sgemm_tile.cuh's simple SGEMM product on the CUDA cores (4 x 4
-// outputs a thread, chunks of 16 along the contraction in shared memory)
-// with loads of its own (ragged edges read as zeros), bound by the
-// multiply-adds at the f32 FMA peak (67 TFLOP/s).
+// nt: out = dy w^T holds the contraction (N) on the fast axis of both
+// operands, the one form here that wgmma takes directly (TF32 B only
+// K-major from shared memory), so it runs wgmma_mainloop.cuh's 3xTF32
+// mainloop, as gru_proj.cu's large route does: dy split hi / lo in
+// registers (wgmma's A), w split into hi and lo planes by a small kernel
+// at every call (ntk::nt_prep, which also writes the zero tail rows;
+// nothing is kept across calls) and brought into shared memory K-major in
+// the 128-byte swizzle. Persistent blocks of two warpgroups walk 128 x BN
+// tiles of out (BN 104 for K <= 104, else 128: dots1's K 104, 256, 512 in
+// whole tiles), chunks of 32 of N through a ring of 4 cp.async stages. A
+// chunk's wgmmas sum from zero and the chunks' sums are added in f32, TT's
+// order, which keeps compare()'s float64 bar by its derivation (one wgmma
+// sum over a tile's chunks read 6-11x its error on an H100).
+// bwd_dot_nt_stop runs one TF32 pass, to time the two extra passes.
+// Bound at 232 TFLOP/s: 0.111 ms at K=512, N=256 over 98,304 rows (the
+// bytes, 302 MB, 0.090 ms); at K=104, the bytes (142 MB, 0.042 ms).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -89,134 +102,13 @@
 #include <algorithm>
 #include <iterator>
 
-#include "mma_tf32.cuh"
-#include "sgemm_tile.cuh"
+#include "tc_mainloop.cuh"
+#include "wgmma_mainloop.cuh"
 
 
 namespace {
 
-using sgemm::BK;
-using sgemm::BM;
-using sgemm::BN;
-using sgemm::fma_chunk;
-using sgemm::Smem;  // a[c][mm]: the chunk of A', contraction-major; b[c][nn]
-using sgemm::store;
-using sgemm::THREADS;
-enum Layout { kTT = 0, kNN = 1, kXP = 2, kBASE = 3 };
-
-// a[c][mm] = A[m0 + mm, c0 + c]: A stored row-major (dy of nt)
-__device__ __forceinline__ void load_a_n(Smem& s, const float* __restrict__ A,
-                                         int lda, int c0, int c_end, int m0,
-                                         int m_end) {
-  for (int e = threadIdx.x; e < BM * BK; e += THREADS) {
-    const int mm = e / BK, c = e % BK, r = c0 + c, m = m0 + mm;
-    s.a[c][mm] = (r < c_end && m < m_end) ? A[(size_t)m * lda + r] : 0.f;
-  }
-}
-
-// b[c][nn] = B[n0 + nn, c0 + c]: B^T of a row-major B (w of nt)
-__device__ __forceinline__ void load_b_t(Smem& s, const float* __restrict__ B,
-                                         int ldb, int c0, int c_end, int n0,
-                                         int n_end) {
-  for (int e = threadIdx.x; e < BK * BN; e += THREADS) {
-    const int nn = e / BK, c = e % BK, r = c0 + c, n = n0 + nn;
-    s.b[c][nn] = (r < c_end && n < n_end) ? B[(size_t)n * ldb + r] : 0.f;
-  }
-}
-
-// The tensor-core kernels' (tt, xp, nn, base) block: a BM x BN output tile
-// in 8 warps (2 along M, 4 along N; a warp 64 x 32, MT x NT m16n8 tiles),
-// chunks of BK contraction rows, a ring of STAGES of them (xp: one fewer,
-// Ring::DEPTH)
 namespace tc {
-constexpr int BM = 128, BN = 128, BK = 32, STAGES = 4, THREADS = 256;
-constexpr int WARPS_M = 2, WARPS_N = THREADS / 32 / WARPS_M;
-constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
-constexpr int MT = WM / 16, NT = WN / 8;
-
-constexpr int OUTS = MT * NT * 4;  // a thread's outputs
-
-// How much of the mainloop runs (bwd_dot_tt_stop, to time its parts): all
-// of it; hi*hi alone (one TF32 pass, another function); the fragment loads
-// and splits without MMAs (each split value folded into the sums by one
-// XOR, so that none is dropped); the cp.async ring and its barriers alone
-enum Stop { kAll = 0, kOnePass = 1, kFeed = 2, kRing = 3 };
-
-// Dynamic shared memory, floats: the ring's DEPTH stages, each A's chunk
-// then B's [BK][B_LD] (A as it is stored: tt's and xp's p [BK][A_LD],
-// contraction-major; nn's pk and base's p [BM][A_LD]); then xp's two
-// transposed planes pt [BM][PT_LD] (the chunk the MMAs read, the next one
-// being written; the second plane fits beside a ring of 3 stages, not 4);
-// then the block's sum over its steps, [OUTS][THREADS] (a thread's own
-// column: no barrier), or base's column sums of its two warps along M,
-// [WARPS_M][BN]. The A fragments are read from a [contraction][row] stage
-// (tt) or a [row][contraction] plane (nn's and base's stage, xp's pt); the
-// strides keep a warp's loads, and xp's transpose, on 32 banks.
-template <int LAYOUT>
-struct Ring {
-  static constexpr bool A_ROWS = LAYOUT == kNN || LAYOUT == kBASE;
-  static constexpr int A_LD = A_ROWS ? BK + 4 : BM + 8;
-  static constexpr int A_FLOATS = A_ROWS ? BM * A_LD : BK * A_LD;
-  static constexpr int B_LD = BN + 8;
-  static constexpr int STAGE = A_FLOATS + BK * B_LD;
-  static constexpr int DEPTH = LAYOUT == kXP ? STAGES - 1 : STAGES;
-  static constexpr int TOTAL = DEPTH * STAGE;
-  static constexpr int PT_LD = BK + 4, PLANE = BM * PT_LD;
-  static constexpr int PT = LAYOUT == kXP ? 2 * PLANE : 0;
-  static constexpr int SUM = LAYOUT == kBASE ? WARPS_M * BN : OUTS * THREADS;
-  static constexpr int BYTES = (TOTAL + PT + SUM) * 4;
-  // the A fragments' plane: [row][contraction] but for tt, and its stride
-  static constexpr bool FRAG_ROWS = LAYOUT != kTT;
-  static constexpr int FRAG_LD = LAYOUT == kXP ? PT_LD : A_LD;
-  static_assert(A_LD % 32 == (A_ROWS ? 4 : 8) && PT_LD % 32 == 4 &&
-                    B_LD % 32 == 8 && A_FLOATS % 4 == 0 && STAGE % 4 == 0 &&
-                    DEPTH >= 3,
-                "conflict-free fragment loads, 16-byte aligned copies, a "
-                "chunk landing while the one before it is read");
-  static_assert(BYTES <= 232448, "a block's shared memory holds it");
-};
-
-// dst[r][c] (row stride ld) = src[(r0 + r) lds + c0 + c] for r < ROWS,
-// c < COLS, by cp.async of VEC floats a copy (4: 16 bytes, src 16-byte
-// aligned), zeros where r0 + r >= r_end or c0 + c >= c_end
-template <int ROWS, int COLS, int VEC>
-__device__ __forceinline__ void copy_tile(float* dst, int ld,
-                                          const float* __restrict__ src,
-                                          int lds, int r0, int r_end, int c0,
-                                          int c_end) {
-  constexpr int PER_ROW = COLS / VEC, N = ROWS * PER_ROW;
-  static_assert(COLS % VEC == 0 && N % THREADS == 0, "whole copies a thread");
-#pragma unroll
-  for (int i = 0; i < N / THREADS; ++i) {
-    const int e = threadIdx.x + i * THREADS;
-    const int r = e / PER_ROW, c = (e % PER_ROW) * VEC;
-    const int row = r0 + r, col = c0 + c;
-    const int n = row < r_end ? max(0, min(VEC, c_end - col)) : 0;
-    const float* g = n > 0 ? src + (size_t)row * lds + col : src;
-    if constexpr (VEC == 4)
-      cp_async16_fill(dst + r * ld + c, g, 4 * n);
-    else
-      cp_async4_fill(dst + r * ld + c, g, 4 * n);
-  }
-}
-
-// A's and B's chunk of contraction rows [c0, c0 + BK), zeros from c_end,
-// into the stage at sa; A's rows (or columns) [m0, m0 + BM), zeros from Mo
-template <int LAYOUT, int VEC>
-__device__ __forceinline__ void load_chunk(float* sa,
-                                           const float* __restrict__ A,
-                                           int lda,
-                                           const float* __restrict__ B,
-                                           int ldb, int c0, int c_end, int m0,
-                                           int Mo, int n0, int No) {
-  using R = Ring<LAYOUT>;
-  if constexpr (R::A_ROWS)
-    copy_tile<BM, BK, VEC>(sa, R::A_LD, A, lda, m0, Mo, c0, c_end);
-  else
-    copy_tile<BK, BM, VEC>(sa, R::A_LD, A, lda, c0, c_end, m0, Mo);
-  copy_tile<BK, BN, VEC>(sa + R::A_FLOATS, R::B_LD, B, ldb, c0, c_end, n0,
-                         No);
-}
 
 // xp's transpose, a pass of its own: pt[mm][c] = a[c][mm] for a stage's
 // chunk (the card's jnp.swapaxes). A warp moves 32 rows mm by 4
@@ -237,87 +129,6 @@ __device__ __forceinline__ void transpose_chunk(float* pt, const float* sa) {
   }
 }
 
-// acc += the chunk product for warp (wm, wn), A's fragments from sa (as
-// Ring::FRAG_ROWS says), B's from the stage's sb: each fragment value
-// split hi/lo as it is loaded, then three passes over the warp's m16n8
-// tiles, lo*hi, hi*lo and hi*hi (mma_3xtf32's order), so that an MMA waits
-// on the one 16 before it; m16 tiles at or past the live rows (mt_live on)
-// are skipped
-template <int LAYOUT, int STOP>
-__device__ __forceinline__ void mma_chunk(float (&acc)[MT][NT][4],
-                                          const float* sa, const float* sb,
-                                          int wm, int wn, int mt_live) {
-  using R = Ring<LAYOUT>;
-  if constexpr (STOP == kRing) return;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int k8 = 0; k8 < BK; k8 += 8) {
-    uint32_t ah[MT][4], al[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      const int r = wm * WM + mt * 16 + g;
-      float v[4];
-      if constexpr (!R::FRAG_ROWS) {  // a[c][mm]
-        const float* s = sa + (k8 + t) * R::A_LD + r;
-        v[0] = s[0];
-        v[1] = s[8];
-        v[2] = s[4 * R::A_LD];
-        v[3] = s[4 * R::A_LD + 8];
-      } else {  // a[mm][c]
-        const float* s = sa + r * R::FRAG_LD + k8 + t;
-        v[0] = s[0];
-        v[1] = s[8 * R::FRAG_LD];
-        v[2] = s[4];
-        v[3] = s[8 * R::FRAG_LD + 4];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) split(v[i], ah[mt][i], al[mt][i]);
-    }
-    uint32_t bh[NT][2], bl[NT][2];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const float* s = sb + (k8 + t) * R::B_LD + wn * WN + nt * 8 + g;
-      split(s[0], bh[nt][0], bl[nt][0]);
-      split(s[4 * R::B_LD], bh[nt][1], bl[nt][1]);
-    }
-    if constexpr (STOP == kFeed) {
-      uint32_t x = 0;
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) x ^= ah[mt][i] ^ al[mt][i];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        x ^= bh[nt][0] ^ bh[nt][1] ^ bl[nt][0] ^ bl[nt][1];
-      acc[0][0][0] += __uint_as_float(x & 0x007fffffu);
-      continue;
-    }
-#pragma unroll
-    for (int pass = STOP == kOnePass ? 2 : 0; pass < 3; ++pass)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          if (mt >= mt_live) continue;
-          if (pass == 0)
-            mma_tf32(acc[mt][nt], al[mt], bh[nt][0], bh[nt][1]);
-          else if (pass == 1)
-            mma_tf32(acc[mt][nt], ah[mt], bl[nt][0], bl[nt][1]);
-          else
-            mma_tf32(acc[mt][nt], ah[mt], bh[nt][0], bh[nt][1]);
-        }
-  }
-}
-
-// sum += chunk, chunk = 0, element by element
-__device__ __forceinline__ void add_chunk(float (&sum)[MT][NT][4],
-                                          float (&chunk)[MT][NT][4]) {
-#pragma unroll
-  for (int e = 0; e < OUTS; ++e) {
-    (&sum[0][0][0])[e] += (&chunk[0][0][0])[e];
-    (&chunk[0][0][0])[e] = 0.f;
-  }
-}
 
 // tt, nn and xp: block (output tile blockIdx.x, group blockIdx.y): the sum
 // over steps [group * per_group, ...) of A'_g B_g, contraction rows
@@ -518,6 +329,34 @@ base_kernel(const float* __restrict__ p, const float* __restrict__ w,
 
 }  // namespace tc
 
+using tc::THREADS;
+
+// ---------------------------------------------------------------- nt
+
+// nt runs wgmma_mainloop.cuh's mainloop with a = dy and bt = w's hi and lo
+// planes, which nt_prep makes at every call
+namespace ntk {
+// wt (2, K, NP) = w (K, N) split hi (plane 0) and lo (plane 1) as the
+// mainloop splits dy, zeros for N <= n < NP; and out's rows [Gm, rows) zeros
+__global__ void __launch_bounds__(256)
+nt_prep(const float* __restrict__ w, float* __restrict__ wt,
+        float* __restrict__ out, int K, int N, int NP, int Gm, int rows) {
+  const size_t planes = (size_t)K * NP, tail = (size_t)(rows - Gm) * K;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+       i < planes + tail; i += (size_t)gridDim.x * blockDim.x) {
+    if (i < planes) {
+      const int k = (int)(i / NP), n = (int)(i % NP);
+      uint32_t hi = 0, lo = 0;
+      if (n < N) split(w[(size_t)k * N + n], hi, lo);
+      wt[i] = __uint_as_float(hi);
+      wt[planes + i] = __uint_as_float(lo);
+    } else {
+      out[(size_t)Gm * K + (i - planes)] = 0.f;
+    }
+  }
+}
+}  // namespace ntk
+
 // groups() sizes the groups of a steps kernel to one wave of one block an
 // SM (the launch bounds let a thread have the registers of two 64-float
 // accumulators; the ring, xp's planes and the block's sum take 200-204 KB
@@ -553,26 +392,6 @@ __global__ void reduce_groups(const float* __restrict__ partial,
   float v = partial[i];
   for (int g = 1; g < groups; ++g) v += partial[(size_t)g * n + i];
   out[i] = v;
-}
-
-// out (rows, K) = dy (rows, N) w^T for the rows below Gm, zeros past them
-__global__ void __launch_bounds__(THREADS)
-nt_kernel(const float* __restrict__ dy, const float* __restrict__ w,
-          float* __restrict__ out, int rows, int Gm, int N, int K) {
-  __shared__ __align__(16) Smem s;
-  const int tiles_k = (K + BN - 1) / BN;
-  const int m0 = (blockIdx.x / tiles_k) * BM, n0 = (blockIdx.x % tiles_k) * BN;
-  float acc[4][4] = {};
-  if (m0 < Gm) {
-    for (int c0 = 0; c0 < N; c0 += BK) {
-      load_a_n(s, dy, N, c0, N, m0, Gm);
-      load_b_t(s, w, N, c0, N, n0, K);
-      __syncthreads();
-      fma_chunk(acc, s);
-      __syncthreads();
-    }
-  }
-  store(acc, out, K, rows, K, m0, n0);
 }
 
 // out[n] = the sum over steps g, in order, of the step's row tiles' column
@@ -665,41 +484,110 @@ int launch_steps(const void* a, int lda, const void* b, int ldb, void* out,
   return (int)cudaGetLastError();
 }
 
-// out[0..9] as bwd_dot_plan gives them for LAYOUT; `kernel`'s occupancy
-template <int LAYOUT, typename Kernel>
-int plan_fields(Kernel kernel, int tiles, int groups, int per, int* out) {
-  using R = tc::Ring<LAYOUT>;
-  const int smem = R::BYTES;
-  const int fields[] = {tc::BM, tc::BN, tc::BK, tc::THREADS, R::DEPTH,
-                        smem,   tiles,  groups, per};
+// out[0..9] as bwd_dot_plan gives them: the tile's rows and columns, the
+// chunk, threads, stages and shared memory bytes of `kernel`, then its
+// tiles, groups and steps a group, and its occupancy
+template <typename Kernel>
+int plan_fields(Kernel kernel, int bm, int bn, int stages, int smem,
+                int tiles, int groups, int per, int* out) {
+  const int fields[] = {bm, bn, tc::BK, THREADS, stages, smem, tiles, groups,
+                        per};
   std::copy(std::begin(fields), std::end(fields), out);
   cudaError_t err = allow_smem(kernel, smem);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[9], kernel,
-                                                        tc::THREADS, smem);
+                                                        THREADS, smem);
   return (int)err;
 }
 
 template <int LAYOUT>
 int plan(int Mo, int No, int steps, int* out) {
+  using R = tc::Ring<LAYOUT>;
   const int g = groups(Mo, No, steps);
-  return plan_fields<LAYOUT>(steps_entry<LAYOUT>(true), tiles(Mo, No), g,
-                             (steps + g - 1) / g, out);
+  return plan_fields(steps_entry<LAYOUT>(true), tc::BM, tc::BN, R::DEPTH,
+                     R::BYTES, tiles(Mo, No), g, (steps + g - 1) / g, out);
 }
 
 int plan_base(int m, int N, int G, int* out) {
+  using R = tc::Ring<kBASE>;
   const int items = base_items(m, N, G), blocks = std::min(items, kSMs);
-  return plan_fields<kBASE>(base_entry(true), items, blocks,
-                            (items + blocks - 1) / blocks, out);
+  return plan_fields(base_entry(true), tc::BM, tc::BN, R::DEPTH, R::BYTES,
+                     items, blocks, (items + blocks - 1) / blocks, out);
+}
+
+// nt (layout 4 of the C interface): its tile width, 104 columns of out
+// where K <= 104 (dots1's K = 104 in one tile), else 128 (K = 256 and 512
+// in whole tiles); N padded to whole chunks in w's planes
+constexpr int kNT = 4;
+
+int nt_bn(int K) { return K <= 104 ? 104 : 128; }
+int nt_np(int N) { return (N + wgl::BK - 1) / wgl::BK * wgl::BK; }
+int nt_smem(int bn) {
+  return bn == 104 ? wgl::Geo<104>::BYTES : wgl::Geo<128>::BYTES;
+}
+int nt_stages(int bn) {
+  return bn == 104 ? wgl::Geo<104>::STAGES : wgl::Geo<128>::STAGES;
+}
+int nt_tiles(int Gm, int K) {
+  const int bn = nt_bn(K);
+  return (Gm + wgl::BM - 1) / wgl::BM * ((K + bn - 1) / bn);
+}
+
+using NtKernel = void (*)(const float*, const float*, const float*, float*,
+                          int, int, int, int);
+
+// the route's kernel (VEC 4 or 1), or at VEC 4 bwd_dot_nt_stop's passes;
+// each chunk of N from zero, the chunks added in f32
+template <int BN>
+NtKernel nt_entry_bn(bool vec, int passes) {
+  using wgl::kChunks;
+  using wgl::wgmma_3xtf32;
+  if (!vec) return wgmma_3xtf32<BN, 1, 3, kChunks, false>;
+  return passes == 1 ? wgmma_3xtf32<BN, 4, 1, kChunks, false>
+                     : wgmma_3xtf32<BN, 4, 3, kChunks, false>;
+}
+NtKernel nt_entry(int K, bool vec, int passes = 3) {
+  return nt_bn(K) == 104 ? nt_entry_bn<104>(vec, passes)
+                         : nt_entry_bn<128>(vec, passes);
+}
+
+// nt_prep (w's planes into wt, out's tail rows zeros), then `kernel` in
+// persistent blocks, at most one an SM
+int launch_nt(const void* dy, const void* w, void* out, void* wt, int rows,
+              int Gm, int N, int K, NtKernel kernel, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int NP = nt_np(N), smem = nt_smem(nt_bn(K));
+  const long long work = (long long)K * NP + (long long)(rows - Gm) * K;
+  const int prep_blocks = (int)std::min<long long>((work + 255) / 256,
+                                                   4 * kSMs);
+  ntk::nt_prep<<<prep_blocks, 256, 0, st>>>(
+      static_cast<const float*>(w), static_cast<float*>(wt),
+      static_cast<float*>(out), K, N, NP, Gm, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<std::min(nt_tiles(Gm, K), kSMs), wgl::THREADS, smem, st>>>(
+      static_cast<const float*>(dy), static_cast<const float*>(wt), nullptr,
+      static_cast<float*>(out), Gm, N, K, NP);
+  return (int)cudaGetLastError();
+}
+
+int plan_nt(int Gm, int K, int* out) {
+  const int tiles = nt_tiles(Gm, K), blocks = std::min(tiles, kSMs);
+  return plan_fields(nt_entry(K, true), wgl::BM, nt_bn(K),
+                     nt_stages(nt_bn(K)), nt_smem(nt_bn(K)), tiles, blocks,
+                     (tiles + blocks - 1) / blocks, out);
 }
 
 }  // namespace
 
 // The scratch floats that bwd_dot_tt (layout 0), bwd_dot_nn (1),
-// bwd_dot_xp (2) or bwd_dot_base (3) needs for `partial` at these shapes:
-// a steps kernel's (0-2) for Mo x No outputs over `steps` steps; base's
-// (3) for Mo = m rows a step, No = N columns and steps = G steps, a row of
-// N a 128-row tile of a step; -1 for an unknown layout. Launches nothing.
+// bwd_dot_xp (2), bwd_dot_base (3) or bwd_dot_nt (4) needs for `partial`
+// (nt: `wt`) at these shapes: a steps kernel's (0-2) for Mo x No outputs
+// over `steps` steps; base's (3) for Mo = m rows a step, No = N columns
+// and steps = G steps, a row of N a 128-row tile of a step; nt's (4) for
+// w (Mo = K, No = N), its hi and lo planes with N padded to 32 (steps not
+// read); -1 for an unknown layout. Launches nothing.
 extern "C" long long bwd_dot_scratch(int layout, int Mo, int No, int steps) {
   if (Mo < 1 || No < 1 || steps < 1) return 0;
   switch (layout) {
@@ -707,6 +595,7 @@ extern "C" long long bwd_dot_scratch(int layout, int Mo, int No, int steps) {
     case kNN:
     case kXP: return scratch(Mo, No, steps);
     case kBASE: return (long long)steps * ((Mo + tc::BM - 1) / tc::BM) * No;
+    case kNT: return 2LL * Mo * nt_np(No);
     default: return -1;
   }
 }
@@ -714,10 +603,11 @@ extern "C" long long bwd_dot_scratch(int layout, int Mo, int No, int steps) {
 // The launch plan of `layout`'s kernel (shapes as bwd_dot_scratch takes
 // them), out[0..9]: the output tile's rows and columns, the contraction
 // rows a chunk, threads a block, ring stages, dynamic shared memory bytes,
-// output tiles (base: its items, row tiles x column tiles), groups (base:
-// its persistent blocks), steps a group (base: items a block, at most),
-// and the blocks an SM holds by the occupancy query (groups() and base
-// assume 1). Returns the cudaError_t of the query.
+// output tiles (base: its items, row tiles x column tiles), groups (base
+// and nt: their persistent blocks), steps a group (base and nt: items or
+// tiles a block, at most), and the blocks an SM holds by the occupancy
+// query (groups(), base and nt assume 1); nt's for Mo = G m rows, No = K
+// columns of out (steps not read). Returns the cudaError_t of the query.
 extern "C" int bwd_dot_plan(int layout, int Mo, int No, int steps, int* out) {
   if (Mo < 1 || No < 1 || steps < 1) return (int)cudaErrorInvalidValue;
   switch (layout) {
@@ -725,6 +615,7 @@ extern "C" int bwd_dot_plan(int layout, int Mo, int No, int steps, int* out) {
     case kNN: return plan<kNN>(Mo, No, steps, out);
     case kXP: return plan<kXP>(Mo, No, steps, out);
     case kBASE: return plan_base(Mo, No, steps, out);
+    case kNT: return plan_nt(Mo, No, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -768,17 +659,32 @@ extern "C" int bwd_dot_xp(const void* p, const void* dy, void* out,
                            stream);
 }
 
-// dy: (rows, N) f32, w: (K, N) f32, out: (rows, K) f32, contiguous;
-// Gm = G m <= rows: out rows below Gm are dy w^T, the rest zeros
-extern "C" int bwd_dot_nt(const void* dy, const void* w, void* out, int rows,
-                          int Gm, int N, int K, void* stream) {
-  if (rows < 1 || Gm < 0 || Gm > rows || N < 1 || K < 1)
+// dy: (rows, N) f32, w: (K, N) f32, out: (rows, K) f32, contiguous; wt:
+// bwd_dot_scratch(4, K, N, 1) floats, 16-byte aligned; 1 <= Gm = G m <=
+// rows: out rows below Gm are dy w^T, the rest zeros. Returns the
+// cudaError_t of the launches.
+extern "C" int bwd_dot_nt(const void* dy, const void* w, void* out, void* wt,
+                          int rows, int Gm, int N, int K, void* stream) {
+  if (rows < 1 || Gm < 1 || Gm > rows || N < 1 || K < 1 ||
+      (uintptr_t)wt % 16)
     return (int)cudaErrorInvalidValue;
-  const int blocks = ((rows + BM - 1) / BM) * ((K + BN - 1) / BN);
-  nt_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(dy), static_cast<const float*>(w),
-      static_cast<float*>(out), rows, Gm, N, K);
-  return (int)cudaGetLastError();
+  return launch_nt(dy, w, out, wt, rows, Gm, N, K,
+                   nt_entry(K, vec4(dy, N, out, K)), stream);
+}
+
+// bwd_dot_nt's launch with `passes` 3 (bwd_dot_nt's function, bitwise
+// it) or 1 (hi*hi alone, one TF32 pass, another function), to time what
+// the two extra passes cost; rows of 16 bytes only (N and K multiples of
+// 4). Arguments as bwd_dot_nt's.
+extern "C" int bwd_dot_nt_stop(const void* dy, const void* w, void* out,
+                               void* wt, int rows, int Gm, int N, int K,
+                               int passes, void* stream) {
+  if (rows < 1 || Gm < 1 || Gm > rows || N < 1 || K < 1 ||
+      (uintptr_t)wt % 16 || (passes != 1 && passes != 3) ||
+      !vec4(dy, N, out, K))
+    return (int)cudaErrorInvalidValue;
+  return launch_nt(dy, w, out, wt, rows, Gm, N, K,
+                   nt_entry(K, true, passes), stream);
 }
 
 // pk: (K, M) f32, dy: (M, N) f32, out: (K, N) f32 = the sum over steps of

@@ -24,26 +24,22 @@
 //
 // large M: what bounds it is the multiply-adds (2.0 G at M=8192, K=212: at
 // the f32 FMAs and 3xTF32 together, 67 + 495/3 = 232 TFLOP/s, 0.0172 ms;
-// the bytes, 44.6 MB, 0.0133 ms). They run on the tensor cores as 3xTF32
-// (x = hi + lo, each rounded as csrc/mma_tf32.cuh's split; lo*hi, hi*lo
-// and hi*hi, f32 sums) on wgmma m64nNk8 TF32, which reads B from shared
-// memory K-major only, and whose operands' bytes, at 4 a value and three
-// passes, are what shared memory can serve: so Wi^T is split into hi and lo
-// planes once, when the weights are packed (ops/cuda_gru.pack_wi_tc), and
-// x is split in registers, wgmma's A. A block of two warpgroups computes a
-// 128 x BN tile (BN 192 or 144, whichever leaves the fewer waves of tiles
-// on 132 SMs: 1152 = 6 x 192 = 8 x 144), each warpgroup 64 rows; chunks of
-// 32 k come through a ring of cp.async stages (the planes' 128-byte rows
-// into wgmma's 128-byte swizzle, x's rows raw, zeros past M and K), each
-// warp loads its 16 rows' fragments from x's raw rows and splits them (two
-// register sets: chunk t's are split while chunk t - 1's wgmmas run), and
-// one f32 sum takes a tile's chunks. Persistent blocks, one an SM, walk
-// the tiles (column tile the fast index, so that blocks at work together
-// read the same x rows) as one stream of chunks, so that a tile's bias
-// epilogue runs while the next tile's chunks land. (An mma.sync 3xTF32
-// version, the tensor-core kernels' mainloop elsewhere in this package,
-// was slower than torch.addmm here: its fragment loads and splits, not its
-// MMAs, took most of its time.)
+// the bytes, 44.6 MB, 0.0133 ms). They run wgmma_mainloop.cuh's 3xTF32
+// mainloop (x = hi + lo, each rounded as csrc/mma_tf32.cuh's split; lo*hi,
+// hi*lo and hi*hi, f32 sums) on wgmma m64nNk8 TF32, which reads B from
+// shared memory K-major only, and whose operands' bytes, at 4 a value and
+// three passes, are what shared memory can serve: so Wi^T is split into hi
+// and lo planes once, when the weights are packed (ops/cuda_gru.pack_wi_tc),
+// and x is split in registers, wgmma's A. A block of two warpgroups
+// computes a 128 x BN tile (BN 192 or 144, whichever leaves the fewer waves
+// of tiles on 132 SMs: 1152 = 6 x 192 = 8 x 144), each warpgroup 64 rows;
+// chunks of 32 k come through a ring of cp.async stages, and one wgmma f32
+// sum takes a tile's chunks (the chunked order, nt's, needs a second
+// accumulator that BN 192 has no registers for); the tile's epilogue adds
+// bi. Persistent blocks, one an SM, walk the tiles as one stream of
+// chunks. (An mma.sync 3xTF32 version, the tensor-core kernels' mainloop
+// elsewhere in this package, was slower than torch.addmm here: its
+// fragment loads and splits, not its MMAs, took most of its time.)
 //
 // Both routes sum each output over k in a fixed order: repeated calls are
 // bitwise equal. Where K or N is not a multiple of 4 (or a pointer not 16-
@@ -58,7 +54,7 @@
 #include <iterator>
 
 #include "mma_tf32.cuh"
-#include "wgmma.cuh"
+#include "wgmma_mainloop.cuh"
 
 namespace {
 
@@ -201,261 +197,6 @@ gru_proj_small(const float* __restrict__ x, const float* __restrict__ w,
 }
 }  // namespace smallm
 
-// ---------------------------------------------------------- large M
-
-namespace wg {
-constexpr int BM = 128, BK = 32, ROW = 4 * BK;  // a chunk's k: 128 bytes
-constexpr int A_LD = BK + 4;  // x's raw rows (4 mod 32: fragment loads)
-constexpr int ALIGN = 1024;   // the 128-byte swizzle's period
-constexpr int MAX_STAGES = 4;
-
-// a stage: Wi^T's hi and lo planes of the tile's BN columns for 32 k
-// ([BN][ROW], K-major, 16-byte unit u of row n at u ^ (n % 8): wgmma's
-// 128-byte swizzle), then x's raw chunk [BM][A_LD]
-template <int BN>
-struct Geo {
-  static constexpr int B_PLANE = BN * ROW, A_RAW = BM * A_LD * 4;
-  static constexpr int STAGE = 2 * B_PLANE + A_RAW;
-  static constexpr int FIT = (232448 - ALIGN) / STAGE;
-  static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
-  static constexpr int BYTES = ALIGN + STAGES * STAGE;
-  static constexpr int NACC = BN / 2;  // a thread's sums (64 x BN a group)
-  static_assert(STAGES >= 3 && B_PLANE % ALIGN == 0 && STAGE % ALIGN == 0,
-                "a ring of 3, planes on the swizzle's period");
-};
-
-// keeps registers live and in place across the asynchronous wgmmas
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// this warp's share of d (64 x 192 f32) = A B (scale_d 0) or d + A B:
-// wgmma m64n192k8 tf32, A (this warp's 16 rows) in registers, B
-// K-major in shared memory
-__device__ __forceinline__ void wgmma_n192(float* d, const uint32_t (&a)[4],
-                                          uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %101, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k8.f32.tf32.tf32 {"
-      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
-      "%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
-      "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
-      "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
-      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,"
-      "%60,%61,%62,%63,%64,%65,%66,%67,%68,%69,%70,%71,"
-      "%72,%73,%74,%75,%76,%77,%78,%79,%80,%81,%82,%83,"
-      "%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95"
-      "}, {%96,%97,%98,%99}, %100, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-// this warp's share of d (64 x 144 f32) = A B (scale_d 0) or d + A B:
-// wgmma m64n144k8 tf32, A (this warp's 16 rows) in registers, B
-// K-major in shared memory
-__device__ __forceinline__ void wgmma_n144(float* d, const uint32_t (&a)[4],
-                                          uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %77, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n144k8.f32.tf32.tf32 {"
-      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
-      "%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
-      "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
-      "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
-      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,"
-      "%60,%61,%62,%63,%64,%65,%66,%67,%68,%69,%70,%71"
-      "}, {%72,%73,%74,%75}, %76, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-template <int BN, int PASSES>
-__device__ __forceinline__ void mma_chunk(float (&acc)[Geo<BN>::NACC],
-                                          const uint32_t (&ah)[4][4],
-                                          const uint32_t (&al)[4][4],
-                                          uint32_t b_hi, int first) {
-  constexpr uint32_t LO = Geo<BN>::B_PLANE;
-#pragma unroll
-  for (int k8 = 0; k8 < BK / 8; ++k8) {
-    const uint64_t bh = wgmma_desc(b_hi + 32 * k8),
-                   bl = wgmma_desc(b_hi + LO + 32 * k8);
-    const int scale = !first || k8 > 0;
-    if constexpr (BN == 192) {
-      if constexpr (PASSES == 3) {
-        wgmma_n192(acc, al[k8], bh, scale);
-        wgmma_n192(acc, ah[k8], bl, 1);
-        wgmma_n192(acc, ah[k8], bh, 1);
-      } else {
-        wgmma_n192(acc, ah[k8], bh, scale);
-      }
-    } else {
-      if constexpr (PASSES == 3) {
-        wgmma_n144(acc, al[k8], bh, scale);
-        wgmma_n144(acc, ah[k8], bl, 1);
-        wgmma_n144(acc, ah[k8], bh, 1);
-      } else {
-        wgmma_n144(acc, ah[k8], bh, scale);
-      }
-    }
-  }
-}
-
-// persistent blocks walk the tiles (tile i: rows (i / tiles_n) BM, columns
-// (i % tiles_n) BN) as one stream of 32-k chunks through a ring of cp.async
-// stages: Wi^T's hi and lo planes (packed once, pack_wi_tc) copied into
-// their swizzled places, x's raw rows; warp group h (warps 4 h .. 4 h + 3)
-// multiplies rows [64 h, 64 h + 64) of the tile: each warp loads its 16
-// rows' fragments of the chunk from x's raw rows and splits them hi / lo
-// in registers (two register sets: chunk t's are loaded while chunk t - 1's
-// wgmmas still read theirs), then a k8 step takes three wgmmas (lo*hi,
-// hi*lo, hi*hi), the tile's chunks into one f32 sum; a tile's last chunk
-// ends in its epilogue, sum + bi to xp
-template <int BN, int VEC, int PASSES>
-__global__ void __launch_bounds__(THREADS, 1)
-gru_proj_large(const float* __restrict__ x, const float* __restrict__ wt,
-          const float* __restrict__ bias, float* __restrict__ xp, int M,
-          int K, int N, int KP) {
-  using G = Geo<BN>;
-  extern __shared__ __align__(128) uint8_t smem_raw[];
-  uint8_t* ring = smem_raw + ((ALIGN - (smem_u32(smem_raw) & (ALIGN - 1))) &
-                              (ALIGN - 1));
-  const int tiles_n = (N + BN - 1) / BN;
-  const int tiles = (M + BM - 1) / BM * tiles_n, chunks = KP / BK;
-  const int mine = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
-  const int count = mine * chunks;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int h = warp / 4, wl = warp % 4, g = lane >> 2, t4 = lane & 3;
-  int load_tile = blockIdx.x, load_k = 0;
-  auto fetch = [&](int t) {  // chunk t, the one after the last fetched
-    uint8_t* st = ring + (t % G::STAGES) * G::STAGE;
-    const int m0 = load_tile / tiles_n * BM, n0 = load_tile % tiles_n * BN;
-    const int k0 = load_k * BK;
-    for (int e = threadIdx.x; e < 2 * BN * 8; e += THREADS) {
-      const int pl = e / (BN * 8), n = e / 8 % BN, u = e % 8;
-      const bool live = n0 + n < N;
-      const float* src =
-          live ? wt + ((size_t)pl * N + n0 + n) * KP + k0 + 4 * u : wt;
-      cp_async16_fill(st + pl * G::B_PLANE + n * ROW + ((u ^ (n & 7)) << 4),
-                      src, live ? 16 : 0);
-    }
-    copy_rows<VEC>(reinterpret_cast<float*>(st + 2 * G::B_PLANE), A_LD, BM,
-                   BK, x, K, m0, M, k0, K);
-    if (++load_k == chunks) {
-      load_k = 0;
-      load_tile += gridDim.x;
-    }
-  };
-#pragma unroll
-  for (int t = 0; t < G::STAGES - 1; ++t) {
-    if (t < count) fetch(t);
-    cp_async_commit();
-  }
-  int tile = blockIdx.x, k = 0;
-  float acc[G::NACC];
-  uint32_t ah0[4][4], al0[4][4], ah1[4][4], al1[4][4];
-  auto step = [&](int t, uint32_t (&ah)[4][4], uint32_t (&al)[4][4]) {
-    cp_async_wait<G::STAGES - 2>();  // chunk t has landed, for this thread
-    __syncthreads();                 // ... for all
-    const uint8_t* st = ring + (t % G::STAGES) * G::STAGE;
-    const float* a = reinterpret_cast<const float*>(st + 2 * G::B_PLANE) +
-                     (h * 64 + wl * 16 + g) * A_LD + t4;
-#pragma unroll
-    for (int k8 = 0; k8 < BK / 8; ++k8) {  // the set chunk t - 2 read
-      const float v[4] = {a[k8 * 8], a[8 * A_LD + k8 * 8], a[k8 * 8 + 4],
-                          a[8 * A_LD + k8 * 8 + 4]};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) split(v[i], ah[k8][i], al[k8][i]);
-    }
-    fence_acc(acc);
-    wgmma_fence();
-    mma_chunk<BN, PASSES>(acc, ah, al, smem_u32(st), k == 0);
-    wgmma_commit();
-    wgmma_wait<1>();  // chunk t - 1's wgmmas are done
-    fence_acc(acc);
-    fence_regs(ah0);
-    fence_regs(al0);
-    fence_regs(ah1);
-    fence_regs(al1);
-    __syncthreads();  // ... in both groups: its stage takes chunk t + S - 1
-    if (t + G::STAGES - 1 < count) fetch(t + G::STAGES - 1);
-    cp_async_commit();
-    if (++k < chunks) return;
-    wgmma_wait<0>();
-    fence_acc(acc);
-    const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
-#pragma unroll
-    for (int e = 0; e < G::NACC; e += 2) {  // the tile's epilogue
-      const int r = m0 + h * 64 + wl * 16 + g + 8 * ((e & 3) >> 1);
-      const int c = n0 + e / 4 * 8 + 2 * t4;
-      if (r >= M) continue;
-      float* out = xp + (size_t)r * N + c;
-      if (VEC == 4 && c + 2 <= N) {
-        *reinterpret_cast<float2*>(out) =
-            make_float2(acc[e] + bias[c], acc[e + 1] + bias[c + 1]);
-      } else {
-        if (c < N) out[0] = acc[e] + bias[c];
-        if (c + 1 < N) out[1] = acc[e + 1] + bias[c + 1];
-      }
-    }
-    k = 0;
-    tile += gridDim.x;
-  };
-  for (int t = 0; t < count; ++t) {
-    if (t & 1)
-      step(t, ah1, al1);
-    else
-      step(t, ah0, al0);
-  }
-  cp_async_wait_all();
-  wgmma_wait<0>();
-}
-}  // namespace wg
-
 // the launch of one (M, K, N): route, tile, grid
 struct Plan {
   int route, bm, bn, tiles, blocks, smem, stages;
@@ -470,7 +211,7 @@ constexpr int TILE_COST = 64;
 int large_bn(int M, int N) {
   int best = 0, best_cost = 0;
   for (int bn : {192, 144}) {
-    const int tiles = (M + wg::BM - 1) / wg::BM * ((N + bn - 1) / bn);
+    const int tiles = (M + wgl::BM - 1) / wgl::BM * ((N + bn - 1) / bn);
     const int cost = (tiles + kSMs - 1) / kSMs * (bn + TILE_COST);
     if (!best || cost < best_cost) {
       best = bn;
@@ -487,10 +228,10 @@ int route_of(int M, int K, int route) {
 }
 
 int large_smem(int bn) {
-  return bn == 192 ? wg::Geo<192>::BYTES : wg::Geo<144>::BYTES;
+  return bn == 192 ? wgl::Geo<192>::BYTES : wgl::Geo<144>::BYTES;
 }
 int large_stages(int bn) {
-  return bn == 192 ? wg::Geo<192>::STAGES : wg::Geo<144>::STAGES;
+  return bn == 192 ? wgl::Geo<192>::STAGES : wgl::Geo<144>::STAGES;
 }
 
 // the route's shapes; blocks: the large route's persistent grid for
@@ -503,8 +244,8 @@ Plan make_plan(int M, int K, int N, int route, int slots) {
             smallm::smem_bytes(K), 1};
   }
   const int bn = large_bn(M, N);
-  const int tiles = (M + wg::BM - 1) / wg::BM * ((N + bn - 1) / bn);
-  return {kLarge, wg::BM, bn, tiles, slots ? std::min(tiles, slots) : tiles,
+  const int tiles = (M + wgl::BM - 1) / wgl::BM * ((N + bn - 1) / bn);
+  return {kLarge, wgl::BM, bn, tiles, slots ? std::min(tiles, slots) : tiles,
           large_smem(bn), large_stages(bn)};
 }
 
@@ -519,10 +260,15 @@ using SmallKernel = void (*)(const float*, const float*, const float*, float*,
 using LargeKernel = void (*)(const float*, const float*, const float*, float*,
                              int, int, int, int);
 
+// wgmma_mainloop.cuh's kernel with the bias, one wgmma sum over a tile's
+// chunks
 template <int BN>
 LargeKernel large_entry_bn(bool vec, bool one_pass) {
-  if (one_pass) return wg::gru_proj_large<BN, 4, 1>;
-  return vec ? wg::gru_proj_large<BN, 4, 3> : wg::gru_proj_large<BN, 1, 3>;
+  using wgl::kOne;
+  using wgl::wgmma_3xtf32;
+  if (one_pass) return wgmma_3xtf32<BN, 4, 1, kOne, true>;
+  return vec ? wgmma_3xtf32<BN, 4, 3, kOne, true>
+             : wgmma_3xtf32<BN, 1, 3, kOne, true>;
 }
 LargeKernel large_entry(int bn, bool vec, bool one_pass) {
   return bn == 192 ? large_entry_bn<192>(vec, one_pass)
@@ -652,7 +398,7 @@ extern "C" int gru_proj_stop(const void* x, const void* wt, const void* bias,
   int slots = 0;
   const cudaError_t err = large_slots(bn, &slots);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = (M + wg::BM - 1) / wg::BM * ((N + bn - 1) / bn);
+  const int tiles = (M + wgl::BM - 1) / wgl::BM * ((N + bn - 1) / bn);
   large_entry(bn, true, passes == 1)<<<std::min(tiles, slots), THREADS,
                                         large_smem(bn),
                                         static_cast<cudaStream_t>(stream)>>>(

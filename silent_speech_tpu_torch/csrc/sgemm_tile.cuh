@@ -1,6 +1,6 @@
-// One 64 x 64 f32 output tile of acc += A' B on the CUDA cores (FMAs),
-// shared by csrc/mm_rate.cu and csrc/layout_micro.cu; csrc/bwd_dots.cu
-// stages its own chunks and uses the product and the store. A' is A with its
+// One 64 x 64 f32 output tile of acc += A' B on the CUDA cores (FMAs), for
+// csrc/mm_rate.cu alone (the port's other f32 products run as 3xTF32 on the
+// tensor cores; this file goes when MR does). A' is A with its
 // columns rolled by `shift`: A'[m, k] = A[m, (k - shift) mod K] (jnp.roll
 // along the lanes, which is what pltpu.roll computes), applied as an index
 // when the A chunk is loaded; shift 0 is A itself. 256 threads, 4 x 4

@@ -31,8 +31,11 @@ base form their products on the tensor cores as 3xTF32 (m16n8k8 TF32
 mma.sync, x = hi + lo, three MMAs a product, f32 sums; 128 x 128 output
 tiles fed by one mainloop, a ring of cp.async stages); xp is tt with each p
 chunk written transposed into shared memory by a pass of its own (the next
-chunk while the MMAs read this one), so its result is bitwise tt's; nt on
-the FMAs (64 x 64 tiles). :func:`plan`
+chunk while the MMAs read this one), so its result is bitwise tt's; nt as
+3xTF32 on wgmma (dy split in registers, w split into hi / lo planes by a
+small kernel at each call, persistent blocks over 128 x 104 or 128 x 128
+tiles of out, each chunk of 32 of N summed from zero and the chunks added
+in f32). :func:`plan`
 reports a kernel's tile and groups (on the card only). ``impl`` as in
 ``ops._kernels``. :data:`KINDS` names the five by kind, each with its
 wrapper, plain version, counts, route and the rate its bound is taken at,
@@ -48,6 +51,7 @@ import numpy as np
 import torch
 
 from . import _kernels
+from .tf32_bars import BAR_DEPTH, bar64, shares, tf32_round
 
 ROWS = 8192 * 12  # proto_bwd_dots.py:91, proto_bwd_dots2.py:77
 STEPS = 512       # proto_bwd_dots3.py:17
@@ -57,7 +61,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # from the shapes alone (csrc/bwd_dots.cu, groups()); bwd_dot_scratch says
 # how many floats of partial sums a launch needs (base: a row of N a
 # 128-row tile of a step), by its layout number
-_LAYOUT = {"tt": 0, "nn": 1, "xp": 2, "base": 3}
+_LAYOUT = {"tt": 0, "nn": 1, "xp": 2, "base": 3, "nt": 4}
 _STEPS_ARGS = [_P, _P, _P, _P,            # p, dy, out, partial
                _I, _I, _I, _I, _I,        # K, N, m, G, steps
                _P]                        # stream
@@ -69,9 +73,15 @@ KERNEL_TT_STOP = _kernels.Kernel(
     "bwd_dot_tt_stop", "bwd_dot_tt_stop",
     _STEPS_ARGS[:-1] + [_I, _P])          # ..., steps, stop, stream
 KERNEL_XP = _kernels.Kernel("bwd_dot_xp", "bwd_dot_xp", _STEPS_ARGS)
-KERNEL_NT = _kernels.Kernel(
-    "bwd_dot_nt", "bwd_dot_nt",
-    [_P, _P, _P, _I, _I, _I, _I, _P])     # dy, w, out, rows, Gm, N, K, stream
+_NT_ARGS = [_P, _P, _P, _P,               # dy, w, out, wt
+            _I, _I, _I, _I,               # rows, Gm, N, K
+            _P]                           # stream
+KERNEL_NT = _kernels.Kernel("bwd_dot_nt", "bwd_dot_nt", _NT_ARGS)
+# bwd_dot_nt's kernel in three TF32 passes or one, to time what the two
+# extra passes cost
+KERNEL_NT_STOP = _kernels.Kernel(
+    "bwd_dot_nt_stop", "bwd_dot_nt_stop",
+    _NT_ARGS[:-1] + [_I, _P])             # ..., K, passes, stream
 KERNEL_NN = _kernels.Kernel(
     "bwd_dot_nn", "bwd_dot_nn",
     [_P, _P, _P, _P, _I, _I, _I, _I, _P])  # pk, dy, out, partial, K, M, N,
@@ -129,7 +139,7 @@ class Plan(NamedTuple):
     occupancy query (the groups assume 1). For base, ``tiles`` counts its
     items (row tiles of the steps x column tiles), ``groups`` its
     persistent blocks and ``steps_per_group`` the items a block walks, at
-    most."""
+    most; for nt the same of its tiles of out."""
 
     tile_m: int
     tile_n: int
@@ -146,7 +156,8 @@ class Plan(NamedTuple):
 def plan(kind: str, Mo: int, No: int, steps: int) -> Plan:
     """The launch of ``kind``'s kernel: tt, nn or xp for Mo x No outputs
     over ``steps`` steps; base for Mo = m rows a step, No = N columns and
-    steps = G steps. Builds the kernels, so on the card only."""
+    steps = G steps; nt for Mo = G m rows of out, No = K columns and steps
+    = N. Builds the kernels, so on the card only."""
     if kind not in _LAYOUT:
         raise ValueError(f"no plan for {kind!r}; one of {tuple(_LAYOUT)}")
     fn = _kernels.library().bwd_dot_plan
@@ -301,24 +312,57 @@ def bwd_dot_xp(p: torch.Tensor, dy: torch.Tensor, m: int, *,
     return _steps("xp", p, dy, m, G, G)
 
 
-def bwd_dot_nt(dy: torch.Tensor, w: torch.Tensor, m: int, *,
-               impl: str = "auto") -> torch.Tensor:
-    """dy (rows, N), w (K, N) f32 -> (rows, K): dy_g w^T, zeros past G m."""
+def _nt_operands(dy: torch.Tensor, w: torch.Tensor, m: int) -> int:
     _f32_2d("dy", dy)
     _f32_2d("w", w)
     if dy.shape[1] != w.shape[1]:
         raise ValueError(f"dy (rows, N) and w (K, N), got {tuple(dy.shape)},"
                          f" {tuple(w.shape)}")
-    G = _tiles(dy.shape[0], m)
-    if not _kernels.use_kernel(impl, dy):
-        return bwd_dot_nt_plain(dy, w, m)
+    return _tiles(dy.shape[0], m)
+
+
+def _nt(kernel: _kernels.Kernel, dy: torch.Tensor, w: torch.Tensor, G: int,
+        m: int, *extra: int) -> torch.Tensor:
     _launchable(dy, w)
     rows, N = dy.shape
     K = w.shape[0]
     out = torch.empty((rows, K), dtype=torch.float32, device=dy.device)
-    KERNEL_NT.launch(_kernels.ptr(dy), _kernels.ptr(w), _kernels.ptr(out),
-                     rows, G * m, N, K, _kernels.stream_ptr(dy.device))
+    wt = _scratch("nt", K, N, 1, dy.device)  # w's planes, made every call
+    kernel.launch(_kernels.ptr(dy), _kernels.ptr(w), _kernels.ptr(out),
+                  _kernels.ptr(wt), rows, G * m, N, K, *extra,
+                  _kernels.stream_ptr(dy.device))
     return out
+
+
+def bwd_dot_nt(dy: torch.Tensor, w: torch.Tensor, m: int, *,
+               impl: str = "auto") -> torch.Tensor:
+    """dy (rows, N), w (K, N) f32 -> (rows, K): dy_g w^T, zeros past G m.
+    On the card 3xTF32 on wgmma: w split into hi / lo planes by a first
+    kernel (which also writes the zero tail), then 128-row tiles of dy
+    split in registers, each chunk of 32 of N summed from zero and the
+    chunks added in f32."""
+    G = _nt_operands(dy, w, m)
+    if not _kernels.use_kernel(impl, dy):
+        return bwd_dot_nt_plain(dy, w, m)
+    return _nt(KERNEL_NT, dy, w, G, m)
+
+
+def bwd_dot_nt_stop(dy: torch.Tensor, w: torch.Tensor, m: int,
+                    passes: int = 3) -> torch.Tensor:
+    """bwd_dot_nt's kernel with ``passes`` 3 (3xTF32, bitwise bwd_dot_nt)
+    or 1 (hi*hi alone: one TF32 pass, another function), on the card only,
+    to time what the two extra passes cost. N and K multiples of 4 (16-byte
+    rows)."""
+    G = _nt_operands(dy, w, m)
+    if passes not in (1, 3):
+        raise ValueError(f"passes 1 or 3, got {passes}")
+    if not dy.is_cuda:
+        raise ValueError("bwd_dot_nt_stop times the card's kernel: it needs "
+                         f"CUDA tensors, got one on {dy.device}")
+    if dy.shape[1] % 4 or w.shape[0] % 4:
+        raise ValueError(f"N and K multiples of 4, got N={dy.shape[1]} "
+                         f"K={w.shape[0]}")
+    return _nt(KERNEL_NT_STOP, dy, w, G, m, passes)
 
 
 def bwd_dot_base(p: torch.Tensor, w: torch.Tensor, m: int, *,
@@ -397,6 +441,7 @@ class Kind(NamedTuple):
 
 
 TENSOR_CORES = "3xTF32 on mma.sync"
+TENSOR_CORES_WGMMA = "3xTF32 on wgmma"
 
 
 def _tt_terms(a, b, m, steps):
@@ -419,7 +464,8 @@ KINDS = {
                TENSOR_CORES, "f32_3xtf32"),
     "nt": Kind(bwd_dot_nt, bwd_dot_nt_plain,
                lambda a, b, m, steps: a.shape[1], _tt_macs,
-               lambda s: 4 * (_gm(s) * s[3] + s[2] * s[3] + s[0] * s[2])),
+               lambda s: 4 * (_gm(s) * s[3] + s[2] * s[3] + s[0] * s[2]),
+               TENSOR_CORES_WGMMA, "f32_3xtf32"),
     "base": Kind(bwd_dot_base, bwd_dot_base_plain,
                  lambda a, b, m, steps: a.shape[0] // m * m * a.shape[1],
                  _tt_macs,
@@ -471,16 +517,11 @@ def bytes_moved(kind: str, shape: tuple) -> int:
 
 # ------------------------------------------------------------- checks
 
-# kernel vs plain: each output element sums n products in f32, in another
-# order in the two; a random walk of n roundings, each at most 2^-24 of a
-# partial sum under the element's sum of |terms|, stays within sqrt(n)
-# 2^-24 of it; the bar is 4 times that (ops/cuda_mm_rate.BAR_DEPTH). n: tt
-# and xp steps m, nt N, base G m K, nn steps M.
-BAR_DEPTH = 4
-# the tensor-core kinds (tt, xp, base, nn) against the float64 version:
-# 2^-24 (BAR64_TERMS A + steps / 2 |value|), derived in compare()
-BAR64_TERMS = 32
-TC_KINDS = tuple(k for k, v in KINDS.items() if v.route == TENSOR_CORES)
+# kernel vs plain: BAR_DEPTH sqrt(n) 2^-24 of each element's sum of |terms|
+# (ops/tf32_bars), n: tt and xp steps m, nt N, base G m K, nn steps M; the
+# tensor-core kinds (tt, xp, base, nn, nt: 3xTF32) against the float64
+# version: tf32_bars.bar64, derived in compare()
+TC_KINDS = tuple(k for k, v in KINDS.items() if v.rate == "f32_3xtf32")
 
 
 def reference64(kind: str, a: torch.Tensor, b: torch.Tensor, *,
@@ -489,7 +530,18 @@ def reference64(kind: str, a: torch.Tensor, b: torch.Tensor, *,
     """The function of a tensor-core kind on (a, b) in float64, step by
     step, and each element's sum of |terms| (the same on |a|, |b|): tt's
     and xp's sum of p_g^T dy_g, base's column sums of p_g @ w in tile
-    order, nn's sum of pk @ dy."""
+    order, nn's sum of pk @ dy, nt's dy_g w^T (zeros past G m)."""
+    if kind == "nt":
+        G = _nt_operands(a, b, m)
+
+        def nt64(x, y):
+            out = torch.zeros((x.shape[0], y.shape[0]), dtype=torch.float64,
+                              device=x.device)
+            out[:G * m] = x[:G * m] @ y.T
+            return out
+
+        a64, b64 = a.double(), b.double()
+        return nt64(a64, b64), nt64(a64.abs(), b64.abs())
     if kind in ("tt", "xp"):
         G = _same_rows(a, b, m)
         steps, product = _or(steps, G), lambda x, y, r: x[r].T @ y[r]
@@ -508,13 +560,6 @@ def reference64(kind: str, a: torch.Tensor, b: torch.Tensor, *,
     a64, b64 = a.double(), b.double()
     return tuple(_steps_plain(lambda r: product(x, y, r), G, m, steps)
                  for x, y in ((a64, b64), (a64.abs(), b64.abs())))
-
-
-def tf32_round(x: torch.Tensor) -> torch.Tensor:
-    """f32 -> the nearest TF32 value (10 mantissa bits), ties away from
-    zero, as the kernels' split rounds (csrc/mma_tf32.cuh ``tf32``)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
 def one_pass(kind: str, a: torch.Tensor, b: torch.Tensor, *,
@@ -542,22 +587,14 @@ def measure(kind: str, got: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     absolute = plain(kind, a.abs(), b.abs(), m=m, steps=steps)
     bar = (BAR_DEPTH * KINDS[kind].terms(a, b, m, steps) ** 0.5
            * 2.0 ** -24 * absolute)
-    out = _shares(got, want, bar, "")
+    out = shares(got, want, bar)
     if kind in TC_KINDS:
         ref, absolute = reference64(kind, a, b, m=m, steps=steps)
-        n_steps = _or(steps, STEPS if kind == "nn" else a.shape[0] // m)
-        bar = 2.0 ** -24 * (BAR64_TERMS * absolute + n_steps / 2 * ref.abs())
-        out.update(_shares(got.double(), ref, bar, "64"))
+        n_steps = 1 if kind == "nt" else _or(
+            steps, STEPS if kind == "nn" else a.shape[0] // m)
+        out.update(shares(got.double(), ref, bar64(ref, absolute, n_steps),
+                          "64"))
     return out
-
-
-def _shares(got, want, bar, tag: str) -> dict:
-    err = (got - want).abs()
-    share = (err / bar.clamp(min=1e-30)).max().item() if err.numel() else 0.0
-    if not bool(torch.isfinite(got).all()):
-        share = float("inf")
-    return {"max_abs_err" + tag: err.max().item() if err.numel() else 0.0,
-            "share_of_bar" + tag: share}
 
 
 def compare(kind: str, got: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -568,7 +605,7 @@ def compare(kind: str, got: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     |terms| are 0, must be exact zeros).
 
     The float64 bar, for the kernels that form their products as 3xTF32
-    (tt, xp, base, nn): with ref the float64 value and A the element's sum
+    (tt, xp, base, nn, nt): with ref the float64 value and A the element's sum
     of |terms|
     (:func:`reference64`), |got - ref| <= 2^-24 (32 A + steps / 2 |ref|).
     3xTF32 forms a b as ah bh + ah bl + al bh from x = hi + lo, each part
@@ -615,7 +652,16 @@ def compare(kind: str, got: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     (|ref| is about sqrt(n), A about 0.64 n), and none is run there. At
     chip_smoke's BWD_SMALL (n = 9,984) it is 2.4, the largest of 130
     elements about 3 standard deviations; at the tests' n <= 1,536, 6 or
-    more: the control is run at those shapes."""
+    more: the control is run at those shapes.
+
+    nt: each output is one N-deep dot of a row of dy and a row of w, formed
+    as one step of tt (chunks of 32 from zero on wgmma, whose accumulation
+    truncates as mma.sync's does, added in f32) and written once: tt's
+    32 A with steps = 1 (its final rounding, |ref| / 2). The control: n = N
+    independent terms, a share of 238 / sqrt(n) standard deviations (as
+    base's above), 14.9 at dots1's N = 256 and 10.5 at N = 512, 20.9 at
+    BWD_SMALL's N = 130: refused at every shape. Its tail rows, whose sums
+    of |terms| are 0, must be exact zeros."""
     r = measure(kind, got, a, b, m=m, steps=steps)
     for tag, what in (("", "plain"), ("64", "float64")):
         share = r.get("share_of_bar" + tag, 0.0)

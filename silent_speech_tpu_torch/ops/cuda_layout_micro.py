@@ -8,6 +8,13 @@ one output block a step (:data:`BODIES`; :data:`HALF` take (384, 768)).
 unwritten (NaN in interpret mode, undefined on the TPU); :data:`WRITTEN`
 are the lanes it writes. ``library`` names the one torch call that
 computes a body, where there is one.
+
+On the card ``matmul_768x512x128`` forms its product as 3xTF32 on the
+tensor cores (bwd_dots.cu's nn mainloop: 128 x 128 tiles over K = 512, each
+chunk of 32 from zero and the chunks added in f32) and copies lanes
+128..767 bitwise; :func:`compare_product` holds the product to the f32
+plain version's bar and to a float64 bar of ``cuda_bwd_dots.compare``'s
+form, which one TF32 pass (:func:`one_pass`) misses.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import numpy as np
 import torch
 
 from . import _kernels
+from .tf32_bars import BAR_DEPTH, bar64, shares, tf32_round
 
 R = L = 768
 STEPS = 512  # mosaic_micro.py:22
@@ -30,6 +38,7 @@ HALF = ("rows_reshape_max", "rows_strided_slice")
 # the lanes unaligned_18lane_x6 writes: 128 j + c, j < 6, c < 18
 WRITTEN = np.concatenate([np.arange(128 * j, 128 * j + 18) for j in range(6)])
 MM_K, MM_N = 512, 128
+MATMUL = "matmul_768x512x128"
 
 KERNEL = _kernels.Kernel(
     "layout_micro", "layout_micro",
@@ -98,11 +107,72 @@ def layout(body: str, x: torch.Tensor, *, impl: str = "auto"
     return out
 
 
+def _product64(x: torch.Tensor) -> torch.Tensor:
+    v = x.double().reshape(-1, R, L)
+    return torch.matmul(v[:, :, :MM_K], v[:, :MM_K, :MM_N])
+
+
+def reference64(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The product body's product part (steps, 768, 128) in float64, and
+    each element's sum of |terms| (the same on |x|)."""
+    _steps(MATMUL, x)
+    return _product64(x), _product64(x.abs())
+
+
+def one_pass(x: torch.Tensor) -> torch.Tensor:
+    """The product body's output with its product as one TF32 pass forms
+    it (x rounded to TF32, the products exact and summed in float64, then
+    f32): the control that :func:`compare_product`'s float64 bar
+    refuses."""
+    o = layout_plain(MATMUL, x).reshape(-1, R, L)
+    o[:, :, :MM_N] = _product64(tf32_round(x)).float()
+    return o.reshape(x.shape)
+
+
+def measure_product(got: torch.Tensor, x: torch.Tensor) -> dict:
+    """The product body's output against its plain version: lanes 128..767
+    must be x's, bitwise (raises otherwise, and on a wrong shape); the
+    product's largest difference from the f32 plain version and its share
+    of BAR_DEPTH sqrt(512) 2^-24 A (A: each element's sum of |terms|;
+    ``max_abs_err``, ``share_of_bar``), and from the float64 product ref
+    and its share of ``tf32_bars.bar64`` (``max_abs_err64``,
+    ``share_of_bar64``): ``cuda_bwd_dots.compare``'s bar for one 512-deep
+    step, 3xTF32's split and the MMAs' sums of 32-row chunks within 32 A,
+    the output's rounding |ref| / 2. One TF32 pass lies about 2.9e-4
+    sqrt(512) off (rms) against 32 A = 32 x 0.64 x 512 2^-24: 10.5 standard
+    deviations a product element."""
+    S = _steps(MATMUL, x)
+    if got.shape != x.shape:
+        raise RuntimeError(f"{MATMUL}: shape {tuple(got.shape)}, want "
+                           f"{tuple(x.shape)}")
+    g, v = got.reshape(S, R, L), x.reshape(S, R, L)
+    if not torch.equal(g[:, :, MM_N:], v[:, :, MM_N:]):
+        raise RuntimeError(f"{MATMUL}: lanes {MM_N}..{L - 1} are not the "
+                           "input's, bitwise")
+    prod = g[:, :, :MM_N].double()
+    ref, absolute = reference64(x)
+    want = layout_plain(MATMUL, x).reshape(S, R, L)[:, :, :MM_N].double()
+    return {**shares(prod, want,
+                     BAR_DEPTH * MM_K ** 0.5 * 2.0 ** -24 * absolute),
+            **shares(prod, ref, bar64(ref, absolute), "64")}
+
+
+def compare_product(got: torch.Tensor, x: torch.Tensor) -> dict:
+    """:func:`measure_product`'s figures; raises over either bar."""
+    r = measure_product(got, x)
+    for tag, what in (("", "plain"), ("64", "float64")):
+        if not r["share_of_bar" + tag] <= 1.0:
+            raise RuntimeError(
+                f"{MATMUL}: the product is off the {what} version "
+                f"({r['share_of_bar' + tag]:.3f} of the bar)")
+    return r
+
+
 def library(body: str, x: torch.Tensor) -> Optional[torch.Tensor]:
     """One torch call that computes ``body`` where there is one (the
-    product: only its (768, 512) x (512, 128) part), else None. A
-    yardstick timed beside the kernel on the card; the port's path does
-    not call it."""
+    product: only its (768, 512) x (512, 128) part; :func:`library_same_work`
+    adds the copy), else None. A yardstick timed beside the kernel on the
+    card; the port's path does not call it."""
     S = _steps(body, x)
     v = x.reshape(S, R, L)
     if body in ("copy", "aligned_128lane_x6"):
@@ -113,9 +183,19 @@ def library(body: str, x: torch.Tensor) -> Optional[torch.Tensor]:
         return v[:, ::2].contiguous()
     if body == "transpose":
         return v.transpose(1, 2).contiguous()
-    if body == "matmul_768x512x128":
+    if body == MATMUL:
         return torch.matmul(v[:, :, :MM_K], v[:, :MM_K, :MM_N])
     return None
+
+
+def library_same_work(x: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The product body's work in two torch calls: ``matmul`` of the
+    product part and ``[:, :, 128:].clone()`` of the other lanes (two
+    outputs, not the body's one array). A yardstick, as :func:`library`."""
+    v = x.reshape(_steps(MATMUL, x), R, L)
+    return (torch.matmul(v[:, :, :MM_K], v[:, :MM_K, :MM_N]),
+            v[:, :, MM_N:].clone())
 
 
 def bytes_moved(body: str, steps: int = STEPS) -> int:
@@ -131,4 +211,11 @@ def bytes_moved(body: str, steps: int = STEPS) -> int:
 
 
 def macs(body: str, steps: int = STEPS) -> int:
-    return steps * R * MM_K * MM_N if body == "matmul_768x512x128" else 0
+    return steps * R * MM_K * MM_N if body == MATMUL else 0
+
+
+def rate(body: str) -> str:
+    """The peak a body's multiply-adds are bound at (a key of
+    ``scripts.proto_parity_cnn.PEAK_OPS``): the product's, the f32 FMAs
+    and 3xTF32 together, as its kernel forms it on the tensor cores."""
+    return "f32_3xtf32" if body == MATMUL else "f32"

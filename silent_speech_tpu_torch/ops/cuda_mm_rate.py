@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from . import _kernels
+from .tf32_bars import BAR_DEPTH, shares
 
 REPS, GRID = 64, 64  # bench_fused_cnn.py:73
 ROLLS = 8            # r % 8
@@ -96,12 +97,10 @@ def macs(M: int, K: int, N: int, reps: int = REPS, grid: int = GRID) -> int:
 
 
 # kernel vs plain: each output element sums n = reps * K products in f32,
-# in another order in the two; a random walk of n roundings, each at most
-# 2^-24 of a partial sum under the element's sum of |terms|, stays within
-# sqrt(n) 2^-24 of it; the bar is 4 times that. (A roll the wrong way moves
-# an element by about 2 / sqrt(n) of its sum of |terms|: 100 to 1,400 times
-# the bar at the probe's shapes.)
-BAR_DEPTH = 4
+# in another order in the two: within tf32_bars.BAR_DEPTH sqrt(n) 2^-24 of
+# its sum of |terms|. (A roll the wrong way moves an element by about
+# 2 / sqrt(n) of its sum of |terms|: 100 to 1,400 times the bar at the
+# probe's shapes.)
 
 
 def compare(got: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -115,14 +114,12 @@ def compare(got: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if got.shape != want.shape:
         raise RuntimeError(f"mm_rate: shape {tuple(got.shape)}, want "
                            f"{tuple(want.shape)}")
-    err = (got - want).abs()
-    share = (err / bar.clamp(min=1e-30)).max().item() if err.numel() else 0.0
-    if not torch.isfinite(got).all() or share > 1.0:
+    r = shares(got, want, bar)
+    if not r["share_of_bar"] <= 1.0:
         raise RuntimeError(f"mm_rate {tuple(a.shape)}x{tuple(b.shape)} reps="
-                           f"{reps}: off the plain version ({share:.3f} of "
-                           f"the bar)")
-    return {"max_abs_err": err.max().item() if err.numel() else 0.0,
-            "share_of_bar": share}
+                           f"{reps}: off the plain version "
+                           f"({r['share_of_bar']:.3f} of the bar)")
+    return r
 
 
 def check(a: torch.Tensor, b: torch.Tensor, reps: int = REPS,

@@ -9,10 +9,10 @@ packed shapes (port of scripts/bench_fused_cnn.py).
 the sum of 64 products of A, lane-rolled by ``r % 8``, with B, in each of
 64 steps (ops/cuda_mm_rate.py, csrc/mm_rate.cu, f32 FMAs on the CUDA
 cores), held against its plain version, then timed: T MAC/s, the share of
-the f32 bound, the plain version's time, and one ``torch.matmul`` at the
-same (M, K, N) (TF32 off) as a rate beside it (no one torch call computes
-the probe's function, so the row has no library time). With no argument,
-``mxu`` then ``main``:
+the f32 bound, the plain version's time, the library time of the same work
+(:func:`same_work_call`: one ``torch.matmul`` of the stacked operands, TF32
+off) and one ``torch.matmul`` at the same (M, K, N) as a rate beside it.
+With no argument, ``mxu`` then ``main``:
 
 - correctness on the first 256 of N frames (8192): the port's K1
   (ops/cuda_cnn.roi_cnn_fused) computes the JAX ``tiled3`` variant's
@@ -58,6 +58,9 @@ from . import proto_parity_cnn as harness
 T = 32  # the live forward's clip length
 BAR_CNN_LIVE = 2e-4  # K1 vs the plain CNN (tests/test_pallas_cnn2.py)
 MXU_ITERS = 2  # timed calls a shape after the warm-up (the JAX probe: 1)
+# the stacked operands of the library's same-work call, at most (else one
+# grid step's call, timed and multiplied by grid)
+SAME_WORK_BYTES = 16 * 2 ** 30
 NO_COUNTERPART = ("the port's K1 computes this variant's function (one "
                   "kernel, tiled3): no separate counterpart")
 NO_F_TILE = "a K1 block takes one frame at a time: f_tile has no counterpart"
@@ -72,11 +75,32 @@ def note_row(name: str, note: str) -> dict:
     return {"name": name, "ms": None, "note": note}
 
 
+def same_work_call(a: torch.Tensor, b: torch.Tensor, reps: int, grid: int
+                   ) -> tuple[Callable[[], torch.Tensor], int]:
+    """One ``torch.matmul`` doing the probe's multiply-adds, for the
+    library column (nothing in the port calls it): a's reps rolled copies
+    side by side along K, b stacked reps times, (M, reps K) @ (reps K, N),
+    which is one grid step's sum; all grid steps at once, (M, grid reps K)
+    @ (grid reps K, N), where the stacked operands fit SAME_WORK_BYTES.
+    Returns the call and the number of times it must run for the work
+    (1, or grid where only one step's operands fit), the operands stacked
+    here, before the call."""
+    A = torch.cat([torch.roll(a, r % mr.ROLLS, dims=1)
+                   for r in range(reps)], dim=1)
+    B = b.repeat(reps, 1)
+    calls = grid
+    if 4 * grid * (A.numel() + B.numel()) <= SAME_WORK_BYTES:
+        A, B, calls = A.repeat(1, grid), B.repeat(grid, 1), 1
+    return (lambda: torch.matmul(A, B)), calls
+
+
 def mxu_rate(M: int, K: int, N: int, args: harness.Args) -> dict:
     """mxu_rate (bench_fused_cnn.py:73): the kernel's T MAC/s at (M, K, N)
     over ``mr.REPS`` x ``mr.GRID`` products, its check against the plain
     version on the card, the share of the f32 bound, the plain version's
-    time and torch.matmul's rate."""
+    time, the library's same-work time (:func:`same_work_call`; where it
+    is one step's call, its time times grid, ``library_calls``) and
+    torch.matmul's rate at (M, K, N)."""
     reps, grid = mr.REPS, mr.GRID
     a, b = mr.make_problem(M, K, N, args.device)
     macs = mr.macs(M, K, N, reps, grid)
@@ -88,11 +112,14 @@ def mxu_rate(M: int, K: int, N: int, args: harness.Args) -> dict:
     plain_ms = harness.timed_ms(lambda: mr.mm_rate_plain(a, b, reps, grid),
                                 few)
     one_ms = harness.timed_ms(lambda: torch.matmul(a, b), args)
+    call, calls = same_work_call(a, b, reps, grid)
+    lib_ms = harness.timed_ms(call, few) * calls
+    del call
     b_ms, b_by = harness.bound_ms(macs, 4 * (M * K + K * N + M * N))
     return {"ms": ms, "t_macs": macs / (ms * 1e-3) / 1e12,
             "bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain_ms,
-            "library_ms": None, "max_abs_err": err,
-            "library_ms_one_matmul": one_ms,
+            "library_ms": lib_ms, "library_calls": calls,
+            "max_abs_err": err, "library_ms_one_matmul": one_ms,
             "library_t_macs": M * K * N / (one_ms * 1e-3) / 1e12}
 
 
@@ -109,8 +136,12 @@ def probe_mxu(argv: Optional[Sequence[str]] = None) -> dict:
             print(f"  ({M:5d},{K:5d},{N:5d}) {tag:20s}: {r['t_macs']:7.2f} "
                   f"T MAC/s  {r['ms']:9.4f} ms, {r['bound_ms'] / r['ms']:6.1%}"
                   f" of its f32 bound {r['bound_ms']:.4f} ms; plain "
-                  f"{r['plain_ms']:.4f} ms; torch.matmul "
-                  f"{r['library_t_macs']:7.2f} T MAC/s", flush=True)
+                  f"{r['plain_ms']:.4f} ms; library (the same work) "
+                  f"{r['library_ms']:.4f} ms"
+                  + ("" if r["library_calls"] == 1 else
+                     f" (one step's call x {r['library_calls']})")
+                  + f"; torch.matmul {r['library_t_macs']:7.2f} T MAC/s",
+                  flush=True)
             rows.append({"name": f"mxu_{M}x{K}x{N}", "tag": tag, **r})
     return harness.report("bench_fused_cnn mxu", args, rows, reps=mr.REPS,
                           grid=mr.GRID)

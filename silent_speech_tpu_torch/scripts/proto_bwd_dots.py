@@ -14,11 +14,11 @@ p (ROWS, K) and dy (ROWS, N) and then w (K, N), drawn from one
 - ``nt``: dp[g] = dy_g w^T (``run_nt``; ``bwd_dot_nt``).
 
 On the card each row's result is held against its plain version
-(``cuda_bwd_dots.compare``, TF32 off; tt also against the float64
+(``cuda_bwd_dots.compare``, TF32 off; both kinds also against the float64
 version), then timed: the device time of a call with the host's launches
 held out (``proto_parity_cnn.device_ms``), T MAC/s, the share of the bound
-(tt at the f32 FMAs and 3xTF32 together, the rate of its tensor-core route;
-nt at the f32 FMAs), the plain version's time and one PyTorch call
+(at the f32 FMAs and 3xTF32 together, the rate of both kinds' tensor-core
+routes), the plain version's time and one PyTorch call
 computing the same function (:func:`library_call`; ``p[:G m].T @ dy[:G
 m]``, ``dy[:G m] @ w.T``) as the library row. The JAX script printed a
 rate only; the last line here is one JSON object with the rows. On the CPU

@@ -8,7 +8,10 @@ hi*hi + hi*lo + lo*hi with f32 accumulation. Here the products are formed
 from those values and summed in float64 (a product of two TF32 values is
 exact there), then rounded to f32 where the kernel keeps an f32 result;
 ``passes=1`` forms hi*hi alone, one TF32 pass. Shared by
-tests/test_torch_roi_cnn_tc.py and tests/test_torch_roi_cnn_bwd_tc.py.
+tests/test_torch_roi_cnn_tc.py and tests/test_torch_roi_cnn_bwd_tc.py;
+:func:`step_product` is the matrix-product mainloop's arithmetic, MMA by
+MMA (the backward dots, nt and LP's product: tests/test_torch_bwd_dots_tc.py,
+tests/test_torch_nt_lp_tc.py).
 """
 
 import torch
@@ -106,3 +109,21 @@ def weight_grads_tc(roi_u8: torch.Tensor, p: dict, dE: torch.Tensor,
              dw3, (mask.sum((2, 3)) * dfs).to(f64).sum(0),
              (dE.to(f64).t() @ feat.to(f64)), dE.to(f64).sum(0)]
     return torch.cat([t.reshape(-1) for t in parts])
+
+
+def step_product(a, b, passes=3, chunk=32):
+    """a (Mo, c) @ b (c, No) as one step of the kernel forms it: chunks of
+    ``chunk`` contraction rows, each summed from zero in 8-deep slices, a slice
+    adding lo*hi, hi*lo and hi*hi (or hi*hi alone), one rounding an MMA;
+    the chunks' sums added in f32."""
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    pairs = ((al, bh), (ah, bl), (ah, bh)) if passes == 3 else ((ah, bh),)
+    step = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for c0 in range(0, a.shape[1], chunk):
+        d = torch.zeros_like(step)
+        for k in range(c0, min(c0 + chunk, a.shape[1]), 8):
+            for x, y in pairs:
+                d = (d.double() + x[:, k:k + 8].double()
+                     @ y[k:k + 8].double()).float()
+        step = step + d
+    return step

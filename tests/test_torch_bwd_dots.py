@@ -216,24 +216,26 @@ def test_compare_rejects_a_wrong_shape():
 
 @pytest.mark.parametrize("kind,shape,steps,gmacs,ms", [
     ("tt", (98304, 384, 512, 256), None, 12.885, 0.3846),
-    ("nt", (98304, 384, 256, 512), None, 12.885, 0.3846),
+    ("nt", (98304, 384, 256, 512), None, 12.885, 0.1111),
     ("xp", (98304, 1536, 512, 256), None, 12.885, 0.1111),
     ("base", (98304, 384, 512, 256), None, 12.885, 0.1111),
     ("tt", (98304, 192, 104, 256), None, 2.617, 0.0781),
-    ("nt", (98304, 192, 104, 256), None, 2.617, 0.0781),
+    ("nt", (98304, 192, 104, 256), None, 2.617, 0.0423),
     ("tt", (384, 384, 512, 256), 512, 25.770, 0.7692),
     ("nn", (384, 256, 512), 512, 25.770, 0.7692),
     ("nn", (384, 104, 256), 512, 5.234, 0.1563)])
 def test_bounds_are_the_worked_out_bounds(kind, shape, steps, gmacs, ms):
-    """The multiply-adds and the bound: xp's and base's rows at their
-    route's rate, the f32 FMAs and 3xTF32 together (232 TFLOP/s); the
-    others at the f32 FMAs' 67 (tt's and nn's rows at their route's rate
-    are in tests/test_torch_bwd_dots_tc.py)."""
+    """The multiply-adds and the bound: xp's, base's and nt's rows at their
+    route's rate, the f32 FMAs and 3xTF32 together (232 TFLOP/s; nt at
+    K=104 by its bytes, 141.7 MB); the others at the f32 FMAs' 67 (tt's
+    and nn's rows at their route's rate are in
+    tests/test_torch_bwd_dots_tc.py)."""
     n = bd.macs(kind, shape, steps)
     assert abs(n / 1e9 - gmacs) / gmacs < 2e-4
-    rate = bd.kind_of(kind).rate if kind in ("xp", "base") else "f32"
+    rate = bd.kind_of(kind).rate if kind in ("xp", "base", "nt") else "f32"
     b_ms, by = harness.bound_ms(n, bd.bytes_moved(kind, shape), rate)
-    assert by == "operations" and abs(b_ms - ms) / ms < 5e-4  # 4 digits
+    want_by = "bytes" if (kind, shape[2]) == ("nt", 104) else "operations"
+    assert by == want_by and abs(b_ms - ms) / ms < 5e-4  # 4 digits
 
 
 def test_bytes_count_each_input_once():

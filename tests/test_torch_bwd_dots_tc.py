@@ -43,13 +43,12 @@ from jax.experimental import pallas as pl
 from silent_speech_tpu_torch.ops import cuda_bwd_dots as bd
 from silent_speech_tpu_torch.scripts import proto_bwd_dots
 from silent_speech_tpu_torch.scripts import proto_parity_cnn as harness
-from tc_emulation import split_tf32, tf32_rna
+from tc_emulation import step_product, tf32_rna
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REL = 1e-5  # of the largest value, as tests/test_torch_bwd_dots.py
 STEPS3 = 3
 TILE, SLOTS = 128, 132  # the kernels' output tile; one block an SM, 132 SMs
-CHUNK = 32  # contraction rows a chunk
 
 
 def _load(name, interpret_pl=False):
@@ -89,24 +88,6 @@ def _draw(seed, *shapes):
 
 
 # -------------------------------------------------- the kernel, emulated
-
-
-def step_product(a, b, passes=3):
-    """a (Mo, c) @ b (c, No) as one step of the kernel forms it: chunks of
-    CHUNK contraction rows, each summed from zero in 8-deep slices, a slice
-    adding lo*hi, hi*lo and hi*hi (or hi*hi alone), one rounding an MMA;
-    the chunks' sums added in f32."""
-    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
-    pairs = ((al, bh), (ah, bl), (ah, bh)) if passes == 3 else ((ah, bh),)
-    step = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
-    for c0 in range(0, a.shape[1], CHUNK):
-        d = torch.zeros_like(step)
-        for k in range(c0, min(c0 + CHUNK, a.shape[1]), 8):
-            for x, y in pairs:
-                d = (d.double() + x[:, k:k + 8].double()
-                     @ y[k:k + 8].double()).float()
-        step = step + d
-    return step
 
 
 def steps_per_group(Mo, No, steps):
@@ -389,7 +370,7 @@ def test_tf32_round_is_the_kernels_rounding():
     ("base", (98304, 1536, 512, 256), None, 0.1111, "operations")])
 def test_tc_rows_are_bound_at_the_combined_rate(kind, shape, steps, ms, by):
     """tt, xp, base and nn at the f32 FMAs and 3xTF32 together, 67 + 495 /
-    3 = 232 TFLOP/s (nt keeps the f32 rate)."""
+    3 = 232 TFLOP/s (nt's rows: tests/test_torch_bwd_dots.py)."""
     k = bd.kind_of(kind)
     assert k.rate == "f32_3xtf32" and k.route == bd.TENSOR_CORES
     b_ms, b_by = harness.bound_ms(bd.macs(kind, shape, steps),
@@ -398,9 +379,11 @@ def test_tc_rows_are_bound_at_the_combined_rate(kind, shape, steps, ms, by):
 
 
 def test_the_fma_kinds_keep_the_f32_rate():
-    assert bd.TC_KINDS == ("tt", "xp", "base", "nn")
-    assert bd.kind_of("nt").rate == "f32"
-    assert bd.kind_of("nt").route == "f32 FMAs"
+    """No kind is left on the f32 FMAs: nt too forms its products as
+    3xTF32, on wgmma, and is bound at the combined rate."""
+    assert bd.TC_KINDS == ("tt", "xp", "nt", "base", "nn")
+    assert bd.kind_of("nt").rate == "f32_3xtf32"
+    assert bd.kind_of("nt").route == bd.TENSOR_CORES_WGMMA
 
 
 @pytest.mark.parametrize("kind", ["tt", "nn"])

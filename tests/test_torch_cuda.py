@@ -25,10 +25,13 @@ at N=64; the forward rate probes' kernels (the matmul-rate kernel at small
 ragged shapes, the chained-dot kernel in every mode at K=384 and 512 (in
 bf16 every cluster size bitwise the check instantiation at
 1, 3 and 256 steps, and its plan), the
-layout kernel in every body) against their plain versions, their launch
+layout kernel in every body, its product body also within a float64 bar
+that one TF32 pass misses, its copied lanes bitwise, at 1 to 512 steps)
+against their plain versions, their launch
 counts, the inputs they refuse, and the three scripts' main at small
 sizes; the backward-dot probes' kernels (tt, xp, nt, and nn with its two
-epilogues) at ragged shapes, bitwise repeatable, nt's zero tail, the
+epilogues) at ragged shapes, bitwise repeatable, nt's zero tail, nt within
+the float64 bar with one TF32 pass outside it, its stops and plan, the
 inputs they refuse, and the three scripts' main at small sizes. Every test
 needs
 a CUDA device and skips without one. On the GPU machine (which has no jax, and tests/conftest.py
@@ -1588,6 +1591,82 @@ def test_bwd_dot_nt_writes_zeros_past_the_tiles(dev):
     torch.cuda.synchronize()
     assert torch.equal(out[96:], torch.zeros_like(out[96:]))
     assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("rows,m,K,N", [(100, 24, 104, 130), (1, 1, 1, 1),
+                                        (300, 37, 65, 63),
+                                        (3000, 384, 104, 256),
+                                        (3000, 192, 256, 512),
+                                        (2000, 384, 512, 256),
+                                        (98304, 384, 512, 256)])
+def test_bwd_dot_nt_within_both_bars_and_one_pass_is_not(dev, rows, m, K,
+                                                         N):
+    """nt (3xTF32 on wgmma) within compare's plain and float64 bars, ragged
+    (N, K not multiples of 4: 4-byte copies and single stores; K past one
+    104- or 128-column tile) and at dots1's widths; one TF32 pass, formed
+    on the host (cuda_bwd_dots.one_pass), outside the float64 bar."""
+    dy, w, kw = _bwd_operands("nt", dev, rows, m, K, N)
+    r = cuda_bwd_dots.check("nt", dy, w, **kw)
+    assert r["share_of_bar"] <= 1.0 and r["share_of_bar64"] <= 1.0
+    control = cuda_bwd_dots.measure("nt", cuda_bwd_dots.one_pass(
+        "nt", dy, w, **kw), dy, w, **kw)
+    assert control["share_of_bar64"] > 1.0
+
+
+@pytest.mark.parametrize("m,K,N", [(192, 104, 256), (384, 512, 256),
+                                   (384, 256, 512)])
+def test_bwd_dot_nt_stops(dev, m, K, N):
+    """bwd_dot_nt_stop: 3 passes bitwise bwd_dot_nt; the kernel's own one
+    TF32 pass outside the float64 bar; rows of 16 bytes only."""
+    dy, w, kw = _bwd_operands("nt", dev, 3000, m, K, N)
+    route = cuda_bwd_dots.bwd_dot_nt(dy, w, m)
+    before = cuda_bwd_dots.KERNEL_NT_STOP.launches
+    assert torch.equal(cuda_bwd_dots.bwd_dot_nt_stop(dy, w, m), route)
+    one = cuda_bwd_dots.bwd_dot_nt_stop(dy, w, m, passes=1)
+    assert cuda_bwd_dots.measure("nt", one, dy, w, **kw)[
+        "share_of_bar64"] > 1.0
+    assert cuda_bwd_dots.KERNEL_NT_STOP.launches == before + 2
+    with pytest.raises(ValueError, match="multiples of 4"):
+        cuda_bwd_dots.bwd_dot_nt_stop(dy[:, :-1].contiguous(),
+                                      w[:, :-1].contiguous(), m)
+
+
+@pytest.mark.parametrize("Gm,K,N,bn,tiles", [(98304, 104, 256, 104, 768),
+                                             (98304, 512, 256, 128, 3072),
+                                             (98304, 256, 512, 128, 1536),
+                                             (96, 130, 130, 128, 2),
+                                             (1, 1, 1, 104, 1)])
+def test_bwd_dot_nt_plan_is_one_persistent_wave(dev, Gm, K, N, bn, tiles):
+    """nt's tiles of out: 128 rows by 104 columns (K <= 104) or 128; at
+    most one persistent block an SM walks them, and one fits an SM; its
+    scratch is w's hi and lo planes, N padded to 32."""
+    pl = cuda_bwd_dots.plan("nt", Gm, K, N)
+    assert (pl.tile_m, pl.tile_n, pl.chunk, pl.stages) == (128, bn, 32, 4)
+    assert pl.tiles == tiles and pl.groups == min(tiles, 132)
+    assert pl.steps_per_group == -(-tiles // pl.groups)
+    assert pl.resident_per_sm == 1 and pl.smem_bytes <= 227 * 1024
+    n = cuda_bwd_dots._scratch("nt", K, N, 1, dev).numel()
+    assert n == 2 * K * (-(-N // 32) * 32)
+
+
+@pytest.mark.parametrize("steps", [1, 2, 23, 512])
+def test_layout_product_within_both_bars_and_one_pass_is_not(dev, steps):
+    """LP's product body (3xTF32 on mma.sync, persistent blocks over the
+    (step, 128-row tile) items; 23 steps: 138 items, more than one a
+    block on some): lanes 128..767 bitwise the input, the product within
+    the f32 plain bar and the float64 bar (compare_product), bitwise on a
+    repeat; one TF32 pass (cuda_layout_micro.one_pass) outside the float64
+    bar."""
+    lm = cuda_layout_micro
+    x = torch.from_numpy(np.random.default_rng(steps).standard_normal(
+        (steps * lm.R, lm.L)).astype(np.float32)).to(dev)
+    one = lm.layout(lm.MATMUL, x)
+    two = lm.layout(lm.MATMUL, x)
+    torch.cuda.synchronize()
+    assert torch.equal(one, two)
+    r = lm.compare_product(one, x)
+    assert r["share_of_bar"] <= 1.0 and r["share_of_bar64"] <= 1.0
+    assert lm.measure_product(lm.one_pass(x), x)["share_of_bar64"] > 1.0
 
 
 def test_bwd_dot_kernels_refuse_what_they_do_not_take(dev):
