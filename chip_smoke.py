@@ -74,10 +74,13 @@ prints no result line):
 8. the GRU probes (silent_speech_tpu_torch/scripts): the recurrence kernel
    with one and two weight sets, K2's one-direction launch and the
    dual-chain kernel against their plain versions at B=1, 33 and 512, T=32,
-   D=180 and 384, f32 and bf16_mm; their times, bounds and cuDNN's layer
-   at B=512 and B=1; and the main() of bench_gru, proto_gru2, proto_gru3
-   and proto_gru4 at B=512 and B=1 (5 timed calls a variant), with the
-   launch counts over each script's runs;
+   D=180 and 384, f32 and bf16_mm, each at its plan's tile (printed);
+   their times (the held-stream timer), bounds (each part at the card's
+   rate for its type) and cuDNN's layer (a median of LIB_REPS readings) at
+   B=512 and B=1, beside P4 K2's layer and P4's function with the
+   projection ahead; and the main() of bench_gru,
+   proto_gru2, proto_gru3 and proto_gru4 at B=512 and B=1 (5 timed calls a
+   variant), with the launch counts over each script's runs;
 9. the CNN-front prototypes (silent_speech_tpu_torch/scripts): the parity
    conv1 + pool1 kernel in both layouts against its plain version at
    N=8192 and N=16, on all-0 and all-255 frames, with packed and random
@@ -142,6 +145,12 @@ Then one JSON line with the kernels' results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA device;
 refuses to run without one. Scratch files go under build/chip_smoke/ in the
 checkout.
+
+    python3 chip_smoke.py --k2-parent DIR
+
+runs only K2's stack in this checkout and in the checkout at DIR (a parent
+commit unpacked by ``git archive``), in turns: the outputs bitwise equal,
+the held-stream times side by side (:func:`k2_against_parent`).
 """
 
 from __future__ import annotations
@@ -228,6 +237,9 @@ CNN_BWD_MACS = (2 * 24 * 16 * 9 * 288 + 2 * 16 * 8 * 9 * 288
 PROBE_H, PROBE_T, PROBE_D, PROBE_B = 192, 32, (180, 384), (1, 33, 512)
 PROBE_SCRIPTS = ("bench_gru", "proto_gru2", "proto_gru3", "proto_gru4")
 PROBE_ITERS = 5
+# cuDNN's layer beside the probes: its median of LIB_REPS readings, after
+# LIB_WARM_S seconds of calls (one reading moved 0.68-1.25 ms at B=512)
+LIB_REPS, LIB_WARM_S = 7, 0.5
 # kernel: (source, the TPU kernel's pallas_call, the script that drives
 # it, the launch count it adds to); proto_gru3's kernel is K2's launch
 PROBE_KERNELS = {
@@ -240,10 +252,6 @@ PROBE_KERNELS = {
     "gru_dual": ("gru_proto.cu", "scripts/proto_gru4.py:143", "proto_gru4",
                  "gru_dual"),
 }
-# the recurrence kernel's (batch_tile, k_steps): the defaults in f32; with
-# bf16_mm it keeps Wh (221,184 bytes at H=192) in shared memory, beside
-# which a 2-row, 1-step stage fits
-REC_KNOBS = {False: {}, True: {"batch_tile": 2, "k_steps": 1}}
 # bf16_mm, kernel vs plain: both round the same operands, but sum the f32
 # products in another order, so an h within one f32 rounding of a bf16
 # rounding boundary rounds one bf16 step (2^-8 |h|, |h| < 1) apart in the
@@ -1385,6 +1393,66 @@ def time_k2(p: dict, x: torch.Tensor, lengths: torch.Tensor, dev,
     return out
 
 
+def k2_run(path: str) -> None:
+    """K2 (bigru_kernel: gru_proj then gru_seq, both directions) over the
+    serving stack's shapes (H=192, D=212 then 384, T_SERVE) at each B of
+    K2_B, weights and inputs drawn from SEED + 9; saves the outputs and each
+    stack's held-stream ms to ``path`` (torch.save). It runs the package
+    first on sys.path: :func:`k2_against_parent` runs it in a parent's
+    checkout too."""
+    from silent_speech_tpu_torch.ops import cuda_gru
+    from silent_speech_tpu_torch.ops.nn import gru_dir_init
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 9)
+    layers = [{d: {k: v.to(dev) for k, v in gru_dir_init(D, 192, gen).items()}
+               for d in ("fwd", "bwd")} for D in (212, 384)]
+    res = {"out": {}, "ms": {}}
+    with torch.no_grad():
+        for B in K2_B:
+            x = torch.randn(B, T_SERVE, 212, generator=gen).to(dev)
+            L = torch.randint(1, T_SERVE + 1, (B,), generator=gen)
+            L[0] = T_SERVE
+            L = L.to(dev)
+            run = lambda: cuda_gru.bigru_kernel(x, L, layers, impl="kernel")
+            res["out"][B] = run().cpu()
+            res["ms"][B] = held_ms(run, dev)
+    torch.save(res, path)
+
+
+def k2_against_parent(parent: Path, card: str) -> dict:
+    """K2 in this tree and in the parent's checkout at ``parent``, each in
+    its own process, in turns (parent, this, this, parent):
+    :func:`k2_run`'s outputs must be bitwise equal in all four; returns
+    {B: (parent ms, this ms)}, each the mean of its two turns."""
+    code = ("import importlib.util as u; s = u.spec_from_file_location("
+            "'smoke', {!r}); m = u.module_from_spec(s); "
+            "s.loader.exec_module(m); m.k2_run({!r})")
+    work = ROOT / "build" / "chip_smoke"
+    work.mkdir(parents=True, exist_ok=True)
+    runs = []
+    for i, tree in enumerate((parent, ROOT, ROOT, parent)):
+        path = work / f"k2_turn{i}.pt"
+        subprocess.run([sys.executable, "-c", code.format(
+            str(ROOT / "chip_smoke.py"), str(path))], cwd=tree, check=True)
+        runs.append(torch.load(path))
+    for i, r in enumerate(runs[1:], 1):
+        for B, y in r["out"].items():
+            if not torch.equal(y, runs[0]["out"][B]):
+                fail(f"K2 B={B}: turn {i} differs from the parent's by "
+                     f"{(y - runs[0]['out'][B]).abs().max().item():.3e}")
+    out = {}
+    for B in K2_B:
+        par = (runs[0]["ms"][B] + runs[3]["ms"][B]) / 2
+        this = (runs[1]["ms"][B] + runs[2]["ms"][B]) / 2
+        out[B] = (par, this)
+        print(f"  K2 stack B={B}: bitwise the parent's; parent "
+              f"{runs[0]['ms'][B]:.4f} / {runs[3]['ms'][B]:.4f} ms, this "
+              f"{runs[1]['ms'][B]:.4f} / {runs[2]['ms'][B]:.4f} ms "
+              f"(this / parent {this / par:.4f}) {card}")
+    return out
+
+
 # gru_proj's shapes on the paths, rows M = B T at N = 1152: K2_B's at
 # T_SERVE (live and serving), the checks' B=64, the CTC step's B=64 x
 # T=80, the sweep's B=64 x max_t 90, and M=1,024
@@ -1529,13 +1597,21 @@ def time_dc_variants(dev, card: str) -> dict:
     return out
 
 
+def plan_str(pl) -> str:
+    """A probe kernel's plan (ops/cuda_gru_proto.ProbePlan) in a few words."""
+    return (f"C={pl.C} BT={pl.BT} {pl.threads} thr {pl.smem} B, "
+            f"{pl.blocks} blocks, {pl.clusters} clusters at once, "
+            f"{pl.waves} wave(s)")
+
+
 def check_gru_probes(gen, dev) -> dict:
     """The GRU probes' kernels against their plain versions (TF32 off): the
     recurrence kernel with one weight set (P2a) and two (P2b), K2's
     one-direction launch as proto_gru3's route (P3, f32: K2 has no bf16
     build) and the dual-chain kernel (P4), at B in PROBE_B, T=32, lengths
-    that include T and 1, D in PROBE_D, with and without bf16_mm. Returns
-    each kernel's largest error; raises on a failure."""
+    that include T and 1, D in PROBE_D, with and without bf16_mm, each at
+    its plan's tile (printed). Returns each kernel's largest error; raises
+    on a failure."""
     from silent_speech_tpu_torch.infer.predictor import full_f32
     from silent_speech_tpu_torch.ops import cuda_gru_proto as gp
     from silent_speech_tpu_torch.ops import gru as gru_ops
@@ -1560,6 +1636,14 @@ def check_gru_probes(gen, dev) -> dict:
             if B > 1:
                 L[-1] = 1
             L = L.to(dev)
+            for bf16 in (False, True):
+                print(f"  plans B={B} D={D} bf16_mm={bf16}: "
+                      + "; ".join(f"{n} {plan_str(pl)}" for n, pl in (
+                          ("gru_kstep", gp.rec_plan(B, 1, H, bf16_mm=bf16)),
+                          ("gru_kstep_2w", gp.rec_plan(B, 2, H,
+                                                       bf16_mm=bf16)),
+                          ("gru_dual", gp.dual_plan(B, D, H, T,
+                                                    bf16_mm=bf16)))))
             with full_f32():
                 x_flip = gru_ops.flip_padded(x, L)
                 xp_f = x @ pf["wi"] + pf["bi"]
@@ -1572,18 +1656,16 @@ def check_gru_probes(gen, dev) -> dict:
                 for bf16 in (False, True):
                     label = f"B={B} D={D} bf16_mm={bf16}"
                     bar = BAR_GRU_BF16 if bf16 else BAR_GRU
-                    knobs = REC_KNOBS[bf16]
                     ref_f = gp.gru_recurrence_plain(xp_f, L, pf["wh"],
                                                     pf["bh"], bf16)
                     ref_b = gp.gru_recurrence_plain(xp_b, L, pb["wh"],
                                                     pb["bh"], bf16)
                     got = gp.gru_sequence_kstep(xp_f, L, pf["wh"], pf["bh"],
-                                                bf16_mm=bf16, impl="kernel",
-                                                **knobs)
+                                                bf16_mm=bf16, impl="kernel")
                     check("gru_kstep", label, got, ref_f, bar)
                     got = gp.gru_sequence_kstep_2w(
                         torch.cat([xp_f, xp_b]), L.repeat(2), wh2, bh2,
-                        bf16_mm=bf16, impl="kernel", **knobs)
+                        bf16_mm=bf16, impl="kernel")
                     check("gru_kstep_2w", label, got,
                           torch.cat([ref_f, ref_b]), bar)
                     got = gp.gru_layer_dual(x, x_flip, L, pf, pb,
@@ -1594,16 +1676,56 @@ def check_gru_probes(gen, dev) -> dict:
     return errs
 
 
+def split_bound(rec_ops: float, rec_peak: float, proj_ops: float,
+                proj_peak: float, nbytes: float) -> tuple[float, str]:
+    """A GRU probe's least time with each part at the card's rate for its
+    type: the recurrence's multiply-adds at ``rec_peak`` (67 TFLOP/s, the
+    f32 FMAs, in f32; 989 under bf16_mm, whose products are of bf16 values
+    summed in f32, what bf16 MMA computes), the projection's at
+    ``proj_peak`` (232 for 3xTF32 with the FMAs, 989 for the bf16_mm pass,
+    67 for K2p's small route), or the bytes at 3.35 TB/s, whichever is
+    larger."""
+    t_ops = (rec_ops / rec_peak + proj_ops / proj_peak) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def gru_library_median(p, x: torch.Tensor, lengths: torch.Tensor,
+                       bidirectional: bool = True) -> tuple[float, ...]:
+    """:func:`gru_library_ms`'s reading (the smaller of its two timers)
+    LIB_REPS times, after LIB_WARM_S seconds of the same calls that bring
+    the card's clocks up: (median, lowest, highest) ms."""
+    warm = time.perf_counter()
+    while time.perf_counter() - warm < LIB_WARM_S:
+        gru_library_ms(p, x, lengths, bidirectional)
+    reps = sorted(min(gru_library_ms(p, x, lengths, bidirectional))
+                  for _ in range(LIB_REPS))
+    return reps[len(reps) // 2], reps[0], reps[-1]
+
+
 def time_gru_probes(dev, card: str) -> dict:
-    """Each probe kernel, its plain version and cuDNN's layer at B=512 and
-    B=1, T=32, D=180 (the scripts' inputs), CUDA events; each kernel's
-    bound over this run's lengths. Returns {kernel: {key: value}}."""
+    """Each probe kernel (f32 and bf16_mm), its plain version and cuDNN's
+    layer at B=512 and B=1, T=32, D=180 (the scripts' inputs): the kernels
+    on the held-stream timer (held_ms; CUDA events time the host under
+    about 0.1 ms), the plain versions with CUDA events, the library layer
+    as gru_library_median (packed once, TF32 off; its median, with the
+    spread of its readings); each row's plan; each bound over this run's
+    lengths with each part at the card's rate for its type
+    (:func:`split_bound`). Beside P4: K2's one
+    bidirectional layer on the same inputs (gru_proj then gru_seq, the
+    port's yardstick), P4's function with the projection ahead (gru_proj
+    on x and on x_flip, then gru_kstep_2w over both) and the dual kernel's
+    timing stops (its projection, its recurrent products, or both left
+    out). Fails if a kernel row is under its bound. Returns {kernel: {key:
+    value}}."""
     from silent_speech_tpu_torch.infer.predictor import full_f32
+    from silent_speech_tpu_torch.ops import cuda_gru
     from silent_speech_tpu_torch.ops import cuda_gru_proto as gp
     from silent_speech_tpu_torch.ops import gru as gru_ops
     from silent_speech_tpu_torch.scripts import bench_gru, proto_gru3
 
     T, H = PROBE_T, PROBE_H
+    tc_peak = PEAK_F32_FLOPS + PEAK_TF32_FLOPS / 3
     out = {name: {} for name in PROBE_KERNELS}
     for B in (512, 1):
         x, L, layers = bench_gru.make_problem(B, T, dev)
@@ -1615,60 +1737,102 @@ def time_gru_probes(dev, card: str) -> dict:
         L2 = L.repeat(2)
         wh2, bh2 = (torch.stack([pf[k], pb[k]]) for k in ("wh", "bh"))
         with full_f32():
-            lib_uni = ("forward", min(gru_library_ms(pf, x, L,
-                                                     bidirectional=False)))
-            lib_bi = ("bidirectional", min(gru_library_ms(pf, x, L)))
+            lib_uni = ("forward", gru_library_median(pf, x, L,
+                                                     bidirectional=False))
+            lib_bi = ("bidirectional", gru_library_median(pf, x, L))
+        rec_ops, proj_ops = 2 * S * H * 3 * H, 2 * S * D * 3 * H
+        k2p_peak = tc_peak if cuda_gru.proj_geometry(
+            B * T, D, 3 * H).route == "large" else PEAK_F32_FLOPS
         rec_bytes = 4 * (B * T * 4 * H + H * 3 * H + 3 * H + B)
         proj_bytes = 4 * (B * T * (D + H) + (D + H) * 3 * H + 6 * H + B)
-        cases = {  # kernel: (run(bf16), plain, ops, bytes, (library, ms))
+        cases = {  # kernel: (run(bf16), plain, recurrence ops, projection
+            # ops, its rate, bytes, (library, ms), plan(bf16))
             "gru_kstep": (
                 lambda bf16: gp.gru_sequence_kstep(
                     xp_f, L, pf["wh"], pf["bh"], bf16_mm=bf16,
-                    impl="kernel", **REC_KNOBS[bf16]),
+                    impl="kernel"),
                 lambda: gp.gru_recurrence_plain(xp_f, L, pf["wh"], pf["bh"]),
-                2 * S * H * 3 * H, rec_bytes, lib_uni),
+                rec_ops, 0, tc_peak, rec_bytes, lib_uni,
+                lambda bf16: gp.rec_plan(B, 1, H, bf16_mm=bf16)),
             "gru_kstep_2w": (
                 lambda bf16: gp.gru_sequence_kstep_2w(
-                    xp2, L2, wh2, bh2, bf16_mm=bf16, impl="kernel",
-                    **REC_KNOBS[bf16]),
+                    xp2, L2, wh2, bh2, bf16_mm=bf16, impl="kernel"),
                 lambda: torch.cat([gp.gru_recurrence_plain(
                     xp2[s * B:(s + 1) * B], L, wh2[s], bh2[s])
                     for s in (0, 1)]),
-                2 * 2 * S * H * 3 * H, 2 * rec_bytes, lib_bi),
+                2 * rec_ops, 0, tc_peak, 2 * rec_bytes, lib_bi,
+                lambda bf16: gp.rec_plan(B, 2, H, bf16_mm=bf16)),
             "gru_fusedproj": (
                 lambda bf16: proto_gru3.gru_sequence_fusedproj(
                     x, L, pf["wi"], pf["bi"], pf["wh"], pf["bh"],
                     impl="kernel"),
                 lambda: gru_ops.gru_layer_single_direction(x, L, pf)[0],
-                2 * S * (D + H) * 3 * H, proj_bytes, lib_uni),
+                rec_ops, proj_ops, k2p_peak, proj_bytes, lib_uni, None),
             "gru_dual": (
                 lambda bf16: gp.gru_layer_dual(x, x_flip, L, pf, pb,
                                                bf16_mm=bf16, impl="kernel"),
                 lambda: gp.gru_layer_dual_plain(x, x_flip, L, pf, pb),
-                2 * 2 * S * (D + H) * 3 * H,
+                2 * rec_ops, 2 * proj_ops, tc_peak,
                 4 * (2 * B * T * (D + H) + 2 * ((D + H) * 3 * H + 6 * H)
-                     + B), lib_bi),
+                     + B), lib_bi,
+                lambda bf16: gp.dual_plan(B, D, H, T, bf16_mm=bf16)),
         }
         sfx = "" if B == 512 else "_b1"
-        for name, (run, plain, ops, nbytes, lib) in cases.items():
+        for name, (run, plain, rops, pops, peak, nbytes, lib,
+                   plan) in cases.items():
             r = out[name]
-            r["ms" + sfx] = cuda_ms(lambda: run(False), 20)
+            r["ms" + sfx] = held_ms(lambda: run(False), dev)
             with full_f32():
                 r["plain_ms" + sfx] = cuda_ms(plain, 5, warmup=1)
-            r["bound_ms" + sfx], r["bound_by" + sfx] = bound_ms(ops, nbytes)
-            r["library_ms" + sfx] = lib[1]
+            r["bound_ms" + sfx], r["bound_by" + sfx] = split_bound(
+                rops, PEAK_F32_FLOPS, pops, peak, nbytes)
+            r["library_ms" + sfx] = lib[1][0]
+            r["library_spread_ms" + sfx] = lib[1][1:]
+            check_bound(f"{name} B={B}", r["ms" + sfx], r["bound_ms" + sfx])
             line = (f"  {name} B={B} T={T} D={D}: kernel {r['ms' + sfx]:.4f}"
                     f" ms, plain {r['plain_ms' + sfx]:.4f} ms, bound "
                     f"{r['bound_ms' + sfx]:.4f} ms ({r['bound_by' + sfx]}), "
                     f"torch.nn.GRU {lib[0]} layer (cuDNN, projection "
-                    f"included, packed once, TF32 off) {lib[1]:.4f} ms")
+                    f"included, packed once, TF32 off) median {lib[1][0]:.4f}"
+                    f" ms of {LIB_REPS} (spread {lib[1][1]:.4f}-"
+                    f"{lib[1][2]:.4f}) ({'' if r['ms' + sfx] < lib[1][0] else 'NOT '}"
+                    f"faster, x{lib[1][0] / r['ms' + sfx]:.2f})")
+            if plan is not None:
+                r["plan" + sfx] = plan(False)._asdict()
+                line += f"; plan {plan_str(plan(False))}"
             if name != "gru_fusedproj":  # K2 has no bf16 build
-                r["ms_bf16" + sfx] = cuda_ms(lambda: run(True), 20)
-                r["bound_ms_bf16" + sfx] = bound_ms(ops, nbytes,
-                                                    PEAK_BF16_FLOPS)[0]
+                r["ms_bf16" + sfx] = held_ms(lambda: run(True), dev)
+                r["bound_ms_bf16" + sfx] = split_bound(
+                    rops, PEAK_BF16_FLOPS, pops, PEAK_BF16_FLOPS, nbytes)[0]
+                check_bound(f"{name} bf16_mm B={B}", r["ms_bf16" + sfx],
+                            r["bound_ms_bf16" + sfx])
                 line += (f"; bf16_mm {r['ms_bf16' + sfx]:.4f} ms (bound "
-                         f"{r['bound_ms_bf16' + sfx]:.4f} at the bf16 rate)")
+                         f"{r['bound_ms_bf16' + sfx]:.4f}, the products at "
+                         f"the bf16 rate; plan {plan_str(plan(True))})")
             print(line + f" {card}")
+        pack = cuda_gru.pack_layer([(pf, False), (pb, True)])
+        layer = [{"fwd": pf, "bwd": pb, "packed": pack}]
+        wts = [cuda_gru.pack_wi_tc(p["wi"]) for p in (pf, pb)]
+
+        def ahead():
+            xp = torch.cat([cuda_gru.gru_proj(
+                xx, p["wi"], p["bi"], impl="kernel", wt=wt)
+                for xx, p, wt in ((x, pf, wts[0]), (x_flip, pb, wts[1]))])
+            return gp.gru_sequence_kstep_2w(xp, L2, wh2, bh2, impl="kernel")
+        r = out["gru_dual"]
+        r["k2_layer_ms" + sfx] = held_ms(lambda: cuda_gru.bigru_kernel(
+            x, L, layer, impl="kernel"), dev)
+        r["proj_ahead_ms" + sfx] = held_ms(ahead, dev)
+        r["stops_ms" + sfx] = {stop: held_ms(
+            lambda: gp.gru_layer_dual_stop(x, x_flip, L, pf, pb, stop), dev)
+            for stop in gp.STOPS}
+        print(f"  beside gru_dual B={B} D={D}: K2's bidirectional layer "
+              f"(gru_proj then gru_seq) {r['k2_layer_ms' + sfx]:.4f} ms; "
+              "P4's function with the projection ahead (gru_proj on x and "
+              f"x_flip, then gru_kstep_2w) {r['proj_ahead_ms' + sfx]:.4f} ms;"
+              " gru_dual's timing stops (gru_dual_stop, the plan's launch) "
+              + ", ".join(f"{k} {v:.4f}" for k, v in
+                          r["stops_ms" + sfx].items()) + f" ms {card}")
     return out
 
 
@@ -3421,4 +3585,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--k2-parent"]:  # K2 against a parent's checkout
+        k2_against_parent(Path(sys.argv[2]).resolve(), "")
+        sys.exit(0)
     sys.exit(main())

@@ -9,13 +9,13 @@ The projection ``xp = x Wi + bi`` is a ``torch.einsum`` outside the kernel,
 as the JAX script computes it with ``jnp.einsum`` outside its
 ``pallas_call``; the forward and the backward direction (of the flipped
 input) are stacked into one (2B, T, 3H) launch of the recurrence kernel
-(csrc/gru_proto.cu) with two weight sets. ``bf16_mm`` rounds h and Wh for
-the recurrent product and keeps Wh in shared memory.
+(csrc/gru_proto.cu, on K2's cluster recurrence) with two weight sets.
+``bf16_mm`` rounds h and Wh for the recurrent product.
 
-The variant tables sweep the card's knobs: ``batch_tile`` (rows per thread
-block) and ``k_steps`` (steps of xp staged in shared memory at a time). The
-one-direction table runs ``gru_sequence_kstep`` (one weight set) against
-the scan and K2.
+The variant tables sweep the card's knob ``batch_tile`` (rows a
+thread-block cluster; by default the kernel's plan). The one-direction
+table runs ``gru_sequence_kstep`` (one weight set) against the scan and
+K2.
 """
 
 from __future__ import annotations
@@ -39,7 +39,8 @@ def _proj(x: torch.Tensor, p: dict) -> torch.Tensor:
 
 
 def bigru_fused(x: torch.Tensor, lengths: torch.Tensor, layers: list, *,
-                batch_tile: int = 8, k_steps: int = 8, bf16_mm: bool = False,
+                batch_tile: Optional[int] = None, k_steps: int = 8,
+                bf16_mm: bool = False,
                 impl: str = "auto") -> torch.Tensor:
     """Stacked biGRU, one recurrence launch a layer: the directions stacked
     along the batch (proto_gru2.py::bigru_fused). Returns (B, T, 2H)."""
@@ -59,24 +60,23 @@ def bigru_fused(x: torch.Tensor, lengths: torch.Tensor, layers: list, *,
 
 
 # (name, knobs) of the stack table; each fits a block's shared memory at
-# H=192 (ops/cuda_gru_proto.rec_smem_bytes)
+# H=192 (ops/cuda_gru_proto.rec_geometry); no batch_tile: the kernel's
+# plan (one wave where a tile gives one)
 STACK_VARIANTS = [
-    ("fused k1 bt8", {"k_steps": 1, "batch_tile": 8}),
-    ("fused k4 bt8", {"k_steps": 4, "batch_tile": 8}),
-    ("fused k8 bt8", {"k_steps": 8, "batch_tile": 8}),
-    ("fused k12 bt8", {"k_steps": 12, "batch_tile": 8}),
-    ("fused k4 bt16", {"k_steps": 4, "batch_tile": 16}),
-    ("fused k8 bt4", {"k_steps": 8, "batch_tile": 4}),
-    ("fused k8 bt1", {"k_steps": 8, "batch_tile": 1}),
-    ("fused k32 bt1", {"k_steps": 32, "batch_tile": 1}),
-    ("fused k1 bt2 bf16mm", {"k_steps": 1, "batch_tile": 2, "bf16_mm": True}),
-    ("fused k4 bt1 bf16mm", {"k_steps": 4, "batch_tile": 1, "bf16_mm": True}),
+    ("fused plan", {}),
+    ("fused bt1", {"batch_tile": 1}),
+    ("fused bt4", {"batch_tile": 4}),
+    ("fused bt16", {"batch_tile": 16}),
+    ("fused bt32", {"batch_tile": 32}),
+    ("fused bt64", {"batch_tile": 64}),
+    ("fused plan bf16mm", {"bf16_mm": True}),
+    ("fused bt2 bf16mm", {"batch_tile": 2, "bf16_mm": True}),
 ]
 ONE_DIRECTION_VARIANTS = [
-    ("kstep k8 bt8", {"k_steps": 8, "batch_tile": 8}),
-    ("kstep k1 bt8", {"k_steps": 1, "batch_tile": 8}),
-    ("kstep k8 bt1", {"k_steps": 8, "batch_tile": 1}),
-    ("kstep k1 bt2 bf16mm", {"k_steps": 1, "batch_tile": 2, "bf16_mm": True}),
+    ("kstep plan", {}),
+    ("kstep bt8", {"batch_tile": 8}),
+    ("kstep bt1", {"batch_tile": 1}),
+    ("kstep plan bf16mm", {"bf16_mm": True}),
 ]
 
 

@@ -4,15 +4,16 @@ chains, the projections fused (port of scripts/proto_gru4.py).
     python -m silent_speech_tpu_torch.scripts.proto_gru4 [B] [T] \\
         [device=cuda] [iters=100]
 
-The dual-chain kernel (csrc/gru_proto.cu) runs both directions of a row
-tile in one block: each thread owns one hidden unit of both chains and
-interleaves their products and gate arithmetic. As the TPU kernel it takes
-x and flip_padded(x) and returns the backward direction's output in the
-flipped order, which the host flips back. ``bf16_mm`` rounds x, Wi, h and
-Wh for the products.
+The dual-chain kernel (csrc/gru_proto.cu) runs both directions of a layer
+in one launch, each chain as thread-block clusters of K2's recurrence that
+keep Wh and their units' columns of Wi in shared memory and project each
+chunk of ``k_steps`` steps on the tensor cores before its steps. As the TPU
+kernel it takes x and flip_padded(x) and returns the backward direction's
+output in the flipped order, which the host flips back. ``bf16_mm`` rounds
+x, Wi, h and Wh for the products.
 
-The variant table sweeps the card's knobs: ``batch_tile`` (rows per thread
-block) and ``k_steps`` (steps of x staged in shared memory at a time).
+The variant table sweeps the card's knobs: ``batch_tile`` (rows a
+cluster) and ``k_steps`` (steps a chunk), by default the kernel's plan.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ __all__ = ["gru_layer_dual", "bigru_dual", "main"]
 
 
 def bigru_dual(x: torch.Tensor, lengths: torch.Tensor, layers: list, *,
-               batch_tile: int = 8, k_steps: int = 8, bf16_mm: bool = False,
+               batch_tile: Optional[int] = None,
+               k_steps: Optional[int] = None, bf16_mm: bool = False,
                vmem_mb: int = DUAL_VMEM_MB, impl: str = "auto"
                ) -> torch.Tensor:
     """Stacked biGRU, one dual-chain launch a layer
@@ -46,18 +48,19 @@ def bigru_dual(x: torch.Tensor, lengths: torch.Tensor, layers: list, *,
     return out
 
 
-# (name, knobs); each fits a block's shared memory at D=384, H=192
-# (ops/cuda_gru_proto.dual_smem_bytes)
+# (name, knobs); each fits a block's shared memory at D=384, H=192 (the
+# second layer; ops/cuda_gru_proto.dual_geometry); no batch_tile: the
+# kernel's plan
 VARIANTS = [
-    ("dual k8 bt8", {"k_steps": 8, "batch_tile": 8}),
+    ("dual plan", {}),
+    ("dual k8 plan", {"k_steps": 8}),
+    ("dual k4 plan", {"k_steps": 4}),
+    ("dual k2 bt16", {"k_steps": 2, "batch_tile": 16}),
     ("dual k4 bt8", {"k_steps": 4, "batch_tile": 8}),
-    ("dual k1 bt8", {"k_steps": 1, "batch_tile": 8}),
-    ("dual k8 bt4", {"k_steps": 8, "batch_tile": 4}),
-    ("dual k16 bt4", {"k_steps": 16, "batch_tile": 4}),
-    ("dual k8 bt2", {"k_steps": 8, "batch_tile": 2}),
+    ("dual k1 bt28", {"k_steps": 1, "batch_tile": 28}),
     ("dual k8 bt1", {"k_steps": 8, "batch_tile": 1}),
     ("dual k32 bt1", {"k_steps": 32, "batch_tile": 1}),
-    ("dual k8 bt8 bf16", {"k_steps": 8, "batch_tile": 8, "bf16_mm": True}),
+    ("dual plan bf16", {"bf16_mm": True}),
 ]
 
 

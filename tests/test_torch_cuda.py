@@ -40,6 +40,9 @@ imports jax) run them with
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import os
+import pathlib
+
 import pytest
 import torch
 
@@ -1035,30 +1038,31 @@ def _probe_problem(dev, B, T, D, H, seed):
     return x.to(dev), lengths.to(dev), ps
 
 
-# (batch_tile, k_steps) for each bf16_mm at H=192: the bf16 recurrence keeps
-# Wh in shared memory beside a small stage
-_REC_KNOBS = {False: (8, 8), True: (2, 1)}
+def _assert_zero_past(y: torch.Tensor, lengths: torch.Tensor) -> None:
+    L = lengths.cpu()
+    for b in range(y.shape[0]):
+        assert not y[b, int(L[b]):].any(), b
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("B", [1, 33])
+@pytest.mark.parametrize("B", [1, 33, 512])
 @pytest.mark.parametrize("sets", [1, 2])
 def test_recurrence_kernel_matches_plain(dev, sets, B, bf16):
+    """At the plan's tile, one launch a call, y zero past each length."""
     T, D, H = 32, 180, 192
     x, lengths, ps = _probe_problem(dev, B, T, D, H, B + 10 * sets)
     xps = [x @ p["wi"] + p["bi"] for p in ps[:sets]]
     xp, L = torch.cat(xps), lengths.repeat(sets)
     wh = torch.stack([p["wh"] for p in ps[:sets]])
     bh = torch.stack([p["bh"] for p in ps[:sets]])
-    bt, k = _REC_KNOBS[bf16]
     kernel = cuda_gru_proto.KSTEP if sets == 1 else cuda_gru_proto.KSTEP_2W
     before = _kernels.launch_counts()
     if sets == 1:
-        got = cuda_gru_proto.gru_sequence_kstep(
-            xp, L, wh[0], bh[0], batch_tile=bt, k_steps=k, bf16_mm=bf16)
+        got = cuda_gru_proto.gru_sequence_kstep(xp, L, wh[0], bh[0],
+                                                bf16_mm=bf16)
     else:
-        got = cuda_gru_proto.gru_sequence_kstep_2w(
-            xp, L, wh, bh, batch_tile=bt, k_steps=k, bf16_mm=bf16)
+        got = cuda_gru_proto.gru_sequence_kstep_2w(xp, L, wh, bh,
+                                                   bf16_mm=bf16)
     torch.cuda.synchronize()
     after = _kernels.launch_counts()
     assert {n for n in after if after[n] != before[n]} == {kernel.name}
@@ -1067,52 +1071,112 @@ def test_recurrence_kernel_matches_plain(dev, sets, B, bf16):
         xps[s], lengths, wh[s], bh[s], bf16) for s in range(sets)])
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, ref, atol=_PROBE_BARS[bf16], rtol=0)
-    assert not got[L.cpu() == 0].any()
+    _assert_zero_past(got, L)
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("B,D", [(1, 180), (33, 384)])
+@pytest.mark.parametrize("D", [180, 384])
+@pytest.mark.parametrize("B", [1, 33, 512])
 def test_dual_kernel_matches_plain(dev, B, D, bf16):
+    """At the plan's tile and chunk, one launch a call, y zero past each
+    length."""
     T, H = 32, 192
     x, lengths, (pf, pb) = _probe_problem(dev, B, T, D, H, B + D)
     x_flip = gru_ops.flip_padded(x, lengths)
-    before = cuda_gru_proto.DUAL.launches
+    before = _kernels.launch_counts()
     got = cuda_gru_proto.gru_layer_dual(x, x_flip, lengths, pf, pb,
                                         bf16_mm=bf16)
     torch.cuda.synchronize()
-    assert cuda_gru_proto.DUAL.launches == before + 1
+    after = _kernels.launch_counts()
+    assert {n for n in after if after[n] != before[n]} == {"gru_dual"}
+    assert cuda_gru_proto.DUAL.launches == before["gru_dual"] + 1
     ref = cuda_gru_proto.gru_layer_dual_plain(x, x_flip, lengths, pf, pb,
                                               bf16)
     for g, r in zip(got, ref):
         assert torch.isfinite(g).all()
         torch.testing.assert_close(g, r, atol=_PROBE_BARS[bf16], rtol=0)
+        _assert_zero_past(g, lengths)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_probe_kernels_repeat_bitwise(dev, bf16):
+    """Two calls on the same inputs give the same bits, at tiles of each
+    body (1 and 2 rows: split; 4 n: tiled)."""
+    x, lengths, (pf, pb) = _probe_problem(dev, 70, 32, 180, 192, 8)
+    xp = x @ pf["wi"] + pf["bi"]
+    x_flip = gru_ops.flip_padded(x, lengths)
+    for tile in (None, 1, 2, 16):
+        a, b = (cuda_gru_proto.gru_sequence_kstep(
+            xp, lengths, pf["wh"], pf["bh"], batch_tile=tile, bf16_mm=bf16)
+            for _ in range(2))
+        assert torch.equal(a, b), tile
+        a, b = (cuda_gru_proto.gru_layer_dual(
+            x, x_flip, lengths, pf, pb, batch_tile=tile, bf16_mm=bf16)
+            for _ in range(2))
+        assert all(torch.equal(u, v) for u, v in zip(a, b)), tile
 
 
 def test_probe_kernels_f32_do_not_depend_on_the_knobs(dev):
-    """Every row's sums run in the same order whatever the tile and the
-    stage: the f32 outputs are bitwise equal across the knobs."""
-    x, lengths, (pf, pb) = _probe_problem(dev, 37, 20, 24, 64, 3)
-    xp = x @ pf["wi"] + pf["bi"]
-    x_flip = gru_ops.flip_padded(x, lengths)
-    rec = [cuda_gru_proto.gru_sequence_kstep(
-        xp, lengths, pf["wh"], pf["bh"], batch_tile=bt, k_steps=k)
-        for bt, k in ((8, 8), (1, 1), (16, 3), (2, 20), (4, 32))]
-    dual = [cuda_gru_proto.gru_layer_dual(x, x_flip, lengths, pf, pb,
-                                          batch_tile=bt, k_steps=k)
-            for bt, k in ((8, 8), (1, 1), (4, 3), (2, 32))]
-    ref = cuda_gru_proto.gru_recurrence_plain(xp, lengths, pf["wh"],
-                                              pf["bh"])
-    for y in rec:
-        torch.testing.assert_close(y, ref, atol=1e-4, rtol=0)
-    ref = cuda_gru_proto.gru_layer_dual_plain(x, x_flip, lengths, pf, pb)
-    for y in dual:
-        for g, r in zip(y, ref):
-            torch.testing.assert_close(g, r, atol=1e-4, rtol=0)
-    for y in rec[1:]:
-        assert torch.equal(y, rec[0]), (y - rec[0]).abs().max().item()
-    for y in dual[1:]:
-        for g, r in zip(y, dual[0]):
-            assert torch.equal(g, r), (g - r).abs().max().item()
+    """Every row's sums run in the same order whatever the tile (the split
+    and the tiled body) and the chunk: the f32 outputs are bitwise equal
+    across the knobs, at a small width and at full width."""
+    for B, T, D, H in ((37, 20, 24, 64), (70, 32, 180, 192)):
+        x, lengths, (pf, pb) = _probe_problem(dev, B, T, D, H, 3)
+        xp = x @ pf["wi"] + pf["bi"]
+        x_flip = gru_ops.flip_padded(x, lengths)
+        rec = [cuda_gru_proto.gru_sequence_kstep(
+            xp, lengths, pf["wh"], pf["bh"], batch_tile=bt, k_steps=k)
+            for bt, k in ((8, 8), (1, 1), (16, 3), (2, 20), (4, 32),
+                          (32, 8), (64, 8), (None, 8))]
+        dual = [cuda_gru_proto.gru_layer_dual(x, x_flip, lengths, pf, pb,
+                                              batch_tile=bt, k_steps=k)
+                for bt, k in ((8, 8), (1, 1), (4, 3), (2, 32), (16, 4),
+                              (32, 1), (None, 8), (None, None))]
+        ref = cuda_gru_proto.gru_recurrence_plain(xp, lengths, pf["wh"],
+                                                  pf["bh"])
+        for y in rec:
+            torch.testing.assert_close(y, ref, atol=1e-4, rtol=0)
+        ref = cuda_gru_proto.gru_layer_dual_plain(x, x_flip, lengths, pf, pb)
+        for y in dual:
+            for g, r in zip(y, ref):
+                torch.testing.assert_close(g, r, atol=1e-4, rtol=0)
+        for y in rec[1:]:
+            assert torch.equal(y, rec[0]), (y - rec[0]).abs().max().item()
+        for y in dual[1:]:
+            for g, r in zip(y, dual[0]):
+                assert torch.equal(g, r), (g - r).abs().max().item()
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_probe_plans_are_the_mirrors(dev, bf16):
+    """The kernels' plans (gru_rec_plan, gru_dual_plan) lay the block out
+    as ops/cuda_gru_proto's mirror does, and choose the tile (and the dual
+    kernel's chunk) the mirror chooses given the card's co-resident
+    clusters; a given tile and chunk are taken as they are."""
+    H, T = 192, 32
+    for B in (1, 33, 512):
+        for sets in (1, 2):
+            pl = cuda_gru_proto.rec_plan(B, sets, H, bf16_mm=bf16)
+            g = cuda_gru_proto.rec_geometry(H, pl.BT, bf16)
+            assert pl[:5] + (pl.threads, pl.smem) == \
+                (g.C, g.U, g.Up, g.Hk, g.BT, g.threads, g.smem)
+            cap = lambda g: cuda_gru_proto.rec_plan(
+                B, sets, H, g.BT, bf16).clusters
+            assert cuda_gru_proto.choose_tile(
+                B, sets, lambda t: cuda_gru_proto.rec_geometry(H, t, bf16),
+                cap).BT == pl.BT
+            assert pl.blocks == pl.C * -(-B // pl.BT) * sets
+        for D in (180, 384):
+            pl = cuda_gru_proto.dual_plan(B, D, H, T, bf16_mm=bf16)
+            g = cuda_gru_proto.dual_geometry(D, H, pl.BT, pl.K, bf16)
+            assert pl[:5] + (pl.threads, pl.smem) == \
+                (g.C, g.U, g.Up, g.Hk, g.BT, g.threads, g.smem)
+            cap = lambda g, k: cuda_gru_proto.dual_plan(
+                B, D, H, T, g.BT, k, bf16).clusters
+            g, k = cuda_gru_proto.choose_chunk(B, D, H, T, cap, bf16)
+            assert (g.BT, k) == (pl.BT, pl.K)
+    pl = cuda_gru_proto.dual_plan(512, 180, H, T, 4, 8)
+    assert (pl.BT, pl.K) == (4, 8)
 
 
 def test_probe_kernels_refuse_what_they_do_not_take(dev):
@@ -1131,9 +1195,38 @@ def test_probe_kernels_refuse_what_they_do_not_take(dev):
     with pytest.raises(ValueError, match="f32"):
         cuda_gru_proto.gru_layer_dual(x.double(), x.double(), lengths, pf,
                                       pb)
+    with pytest.raises(ValueError, match="batch_tile"):
+        cuda_gru_proto.gru_layer_dual(x, x, lengths, pf, pb, batch_tile=128)
+    xw, lw, (qf, qb) = _probe_problem(dev, 64, 8, 384, 192, 5)
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_gru_proto.gru_layer_dual(xw, xw, lw, qf, qb, batch_tile=64)
+    before = cuda_gru_proto.DUAL.launches
+    yw = torch.empty((2, 64, 8, 192), device=dev)
+    with pytest.raises(RuntimeError, match="gru_dual_forward"):
+        # past the mirror's check, the kernel's own refusal (a 64-row tile
+        # at D=384): CUDA error, no launch counted
+        cuda_gru_proto.DUAL.launch(*(_kernels.ptr(t) for t in (
+            xw, xw, lw.int(), qf["wi"], qf["bi"], qf["wh"], qf["bh"],
+            qb["wi"], qb["bi"], qb["wh"], qb["bh"], yw[0], yw[1])),
+            64, 8, 384, 192, 64, 8, 0, _kernels.stream_ptr(xw.device))
+    assert cuda_gru_proto.DUAL.launches == before
     y = cuda_gru_proto.gru_sequence_kstep(xp[:0], lengths[:0], pf["wh"],
                                           pf["bh"])
     assert y.shape == (0, 6, 16)
+
+
+def test_k2_outputs_bitwise_the_parent_tree(dev):
+    """K2's serving stack at B=1, 256 and 1024 bitwise the parent commit's
+    (the cluster recurrence's bodies moved into csrc/gru_cluster.cuh), both
+    trees in turns in one run: SST_PARENT_TREE names a checkout of the
+    parent (git archive)."""
+    parent = os.environ.get("SST_PARENT_TREE")
+    if not parent:
+        pytest.skip("SST_PARENT_TREE names no parent checkout")
+    import chip_smoke
+
+    times = chip_smoke.k2_against_parent(pathlib.Path(parent).resolve(), "")
+    assert set(times) == set(chip_smoke.K2_B)
 
 
 # ---------------------------------------------- the CNN-front prototypes

@@ -194,8 +194,8 @@ TPU_KNOBS = {  # id: (call, what the error names)
         _X, _L, _LAYERS, k_steps=0), "k_steps"),
     "2w-odd-rows": (lambda: proto_gru2.gru_sequence_kstep_2w(
         TORCH_IN["xp"], _L, TORCH_IN["wh2"], TORCH_IN["bh2"]), "two halves"),
-    "dual-tb16": (lambda: proto_gru4.bigru_dual(
-        _X, _L, _LAYERS, batch_tile=16), "batch_tile"),
+    "dual-tb128": (lambda: proto_gru4.bigru_dual(
+        _X, _L, _LAYERS, batch_tile=128), "batch_tile"),
     "dual-vmem96": (lambda: proto_gru4.bigru_dual(
         _X, _L, _LAYERS, vmem_mb=96), "vmem_mb"),
     "fusedproj-tb128": (lambda: proto_gru3.bigru_fusedproj(
@@ -217,24 +217,36 @@ def test_tpu_only_knob_values_raise(case):
 
 
 def test_knobs_over_shared_memory_raise_at_full_width():
-    """At H=192 the bf16 recurrence keeps Wh (221,184 bytes) in shared
-    memory: the default stage (8 rows x 8 steps) no longer fits, a 2-row,
-    1-step stage does; the dual kernel's stage at D=384 fits 8 x 8, not
-    8 x 16."""
+    """At H=192 the recurrence keeps its cluster's Wh slice beside h. In
+    f32 (C=4: 110,592 bytes a block) every tile fits, the largest (64 rows)
+    in 209,152 bytes; under bf16_mm the block holds Wh as bf16, so C=2 (the
+    same bytes, 96 units a block), whose tiled body takes up to 32 rows: a
+    64-row tile raises. The dual kernel (C=8) adds Wi's slice and the
+    chunk's projection: at D=384 a 64-row tile does not fit, nor 20 rows
+    with 8-step chunks; 16 x 8 and 24 x 4 do, and so does the plan's
+    choice."""
     _, xp, lengths, p = _zeros_problem(192, rows=4, t=2)
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_gru_proto.gru_sequence_kstep(xp, lengths, p["wh"], p["bh"],
-                                          bf16_mm=True)
-    y = cuda_gru_proto.gru_sequence_kstep(xp, lengths, p["wh"], p["bh"],
-                                          bf16_mm=True, batch_tile=2,
-                                          k_steps=1)
-    assert y.shape == (4, 2, 192)
-    assert cuda_gru_proto.rec_smem_bytes(192, 2, 1, True) <= \
+    for bf16 in (False, True):
+        y = cuda_gru_proto.gru_sequence_kstep(xp, lengths, p["wh"], p["bh"],
+                                              bf16_mm=bf16, batch_tile=64)
+        assert y.shape == (4, 2, 192)
+    assert cuda_gru_proto.rec_smem_bytes(192, 64) == 209_152 <= \
         cuda_gru_proto.SMEM_LIMIT
-    x, _, lengths, p = _zeros_problem(192, d=384, rows=8, t=2)
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_gru_proto.gru_layer_dual(x, x, lengths, p, p, k_steps=16)
-    cuda_gru_proto.gru_layer_dual(x, x, lengths, p, p)
+    assert cuda_gru_proto.rec_smem_bytes(192, 32, bf16_mm=True) == 159_872
+    _, xp, lengths, p = _zeros_problem(192, rows=64, t=2)
+    with pytest.raises(ValueError, match="batch_tile"):
+        cuda_gru_proto.gru_sequence_kstep(xp, lengths, p["wh"], p["bh"],
+                                          bf16_mm=True, batch_tile=64)
+    x, _, lengths, p = _zeros_problem(192, d=384, rows=64, t=8)
+    for kw in ({"batch_tile": 64}, {"batch_tile": 20, "k_steps": 8}):
+        with pytest.raises(ValueError, match="shared memory"):
+            cuda_gru_proto.gru_layer_dual(x, x, lengths, p, p, **kw)
+    for kw in ({"batch_tile": 16, "k_steps": 8},
+               {"batch_tile": 24, "k_steps": 4}, {}):
+        cuda_gru_proto.gru_layer_dual(x, x, lengths, p, p, **kw)
+    assert cuda_gru_proto.dual_smem_bytes(384, 192, 20, 8) > \
+        cuda_gru_proto.SMEM_LIMIT >= \
+        cuda_gru_proto.dual_smem_bytes(384, 192, 16, 8)
 
 
 @pytest.mark.parametrize("script", ["bench_gru", "proto_gru2", "proto_gru3",
