@@ -319,7 +319,8 @@ RATE_KERNELS = {
 }
 RATE_ITERS = 5
 # the rate probes' small shapes: MR at reps 9 (every r % 8) and grid 2,
-# ragged against the 64 x 64 tile; DC at 3 steps; LP at 2 steps
+# ragged against the 64-row tile and the 64- or 128-column one; DC at 3
+# steps; LP at 2 steps
 RATE_SMALL_MM = ((16, 24, 16), (70, 104, 130), (192, 104, 128))
 
 # the backward-dot probes (silent_speech_tpu_torch/scripts): the JAX
@@ -1597,6 +1598,75 @@ def time_dc_variants(dev, card: str) -> dict:
     return out
 
 
+def time_mr_dc_f32(dev, card: str) -> dict:
+    """MR at its six shapes (64 reps x 64 steps) and DC-f32 (256 steps, K
+    384 and 512) with the host's launches held out (proto_parity_cnn.
+    device_ms): MR whole, in one TF32 pass (hi*hi alone) and its feed alone
+    (copies, fragment loads, splits and adds, no wgmmas), the stops of
+    cuda_mm_rate.mm_rate_stop, and at each column tile (BN 64 and 128,
+    each bitwise the plan's), beside the bound at 232 TFLOP/s; DC-f32
+    whole, in one TF32 pass, without the exchange of y between products
+    and without W's feed after the ring's first fill
+    (cuda_dot_chain.dot_chain_f32_stop). Returns {"mm_rate": {shape:
+    {...}}, "dot_chain_f32": {"K=..": {...}}}."""
+    from silent_speech_tpu_torch.infer.predictor import full_f32
+    from silent_speech_tpu_torch.ops import cuda_dot_chain as dc
+    from silent_speech_tpu_torch.ops import cuda_mm_rate as mr
+    from silent_speech_tpu_torch.scripts import proto_parity_cnn as harness
+
+    args = harness.Args(0, dev, 2)
+    out = {"mm_rate": {}, "dot_chain_f32": {}}
+    with torch.no_grad(), full_f32():
+        for M, K, N, _ in mr.SHAPES:
+            a, b = mr.make_problem(M, K, N, dev)
+            b_ms, _ = harness.bound_ms(mr.macs(M, K, N), 0, "f32_3xtf32")
+            row = {"ms": harness.device_ms(lambda: mr.mm_rate(a, b), args),
+                   "bound_ms": b_ms}
+            want = mr.mm_rate(a, b)
+            for bn in mr.BNS:  # each tile: the same bits, its time
+                if not torch.equal(mr.mm_rate(a, b, bn=bn), want):
+                    fail(f"mm_rate ({M},{K},{N}) BN {bn}: not bitwise the "
+                         "plan's tile")
+                row[f"bn{bn}_ms"] = harness.device_ms(
+                    lambda: mr.mm_rate(a, b, bn=bn), args)
+            for stop in ("one_pass", "feed"):
+                row[f"{stop}_ms"] = harness.device_ms(
+                    lambda: mr.mm_rate_stop(a, b, stop=stop), args)
+            row["share_of_bound"] = check_bound(f"mm_rate ({M},{K},{N})",
+                                                row["ms"], b_ms)
+            print(f"  mm_rate ({M},{K},{N}) BN {mr.plan(M, K, N).bn}: "
+                  f"{row['ms']:.4f} ms ({row['share_of_bound']:.1%} of "
+                  f"{b_ms:.4f}); BN 128 {row['bn128_ms']:.4f}, BN 64 "
+                  f"{row['bn64_ms']:.4f}; one TF32 pass "
+                  f"{row['one_pass_ms']:.4f}; the feed alone "
+                  f"{row['feed_ms']:.4f} {card}")
+            out["mm_rate"][f"{M}x{K}x{N}"] = row
+        rng = np.random.default_rng(SEED + 13)
+        x = torch.from_numpy(rng.integers(0, 256, (dc.GRID * 8, 128),
+                                          dtype=np.uint8)).to(dev)
+        for K in dc.KS:
+            w = dc.make_weights("f32", K).to(dev)
+            packed = dc.pack_weights(w, "f32")
+            b_ms, _ = harness.bound_ms(dc.macs(dc.GRID, K), 0, "f32_3xtf32")
+            few = args._replace(iters=RATE_ITERS)
+            ms = harness.device_ms(lambda: dc.dot_chain(
+                x, w, "f32", packed=packed), few)
+            row = {"ms": ms, "bound_ms": b_ms,
+                   "share_of_bound": check_bound(f"dot_chain f32 K={K}", ms,
+                                                 b_ms)}
+            for stop in dc.F32_STOPS:
+                row[f"{stop}_ms"] = harness.device_ms(
+                    lambda: dc.dot_chain_f32_stop(x, w, stop, packed=packed),
+                    few)
+            print(f"  dot_chain f32 K={K}: {ms:.4f} ms "
+                  f"({row['share_of_bound']:.1%} of {b_ms:.4f}); one TF32 "
+                  f"pass {row['one_pass_ms']:.4f}; no exchange "
+                  f"{row['no_exchange_ms']:.4f}; no feed "
+                  f"{row['no_feed_ms']:.4f} {card}")
+            out["dot_chain_f32"][f"K={K}"] = row
+    return out
+
+
 def plan_str(pl) -> str:
     """A probe kernel's plan (ops/cuda_gru_proto.ProbePlan) in a few words."""
     return (f"C={pl.C} BT={pl.BT} {pl.threads} thr {pl.smem} B, "
@@ -2220,6 +2290,17 @@ def check_rate_probes(dev) -> dict:
             a, b = mr.make_problem(M, K, N, dev)
             note("mm_rate", f"({M},{K},{N}) reps={reps} grid={grid}",
                  mr.check(a, b, reps, grid))
+            pl, geo = mr.plan(M, K, N, grid), mr.geometry(M, K, N, grid)
+            if (pl.bn, pl.items, pl.smem, pl.stages, pl.threads) != \
+                    (geo.bn, geo.items, geo.smem, geo.stages, geo.threads):
+                fail(f"mm_rate ({M},{K},{N}): plan {pl} is not its mirror "
+                     f"{geo}")
+            if not torch.equal(mr.mm_rate(a, b, reps, grid),
+                               mr.mm_rate(a, b, reps, grid)):
+                fail(f"mm_rate ({M},{K},{N}): two launches differ")
+            print(f"    plan BN {pl.bn}, {pl.items} items on {pl.blocks} "
+                  f"blocks ({pl.slots} at once), {pl.smem} B; two launches "
+                  "bitwise equal")
         rng = np.random.default_rng(SEED + 11)
         for steps in (dc.GRID, 3):
             x = torch.from_numpy(rng.integers(0, 256, (steps * 8, 128),
@@ -2229,6 +2310,22 @@ def check_rate_probes(dev) -> dict:
                     w = dc.make_weights(mode, K).to(dev)
                     note("dot_chain", f"{mode} K={K} steps={steps}",
                          dc.check(x, w, mode))
+                    if mode != "f32":
+                        continue
+                    packed = dc.pack_weights(w, mode)
+                    want = dc.dot_chain(x, w, mode, packed=packed)
+                    if not torch.equal(want, dc.dot_chain(x, w, mode,
+                                                          packed=packed)):
+                        fail(f"dot_chain f32 K={K}: two launches differ")
+                    pl, geo = dc.plan(K, mode="f32"), dc.f32_geometry(K)
+                    if (pl.cluster, pl.stages, pl.smem, pl.chunk) != \
+                            (geo.cluster, geo.units, geo.smem, geo.unit):
+                        fail(f"dot_chain f32 K={K}: plan {pl} is not its "
+                             f"mirror {geo}")
+                    print(f"    f32 plan: clusters of {pl.cluster}, "
+                          f"{pl.stages} units of {pl.chunk} B, {pl.smem} B, "
+                          f"{pl.clusters} clusters at once; two launches "
+                          "bitwise equal")
                     if mode != "bf16":
                         continue
                     for keep in (torch.float32, torch.float16):
@@ -2319,11 +2416,14 @@ def run_rate_probe_scripts(card: str) -> tuple[dict, dict]:
         for key, r in rows.items():
             share = r["bound_ms"] / r["ms"]
             r["share_of_bound"] = share
+            factor = "" if r["library_ms"] is None else (
+                f" (the kernel {r['library_ms'] / r['ms']:.2f}x the "
+                "library's speed)")
             print(f"  {name} {key}: {r['ms']:.4f} ms, bound "
                   f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {share:.1%} of "
                   f"it; plain {r['plain_ms']:.4f} ms; library "
                   + ("none: no single call" if r["library_ms"] is None
-                     else f"{r['library_ms']:.4f} ms") + f" {card}")
+                     else f"{r['library_ms']:.4f} ms") + f"{factor} {card}")
             if share > 1.0:
                 fail(f"{name} {key}: {r['ms']:.4f} ms is {share:.1%} of its "
                      f"bound {r['bound_ms']:.4f} ms: it did less work than "
@@ -3461,6 +3561,8 @@ def main() -> int:
     rate_counts, rate_ms = run_rate_probe_scripts(card)
     print(f"the bf16 chain's variants, {RATE_ITERS} timed calls each {card}:")
     rate_ms["dot_chain"]["bf16_variants"] = time_dc_variants(dev, card)
+    print(f"MR's and DC-f32's parts {card}:")
+    rate_ms["mm_rate"]["parts"] = time_mr_dc_f32(dev, card)
 
     # ---- 11. the backward-dot probes: kernels vs plain, the scripts
     print("backward-dot probes, kernel vs plain (TF32 off):")

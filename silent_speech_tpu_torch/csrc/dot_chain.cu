@@ -6,9 +6,11 @@
 //
 // Replaces scripts/probe_int8.py::_kernel (:57, built by ::build, the
 // pallas_call at :97). Modes, as there:
-//   f32    y0 = f32(seed) * 1e-6; y <- y W in f32 (FMAs on the CUDA cores)
+//   f32    y0 = f32(seed) * 1e-6; y <- y W in f32 (3xTF32 on wgmma m64nNk8
+//          tf32 -> f32, namespace chain32)
 //   bf16   y0 = bf16(f32(seed) * 1e-6); y <- bf16(y W), each product's f32
-//          sum rounded to bf16 (wgmma m64nNk16 bf16 -> f32)
+//          sum rounded to bf16 (wgmma m64nNk16 bf16 -> f32, namespace
+//          chain16)
 //   int8   y0 = s8(seed & 63); y <- s8(acc >> 7), acc = y W in s32 (mma.sync
 //          m16n8k32 s8 -> s32), the arithmetic shift then a wrap modulo 256
 //          as XLA's convert does (not a saturation)
@@ -20,19 +22,50 @@
 //
 // The TPU kernel keeps the whole (384, K) chain state in VMEM (576-768 KB
 // in f32), more than a block's 227 KB of shared memory. y <- y W acts row
-// by row, so here a block owns a tile of TM = 64 rows of one step through
-// all 14 products, in shared memory, and streams W from L2 in chunks:
-// every row of every step is still computed, 6 blocks a step.
+// by row, so here a block (f32: a cluster of blocks) owns a tile of TM = 64
+// rows of one step through all 14 products, in shared memory, and streams
+// W from L2 in chunks: every row of every step is still computed.
 //
 // What bounds it: the multiply-adds, steps * 14 * 384 * K^2 (203 G at
-// K=384, 361 G at K=512 for 256 steps): 6.06 / 10.77 ms at the f32 FMA
-// peak, 0.41 / 0.73 ms bf16, 0.205 / 0.365 ms int8. A block re-reads the
-// whole of W for every product (64 rows a pass): at the bf16 peak one SM
-// would draw 117 GB/s of W from L2, 15.5 TB/s for 132 SMs.
+// K=384, 361 G at K=512 for 256 steps): 1.750 / 3.110 ms at the f32 FMAs
+// and 3xTF32 together (232 TFLOP/s), 0.41 / 0.73 ms bf16, 0.205 / 0.365 ms
+// int8. A 64-row tile re-reads the whole of W for every product: at the
+// bf16 peak one SM would draw 117 GB/s of W from L2, 15.5 TB/s for 132
+// SMs; in f32, W's hi and lo planes are 4x bf16's bytes a multiply-add.
 //
-// f32, int8, int8i: all 256 threads stage each W chunk (rows of W, or of
-// W^T for the s8 MMAs, so that a B fragment's k-quads are one 32-bit
-// word) synchronously, then multiply it (FMAs; mma.sync m16n8k32 s8).
+// int8, int8i (dot_chain_kernel): all 256 threads stage each W chunk
+// (rows of W^T, so that a B fragment's k-quads are one 32-bit word)
+// synchronously, then multiply it (mma.sync m16n8k32 s8).
+//
+// f32 (namespace chain32): a 64-row y tile in f32 is 96 KB at K=384 and
+// 128 KB at K=512, and one 32-k chunk of both of W^T's planes at full width
+// 96 / 128 KB, so a block cannot hold y and a ring of whole-width chunks.
+// The tile goes to a cluster of 2 blocks, each holding all of y and
+// computing half of the columns of every product, its two warpgroups a
+// quarter each (wgmma m64n96k8 / m64n128k8 tf32): W^T's hi / lo planes,
+// packed once (ops/cuda_dot_chain.pack_weights: chunk c, plane, n, 16-byte
+// unit u of W^T[n, 32 c + 4 u ...] at u ^ (n % 8)), come by TMA bulk copies
+// that thread 0 issues into a ring of mbarrier units, up to a ring ahead,
+// across products and items: 2 units of a whole chunk of the block's rows
+// (48 KB) at K=384, 3 of one plane (32 KB) at K=512. Each warp loads its 16
+// rows of y's chunk and splits them in registers (wgmma's A; at K=384 the
+// next chunk's while this one's wgmmas run), then runs the chunk's 12
+// wgmmas (lo*hi, hi*lo, hi*hi a k8 step) once its planes have landed. They
+// sum from zero and are added into the product's f32 total (the tensor
+// cores' accumulation truncates: one sum over K = 512 would reach 7.6e-6
+// of a product's partial sums, against the 1e-5 bar over 14 products).
+// A block takes a product's chunks from its own half of y on: after a
+// product it writes its new half into its own y and runs the next
+// product's first half on it, while the other block finishes; halfway it
+// copies its half into the other block's y through distributed shared
+// memory, between two cluster barriers, then runs the other half. y is
+// kept with row r's column c at c ^ 4 (r % 8): conflict-free fragment
+// loads with no padding. Persistent clusters walk the (step, tile) items.
+// Every output is summed in a fixed order: repeated launches give the same
+// bits. W's planes come from L2 for every product of every tile (25 GB a
+// call at K=384, 45 GB at K=512), which at about 5 TB/s takes more than
+// the multiply-adds on the tensor cores; dot_chain_f32_stop times the
+// parts (one TF32 pass, no exchange, no feed).
 //
 // bf16 (namespace chain16): the blocks of a step form clusters of C (1,
 // 2, 3 or 6, dividing the 6 tiles; dot_chain_plan takes the largest whose
@@ -58,13 +91,15 @@
 // apart; PERF.md gives its times). Its CPU tests are the geometry
 // and the chunk layout (tests/test_torch_dot_chain_bf16.py) and the
 // chain's arithmetic against the Pallas kernel
-// (tests/test_torch_rate_probes.py).
+// (tests/test_torch_rate_probes.py); the f32 chain's arithmetic and
+// geometry are tests/test_torch_mr_dc_tc.py's.
 
 // A check instantiation (moments != nullptr) also writes the three moments
 // of each block's final y values (the sum, the sum of squares and the sum
 // weighted by i % 31, i = row * K + col in the step's (384, K) y): doubles
 // for f32 / bf16, int64 sums modulo 2^64 for the int modes (exact, so any
-// order gives the same bits), one triple a (step, tile). In bf16 it also
+// order gives the same bits), one triple a (step, tile), and in f32 one a
+// (step, tile, block of the cluster). In bf16 it also
 // writes the trace: row 13 * tile % 64 of the block's tile after each of
 // the 14 products, the bf16 values the next product reads, so that each
 // product's rounding can be held against the product of the block's own
@@ -78,8 +113,8 @@
 
 #include <atomic>
 #include <initializer_list>
-#include <type_traits>
 
+#include "mma_tf32.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -92,393 +127,21 @@ constexpr int TRACE_STRIDE = 13;  // the traced row of tile t: 13 t % TM
 
 enum Mode { F32 = 0, BF16 = 1, INT8 = 2, INT8I = 3 };
 
-// shared-memory geometry of a mode: the y tile (TM rows, stride YS
-// elements) and one chunk of W (f32: BK k-rows of K, k-major; MMA modes: K
-// n-rows of BK, stride WSS, n-major)
-template <int MODE, int K> struct Geo {
-  static constexpr bool MMA = MODE != F32;
-  static constexpr int ESIZE = MODE == F32 ? 4 : MODE == BF16 ? 2 : 1;
-  static constexpr int YS = K + 16 / ESIZE;             // 16 bytes of pad
-  static constexpr int BK = MODE == F32 ? 16 : MODE == BF16 ? 32 : 64;
-  static constexpr int WSS = MMA ? BK + 16 / ESIZE : K;  // 16 bytes of pad
-  static constexpr int Y_BYTES = TM * YS * ESIZE;
-  static constexpr int W_BYTES = (MMA ? K * WSS : BK * K) * ESIZE;
-  static constexpr int SMEM = Y_BYTES + W_BYTES;
-  static_assert(K % 128 == 0 && K % BK == 0, "K a multiple of 128");
-  static_assert(Y_BYTES % 16 == 0, "W chunk 16-byte aligned");
-};
-
-__device__ __forceinline__ void mma_s8(int& d0, int& d1, int& d2, int& d3,
-                                       const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d0), "+r"(d1), "+r"(d2), "+r"(d3)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// sum over the block, returned to every thread; red holds NWARPS + 1
-template <typename T>
-__device__ T block_sum(T v, T* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    T s = 0;
-    for (int w = 0; w < NWARPS; ++w) s += red[w];
-    red[NWARPS] = s;
-  }
-  __syncthreads();
-  const T s = red[NWARPS];
-  __syncthreads();
-  return s;
-}
-
-// copy rows [k0, k0 + BK) of W (f32, k-major) or columns [k0, k0 + BK) of
-// W^T (MMA modes, n-major) into the chunk buffer, 16 bytes a thread a step
-template <int MODE, int K>
-__device__ void stage_w(const uint8_t* __restrict__ w, uint8_t* ws, int k0) {
-  using G = Geo<MODE, K>;
-  if constexpr (!G::MMA) {
-    const uint4* src = reinterpret_cast<const uint4*>(w + (size_t)k0 * K * 4);
-    uint4* dst = reinterpret_cast<uint4*>(ws);
-    for (int i = threadIdx.x; i < G::BK * K / 4; i += THREADS) dst[i] = src[i];
-  } else {
-    constexpr int VEC = G::BK * G::ESIZE / 16;  // 16-byte pieces an n-row
-    for (int i = threadIdx.x; i < K * VEC; i += THREADS) {
-      const int n = i / VEC, v = i % VEC;
-      const uint4 q = *reinterpret_cast<const uint4*>(
-          w + ((size_t)n * K + k0) * G::ESIZE + v * 16);
-      *reinterpret_cast<uint4*>(ws + (n * G::WSS) * G::ESIZE + v * 16) = q;
-    }
-  }
-}
-
-template <int MODE, int K, bool CHECK>
-__global__ void __launch_bounds__(THREADS, 1)
-dot_chain_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
-                 float* __restrict__ out, void* __restrict__ moments,
-                 __nv_bfloat16* __restrict__ trace, float* __restrict__ sink,
-                 int sink_at) {
-  using G = Geo<MODE, K>;
-  constexpr bool INTS = MODE == INT8 || MODE == INT8I;
-  using Acc = typename std::conditional<INTS, int, float>::type;
-  using Mom = typename std::conditional<INTS, unsigned long long,
-                                        double>::type;
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* ys = smem;                  // the y tile
-  uint8_t* ws = smem + G::Y_BYTES;     // one chunk of W
-  __shared__ Acc row0[ROW0];           // y[0, 0:128] (tile 0)
-  __shared__ int redi[NWARPS + 1];
-  __shared__ Mom redm[NWARPS + 1];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tile = blockIdx.x, step = blockIdx.y;
-
-  // ---- the seed: the sum of the step's 1,024 bytes, in s32
-  const uint32_t word =
-      reinterpret_cast<const uint32_t*>(x + (size_t)step * XBLOCK)[tid];
-  const int seed = block_sum<int>(
-      (int)((word & 0xffu) + ((word >> 8) & 0xffu) + ((word >> 16) & 0xffu) +
-            (word >> 24)), redi);
-
-  // ---- y0, all TM x K elements of the tile equal
-  if constexpr (MODE == F32) {
-    const float y0 = (float)seed * 1e-6f;
-    for (int i = tid; i < TM * G::YS; i += THREADS)
-      reinterpret_cast<float*>(ys)[i] = y0;
-  } else if constexpr (MODE == INT8) {
-    for (int i = tid; i < TM * G::YS; i += THREADS)
-      ys[i] = (uint8_t)(seed & 63);
-  }
-
-  // per-thread outputs: f32, 8 rows x (K / 128) float4 columns; MMA modes,
-  // 4 m16 tiles x NT n8 tiles x 4 values
-  constexpr int NJ = K / 128;                   // f32 layout
-  constexpr int KW = K / NWARPS, NT = KW / 8;   // MMA layout: a warp's cols
-  constexpr int NACC = G::MMA ? 4 * NT * 4 : 8 * NJ * 4;
-  Acc acc[NACC];
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) acc[i] = 0;
-  const int g = lane >> 2, t = lane & 3;
-
-  // (row, col) of accumulator i in the tile
-  auto row_of = [&](int i) -> int {
-    if constexpr (G::MMA)
-      return (i / (NT * 4)) * 16 + g + ((i & 3) >= 2 ? 8 : 0);
-    else
-      return warp * 8 + i / (NJ * 4);
-  };
-  auto col_of = [&](int i) -> int {
-    if constexpr (G::MMA)
-      return warp * KW + ((i / 4) % NT) * 8 + 2 * t + (i & 1);
-    else
-      return ((i / 4) % NJ) * 128 + 4 * lane + (i & 3);
-  };
-
-  for (int d = 0; d < DEPTH; ++d) {
-    if constexpr (MODE == INT8I) {  // this product's A: base + d, in s8
-      __syncthreads();  // the previous product's reads of ys are done
-      const uint8_t v = (uint8_t)((seed & 63) + d);
-      for (int i = tid; i < TM * G::YS; i += THREADS) ys[i] = v;
-    } else {
-#pragma unroll
-      for (int i = 0; i < NACC; ++i) acc[i] = 0;
-    }
-    for (int k0 = 0; k0 < K; k0 += G::BK) {
-      __syncthreads();  // the previous chunk is consumed (and y written)
-      stage_w<MODE, K>(w, ws, k0);
-      __syncthreads();
-      if constexpr (MODE == F32) {
-        const float* yf = reinterpret_cast<const float*>(ys);
-        const float* wf = reinterpret_cast<const float*>(ws);
-#pragma unroll 1
-        for (int kk = 0; kk < G::BK; kk += 4) {
-          float4 a[8];
-#pragma unroll
-          for (int r = 0; r < 8; ++r)  // one address a warp: a broadcast
-            a[r] = *reinterpret_cast<const float4*>(
-                yf + (warp * 8 + r) * G::YS + k0 + kk);
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-#pragma unroll
-            for (int j = 0; j < NJ; ++j) {
-              const float4 b = *reinterpret_cast<const float4*>(
-                  wf + (kk + q) * K + j * 128 + 4 * lane);
-#pragma unroll
-              for (int r = 0; r < 8; ++r) {
-                const float av = q == 0 ? a[r].x : q == 1 ? a[r].y
-                               : q == 2 ? a[r].z : a[r].w;
-                const int c = (r * NJ + j) * 4;
-                acc[c] = fmaf(av, b.x, acc[c]);
-                acc[c + 1] = fmaf(av, b.y, acc[c + 1]);
-                acc[c + 2] = fmaf(av, b.z, acc[c + 2]);
-                acc[c + 3] = fmaf(av, b.w, acc[c + 3]);
-              }
-            }
-          }
-        }
-      } else {
-        constexpr int KSTEP = 32;  // k a fragment
-        constexpr int E = G::ESIZE;
-#pragma unroll 1
-        for (int kk = 0; kk < G::BK; kk += KSTEP) {
-          uint32_t b[NT][2];
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            const uint8_t* p =
-                ws + ((warp * KW + nt * 8 + g) * G::WSS + kk) * E;
-            const int off = 4 * t * E;
-            b[nt][0] = *reinterpret_cast<const uint32_t*>(p + off);
-            b[nt][1] =
-                *reinterpret_cast<const uint32_t*>(p + off + KSTEP / 2 * E);
-          }
-#pragma unroll
-          for (int mt = 0; mt < 4; ++mt) {
-            const uint8_t* p0 = ys + ((mt * 16 + g) * G::YS + k0 + kk) * E;
-            const uint8_t* p1 = p0 + 8 * G::YS * E;
-            const int off = 4 * t * E;
-            const uint32_t a[4] = {
-                *reinterpret_cast<const uint32_t*>(p0 + off),
-                *reinterpret_cast<const uint32_t*>(p1 + off),
-                *reinterpret_cast<const uint32_t*>(p0 + off + KSTEP / 2 * E),
-                *reinterpret_cast<const uint32_t*>(p1 + off + KSTEP / 2 * E)};
-#pragma unroll
-            for (int nt = 0; nt < NT; ++nt) {
-              const int c = (mt * NT + nt) * 4;
-              mma_s8(acc[c], acc[c + 1], acc[c + 2], acc[c + 3], a, b[nt][0],
-                     b[nt][1]);
-            }
-          }
-        }
-      }
-    }
-    // ---- the product's epilogue: y for the next product (not for int8i,
-    // whose sum stays in acc, nor after the last product)
-    if constexpr (MODE != INT8I) {
-      if (d + 1 < DEPTH) {
-        __syncthreads();  // every warp is done reading ys
-#pragma unroll
-        for (int i = 0; i < NACC; i += 2) {
-          const int off = row_of(i) * G::YS + col_of(i);
-          if constexpr (MODE == F32) {
-            reinterpret_cast<float2*>(ys)[off / 2] =
-                make_float2(acc[i], acc[i + 1]);
-          } else {
-            const uint32_t lo = (uint32_t)(acc[i] >> 7) & 0xffu;
-            const uint32_t hi = (uint32_t)(acc[i + 1] >> 7) & 0xffu;
-            reinterpret_cast<uint16_t*>(ys)[off / 2] =
-                (uint16_t)(lo | (hi << 8));
-          }
-        }
-      }
-    }
-  }
-
-  // ---- the final y values, as the TPU kernel holds them
-  auto final_value = [&](int i) -> Acc {
-    if constexpr (MODE == INT8)
-      return (int)(int8_t)(uint8_t)((uint32_t)(acc[i] >> 7) & 0xffu);
-    else
-      return acc[i];
-  };
-
-  if (tile == 0) {  // the output: sum(y[0, 0:128]) over the (8, 128) block
-#pragma unroll
-    for (int i = 0; i < NACC; ++i)
-      if (row_of(i) == 0 && col_of(i) < ROW0) row0[col_of(i)] = final_value(i);
-    __syncthreads();
-    if (warp == 0) {
-      float s;
-      if constexpr (INTS) {
-        long long v = 0;
-        for (int q = 0; q < 4; ++q) v += row0[4 * lane + q];
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          v += __shfl_xor_sync(0xffffffffu, v, o);
-        s = (float)v;
-      } else {
-        float v = 0.f;
-        for (int q = 0; q < 4; ++q) v += row0[4 * lane + q];
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          v += __shfl_xor_sync(0xffffffffu, v, o);
-        s = v;
-      }
-      float4* o4 = reinterpret_cast<float4*>(out + (size_t)step * XBLOCK);
-      for (int i = lane; i < XBLOCK / 4; i += 32)
-        o4[i] = make_float4(s, s, s, s);
-    }
-  }
-
-  if constexpr (!CHECK) {
-    // every final value stays live: one block (a runtime index, -1 for
-    // none) stores their sum, so the compiler cannot drop the rows and
-    // columns of the last product that the output does not read
-    if (step * TILES + tile == sink_at) {
-      float v = 0.f;
-#pragma unroll
-      for (int i = 0; i < NACC; ++i) v += (float)final_value(i);
-      atomicAdd(sink, v);
-    }
-  } else {
-    Mom m0 = 0, m1 = 0, m2 = 0;
-#pragma unroll
-    for (int i = 0; i < NACC; ++i) {
-      const int idx = (tile * TM + row_of(i)) * K + col_of(i);
-      const Acc v = final_value(i);
-      if constexpr (INTS) {
-        const unsigned long long u = (unsigned long long)(long long)v;
-        m0 += u;
-        m1 += u * u;
-        m2 += (unsigned long long)(idx % POS_PERIOD) * u;
-      } else {
-        const double dv = (double)v;
-        m0 += dv;
-        m1 += dv * dv;
-        m2 += (double)(idx % POS_PERIOD) * dv;
-      }
-    }
-    m0 = block_sum<Mom>(m0, redm);
-    m1 = block_sum<Mom>(m1, redm);
-    m2 = block_sum<Mom>(m2, redm);
-    if (tid == 0) {
-      Mom* mo = static_cast<Mom*>(moments) + ((size_t)step * TILES + tile) * 3;
-      mo[0] = m0;
-      mo[1] = m1;
-      mo[2] = m2;
-    }
-  }
-}
-
-template <int MODE, int K, bool CHECK>
-int launch(const void* x, const void* w, void* out, void* moments,
-           void* trace, int steps, void* sink, int sink_at, cudaStream_t s) {
-  auto kern = dot_chain_kernel<MODE, K, CHECK>;
-  const int smem = Geo<MODE, K>::SMEM;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  kern<<<dim3(TILES, steps), THREADS, smem, s>>>(
-      static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(w),
-      static_cast<float*>(out), moments, static_cast<__nv_bfloat16*>(trace),
-      static_cast<float*>(sink), sink_at);
-  return (int)cudaGetLastError();
-}
-
-template <int MODE, bool CHECK>
-int launch_k(const void* x, const void* w, void* out, void* moments,
-             void* trace, int steps, int K, void* sink, int sink_at,
-             cudaStream_t s) {
-  return K == 384 ? launch<MODE, 384, CHECK>(x, w, out, moments, trace, steps,
-                                             sink, sink_at, s)
-                  : launch<MODE, 512, CHECK>(x, w, out, moments, trace, steps,
-                                             sink, sink_at, s);
-}
-
-template <int MODE>
-int launch_mode(const void* x, const void* w, void* out, void* moments,
-                void* trace, int steps, int K, void* sink, int sink_at,
-                cudaStream_t s) {
-  return moments ? launch_k<MODE, true>(x, w, out, moments, trace, steps, K,
-                                        sink, sink_at, s)
-                 : launch_k<MODE, false>(x, w, out, moments, trace, steps, K,
-                                         sink, sink_at, s);
-}
-
-// ---------------------------------------------------------------- bf16
-// The bf16 chain on a cluster ring (mode 1; see the notes at the top).
-namespace chain16 {
-
-constexpr int CONSUMERS = 256, CWARPS = CONSUMERS / 32;
-constexpr int THREADS = CONSUMERS + 32;  // 8 MMA warps and 1 copy warp
-constexpr int KA = 64, ROW = 2 * KA;     // k a chunk; its bytes an n-row
-constexpr int Y_ATOM = TM * ROW;         // y's bytes of 64 k-columns
-constexpr int MAX_STAGES = 8;
-constexpr int ALIGN = 1024;  // the swizzle's period: planes start on it
-// a block's dynamic shared memory, beside its static 1 KB or less
-constexpr int SMEM_BUDGET = 232448 - 1024;
-constexpr int CLUSTERS[] = {1, 2, 3, 6};  // divisors of TILES
-
-// K's geometry: a chunk is 64 k-columns of W^T (one 128-byte row an n)
-// for one half of the n (columns of y W), HALF rows; a product's chunks
-// go atom by atom, half 0 then half 1; y is TM rows x K in bf16, both in
-// the swizzled layout (16-byte unit u of a 128-byte row r stored at
-// u ^ (r % 8): wgmma's 128-byte swizzle); the ring takes what y leaves,
-// at most MAX_STAGES; then the full and empty mbarrier of each stage;
-// ALIGN bytes to start y on 1024
-template <int K>
-struct Geo {
-  static constexpr int HALF = K / 2, CHUNK = HALF * ROW;
-  static constexpr int ATOMS = K / KA, CHUNKS = 2 * ATOMS;
-  static constexpr int Y_BYTES = TM * K * 2;
-  static constexpr int FIT =
-      (SMEM_BUDGET - ALIGN - Y_BYTES - 16 * MAX_STAGES) / CHUNK;
-  static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
-  static constexpr int SMEM = ALIGN + Y_BYTES + STAGES * CHUNK + 16 * STAGES;
-  static constexpr int NACC = K / 4;  // a thread's sums (64 x K/2 a group)
-  static_assert(K % 128 == 0 && HALF % 8 == 0 && STAGES >= 2 &&
-                    SMEM <= SMEM_BUDGET && Y_BYTES % ALIGN == 0 &&
-                    CHUNK % ALIGN == 0,
-                "whole atoms, swizzle rows, a ring, aligned planes");
-};
-
+// ------------------------------------------- thread block clusters, TMA
 __device__ __forceinline__ uint32_t cta_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
   return r;
 }
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
-// the 8 MMA warps alone (the copy warp never waits on them)
-__device__ __forceinline__ void consumer_sync() {
-  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
 }
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
@@ -521,6 +184,710 @@ __device__ __forceinline__ void bulk_copy_multicast(uint32_t dst,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes."
       "multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar), "h"(mask) : "memory");
+}
+// the rank's shared-memory address `addr` in block `cta` of the cluster
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t cta) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(cta));
+  return r;
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
+}
+__device__ __forceinline__ void st_cluster4(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w) : "memory");
+}
+// one arrival on a barrier of this block
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// sum over the block, returned to every thread; red holds NWARPS + 1
+template <typename T>
+__device__ T block_sum(T v, T* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T s = 0;
+    for (int w = 0; w < NWARPS; ++w) s += red[w];
+    red[NWARPS] = s;
+  }
+  __syncthreads();
+  const T s = red[NWARPS];
+  __syncthreads();
+  return s;
+}
+
+// the sum of the step's 1,024 bytes of x, in s32, to every thread (256)
+__device__ __forceinline__ int step_seed(const uint8_t* __restrict__ x,
+                                         int step, int* red) {
+  const uint32_t word =
+      reinterpret_cast<const uint32_t*>(x + (size_t)step * XBLOCK)[threadIdx.x];
+  return block_sum<int>((int)((word & 0xffu) + ((word >> 8) & 0xffu) +
+                              ((word >> 16) & 0xffu) + (word >> 24)),
+                        red);
+}
+
+// ------------------------------------------------------- int8, int8i
+// the s8 modes' shared memory at K: the y tile (TM rows, stride YS bytes)
+// and one chunk of W^T (K n-rows of BK k, stride WSS bytes)
+template <int K>
+struct Geo8 {
+  static constexpr int YS = K + 16, BK = 64, WSS = BK + 16;  // 16 B of pad
+  static constexpr int Y_BYTES = TM * YS, W_BYTES = K * WSS;
+  static constexpr int SMEM = Y_BYTES + W_BYTES;
+  static_assert(K % 128 == 0 && K % BK == 0, "K a multiple of 128");
+  static_assert(Y_BYTES % 16 == 0, "W chunk 16-byte aligned");
+};
+
+__device__ __forceinline__ void mma_s8(int& d0, int& d1, int& d2, int& d3,
+                                       const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d0), "+r"(d1), "+r"(d2), "+r"(d3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// copy columns [k0, k0 + BK) of W^T (n-major) into the chunk buffer, 16
+// bytes a thread a step
+template <int K>
+__device__ void stage_w(const uint8_t* __restrict__ w, uint8_t* ws, int k0) {
+  using G = Geo8<K>;
+  constexpr int VEC = G::BK / 16;  // 16-byte pieces an n-row
+  for (int i = threadIdx.x; i < K * VEC; i += THREADS) {
+    const int n = i / VEC, v = i % VEC;
+    const uint4 q =
+        *reinterpret_cast<const uint4*>(w + (size_t)n * K + k0 + v * 16);
+    *reinterpret_cast<uint4*>(ws + n * G::WSS + v * 16) = q;
+  }
+}
+
+template <int MODE, int K, bool CHECK>
+__global__ void __launch_bounds__(THREADS, 1)
+dot_chain_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
+                 float* __restrict__ out,
+                 unsigned long long* __restrict__ moments,
+                 float* __restrict__ sink, int sink_at) {
+  static_assert(MODE == INT8 || MODE == INT8I, "the s8 modes");
+  using G = Geo8<K>;
+  using Mom = unsigned long long;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* ys = smem;               // the y tile
+  uint8_t* ws = smem + G::Y_BYTES;  // one chunk of W^T
+  __shared__ int row0[ROW0];        // y[0, 0:128] (tile 0)
+  __shared__ int redi[NWARPS + 1];
+  __shared__ Mom redm[NWARPS + 1];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tile = blockIdx.x, step = blockIdx.y;
+  const int seed = step_seed(x, step, redi);
+
+  if constexpr (MODE == INT8) {  // y0, all TM x K elements of the tile equal
+    for (int i = tid; i < TM * G::YS; i += THREADS)
+      ys[i] = (uint8_t)(seed & 63);
+  }
+
+  // per-thread outputs: 4 m16 tiles x NT n8 tiles x 4 values
+  constexpr int KW = K / NWARPS, NT = KW / 8;  // a warp's columns
+  constexpr int NACC = 4 * NT * 4;
+  int acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0;
+  const int g = lane >> 2, t = lane & 3;
+
+  // (row, col) of accumulator i in the tile
+  auto row_of = [&](int i) -> int {
+    return (i / (NT * 4)) * 16 + g + ((i & 3) >= 2 ? 8 : 0);
+  };
+  auto col_of = [&](int i) -> int {
+    return warp * KW + ((i / 4) % NT) * 8 + 2 * t + (i & 1);
+  };
+
+  for (int d = 0; d < DEPTH; ++d) {
+    if constexpr (MODE == INT8I) {  // this product's A: base + d, in s8
+      __syncthreads();  // the previous product's reads of ys are done
+      const uint8_t v = (uint8_t)((seed & 63) + d);
+      for (int i = tid; i < TM * G::YS; i += THREADS) ys[i] = v;
+    } else {
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) acc[i] = 0;
+    }
+    for (int k0 = 0; k0 < K; k0 += G::BK) {
+      __syncthreads();  // the previous chunk is consumed (and y written)
+      stage_w<K>(w, ws, k0);
+      __syncthreads();
+      constexpr int KSTEP = 32;  // k a fragment
+#pragma unroll 1
+      for (int kk = 0; kk < G::BK; kk += KSTEP) {
+        uint32_t b[NT][2];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const uint8_t* p = ws + (warp * KW + nt * 8 + g) * G::WSS + kk;
+          b[nt][0] = *reinterpret_cast<const uint32_t*>(p + 4 * t);
+          b[nt][1] = *reinterpret_cast<const uint32_t*>(p + 4 * t + KSTEP / 2);
+        }
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          const uint8_t* p0 = ys + (mt * 16 + g) * G::YS + k0 + kk;
+          const uint8_t* p1 = p0 + 8 * G::YS;
+          const uint32_t a[4] = {
+              *reinterpret_cast<const uint32_t*>(p0 + 4 * t),
+              *reinterpret_cast<const uint32_t*>(p1 + 4 * t),
+              *reinterpret_cast<const uint32_t*>(p0 + 4 * t + KSTEP / 2),
+              *reinterpret_cast<const uint32_t*>(p1 + 4 * t + KSTEP / 2)};
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int c = (mt * NT + nt) * 4;
+            mma_s8(acc[c], acc[c + 1], acc[c + 2], acc[c + 3], a, b[nt][0],
+                   b[nt][1]);
+          }
+        }
+      }
+    }
+    // ---- the product's epilogue: y for the next product (not for int8i,
+    // whose sum stays in acc, nor after the last product)
+    if constexpr (MODE == INT8) {
+      if (d + 1 < DEPTH) {
+        __syncthreads();  // every warp is done reading ys
+#pragma unroll
+        for (int i = 0; i < NACC; i += 2) {
+          const int off = row_of(i) * G::YS + col_of(i);
+          const uint32_t lo = (uint32_t)(acc[i] >> 7) & 0xffu;
+          const uint32_t hi = (uint32_t)(acc[i + 1] >> 7) & 0xffu;
+          reinterpret_cast<uint16_t*>(ys)[off / 2] = (uint16_t)(lo | (hi << 8));
+        }
+      }
+    }
+  }
+
+  // ---- the final y values, as the TPU kernel holds them
+  auto final_value = [&](int i) -> int {
+    if constexpr (MODE == INT8)
+      return (int)(int8_t)(uint8_t)((uint32_t)(acc[i] >> 7) & 0xffu);
+    else
+      return acc[i];
+  };
+
+  if (tile == 0) {  // the output: sum(y[0, 0:128]) over the (8, 128) block
+#pragma unroll
+    for (int i = 0; i < NACC; ++i)
+      if (row_of(i) == 0 && col_of(i) < ROW0) row0[col_of(i)] = final_value(i);
+    __syncthreads();
+    if (warp == 0) {
+      long long v = 0;
+      for (int q = 0; q < 4; ++q) v += row0[4 * lane + q];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      const float s = (float)v;
+      float4* o4 = reinterpret_cast<float4*>(out + (size_t)step * XBLOCK);
+      for (int i = lane; i < XBLOCK / 4; i += 32)
+        o4[i] = make_float4(s, s, s, s);
+    }
+  }
+
+  if constexpr (!CHECK) {
+    // every final value stays live: one block (a runtime index, -1 for
+    // none) stores their sum, so the compiler cannot drop the rows and
+    // columns of the last product that the output does not read
+    if (step * TILES + tile == sink_at) {
+      float v = 0.f;
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) v += (float)final_value(i);
+      atomicAdd(sink, v);
+    }
+  } else {
+    Mom m0 = 0, m1 = 0, m2 = 0;
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) {
+      const int idx = (tile * TM + row_of(i)) * K + col_of(i);
+      const Mom u = (Mom)(long long)final_value(i);
+      m0 += u;
+      m1 += u * u;
+      m2 += (Mom)(idx % POS_PERIOD) * u;
+    }
+    m0 = block_sum<Mom>(m0, redm);
+    m1 = block_sum<Mom>(m1, redm);
+    m2 = block_sum<Mom>(m2, redm);
+    if (tid == 0) {
+      Mom* mo = moments + ((size_t)step * TILES + tile) * 3;
+      mo[0] = m0;
+      mo[1] = m1;
+      mo[2] = m2;
+    }
+  }
+}
+
+template <int MODE, int K, bool CHECK>
+int launch8(const void* x, const void* w, void* out, void* moments,
+            int steps, void* sink, int sink_at, cudaStream_t s) {
+  auto kern = dot_chain_kernel<MODE, K, CHECK>;
+  const int smem = Geo8<K>::SMEM;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<dim3(TILES, steps), THREADS, smem, s>>>(
+      static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(w),
+      static_cast<float*>(out), static_cast<unsigned long long*>(moments),
+      static_cast<float*>(sink), sink_at);
+  return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int launch_mode8(const void* x, const void* w, void* out, void* moments,
+                 int steps, int K, void* sink, int sink_at, cudaStream_t s) {
+  if (moments)
+    return K == 384 ? launch8<MODE, 384, true>(x, w, out, moments, steps,
+                                               sink, sink_at, s)
+                    : launch8<MODE, 512, true>(x, w, out, moments, steps,
+                                               sink, sink_at, s);
+  return K == 384 ? launch8<MODE, 384, false>(x, w, out, moments, steps,
+                                              sink, sink_at, s)
+                  : launch8<MODE, 512, false>(x, w, out, moments, steps,
+                                              sink, sink_at, s);
+}
+
+// ---------------------------------------------------------------- f32
+// The f32 chain on clusters of C = 2 blocks a tile (mode 0; see the notes at
+// the top).
+namespace chain32 {
+
+constexpr int BK = 32, ROW = 4 * BK;  // k a chunk; its bytes an n-row
+constexpr int ALIGN = 1024;           // the swizzle's period: planes on it
+constexpr int MAX_UNITS = 8;
+constexpr int C = 2;  // blocks a cluster: a tile's two halves of the columns
+// a block's dynamic shared memory, beside its static 1 KB or less
+constexpr int SMEM_BUDGET = 232448 - 1024;
+// How much of the kernel runs (dot_chain_f32_stop, to time its parts): all
+// of it; hi*hi alone (one TF32 pass, another function); no exchange (each
+// block's y keeps its old other half after a product); no feed (W's
+// planes come into the ring once, then the MMAs re-read the ring's stale
+// planes)
+enum Stop { kAll = 0, kOnePass = 1, kNoExchange = 2, kNoFeed = 3 };
+
+// K's geometry: block `rank` of the cluster computes the columns [rank
+// COLS, rank COLS + COLS) of every product (its half of y), its warpgroup
+// h the WIDTH from rank COLS + h WIDTH. A plane is W^T's COLS rows of the
+// block for 32 k ([COLS][128 bytes], the 128-byte swizzle), hi or lo; a
+// unit of the ring holds both planes of a chunk where two such units fit
+// beside y (TM x K f32; K=384), else one plane (K=512), as many units as
+// fit, two 8-byte barriers each, ALIGN bytes to start the ring on 1024.
+// At n128 a warpgroup's sums, their total and two sets of split fragments
+// would not fit in 255 registers: one set (PING false) is reloaded after a
+// chunk's wgmmas.
+template <int K>
+struct Geo {
+  static constexpr int COLS = K / C, WIDTH = COLS / 2;
+  static constexpr int PLANE = COLS * ROW;
+  static constexpr int CHUNKS = K / BK, HALF = CHUNKS / 2;  // a product's
+  static constexpr int Y_BYTES = TM * K * 4;
+  static constexpr int ROOM = SMEM_BUDGET - ALIGN - Y_BYTES - 16 * MAX_UNITS;
+  static constexpr int UNIT_PLANES = ROOM / (2 * PLANE) >= 2 ? 2 : 1;
+  static constexpr int UNIT = UNIT_PLANES * PLANE, UPC = 2 / UNIT_PLANES;
+  static constexpr int UNITS =
+      ROOM / UNIT < MAX_UNITS ? ROOM / UNIT : MAX_UNITS;
+  static constexpr int SMEM = ALIGN + UNITS * UNIT + Y_BYTES + 16 * UNITS;
+  static constexpr int NACC = WIDTH / 2;  // a thread's sums (64 x WIDTH)
+  static constexpr bool PING = WIDTH <= 96;
+  static_assert(K % (2 * C) == 0 && WIDTH % 8 == 0 && HALF % 2 == 0 &&
+                    UNITS * UNIT_PLANES >= 3 && PLANE % ALIGN == 0 &&
+                    SMEM <= SMEM_BUDGET,
+                "whole n8 blocks, a ring, planes on the swizzle's period");
+};
+
+// grid (C x clusters), clusters of C along x: cluster i walks the items
+// (step, tile) = i, i + clusters, ... (item = step TILES + tile), each
+// block of it computing its half of the columns of every product of the
+// tile's 64 rows. A block takes a product's chunks from its own half of y
+// on (chunk (i + rank HALF) % CHUNKS i-th), so that it can run the first
+// half of them on the half that it wrote itself: after a product it writes
+// its new half into its own y and arrives on the cluster barrier; halfway
+// through the next product it waits there (the other block is done
+// reading the old y), copies its half into the other block's y, and meets
+// it again before the chunks of the other half. Thread 0 streams the
+// units, in that chunk order, DEPTH products an item, into the ring (a
+// unit's slot refilled once the 8 warps have arrived on its empty
+// barrier); every warp waits on a chunk's units, runs its 12 wgmmas (lo*hi,
+// hi*lo, hi*hi for each k8), adds their sum into the product's total and
+// frees the units.
+template <int K, bool CHECK, int STOP>
+__global__ void __launch_bounds__(THREADS, 1)
+chain_kernel(const uint8_t* __restrict__ x, const float* __restrict__ wt,
+             float* __restrict__ out, double* __restrict__ moments,
+             float* __restrict__ sink, int sink_at, int steps) {
+  using G = Geo<K>;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((ALIGN - (smem_u32(smem_raw) & (ALIGN - 1))) &
+                              (ALIGN - 1));
+  float* ys = reinterpret_cast<float*>(ring + G::UNITS * G::UNIT);
+  const uint32_t full0 = smem_u32(ring + G::UNITS * G::UNIT + G::Y_BYTES);
+  const uint32_t empty0 = full0 + 8 * G::UNITS;
+  __shared__ float row0[ROW0];
+  __shared__ int redi[NWARPS + 1];
+  __shared__ double redm[NWARPS + 1];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int h = warp / 4, wl = warp % 4, g = lane >> 2, t4 = lane & 3;
+  const uint32_t rank = cta_rank();
+  const int clusters = gridDim.x / C, items = steps * TILES;
+  const int first = blockIdx.x / C;
+  const int count =  // the units this block reads
+      (items - first + clusters - 1) / clusters * DEPTH * G::CHUNKS * G::UPC;
+  // the i-th chunk of a product, from this block's own half of y on
+  auto chunk_at = [&](int i) { return (i + (int)rank * G::HALF) % G::CHUNKS; };
+  if (tid == 0) {
+    for (int s = 0; s < G::UNITS; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, NWARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  cluster_sync();  // every block of the cluster runs before any writes y
+
+  int issued = 0;
+  auto issue = [&] {  // thread 0: the stream's next unit, once its slot is
+    const int u = issued++;  // free
+    const int s = u % G::UNITS, round = u / G::UNITS;
+    if (round > 0) mbar_wait(empty0 + 8 * s, (round - 1) & 1);
+    const uint32_t bar = full0 + 8 * s, dst = smem_u32(ring + s * G::UNIT);
+    mbar_expect(bar, G::UNIT);
+    const int c = chunk_at(u / G::UPC % G::CHUNKS);
+    for (int p = 0; p < G::UNIT_PLANES; ++p) {
+      const int plane = G::UPC == 2 ? u % 2 : p;
+      bulk_copy(dst + p * G::PLANE,
+                wt + ((size_t)(c * 2 + plane) * K + rank * G::COLS) * BK,
+                G::PLANE, bar);
+    }
+  };
+  if (tid == 0)
+    while (issued < count && issued < G::UNITS) issue();
+
+  // (row, column) of acc[e] in the tile, e = j 4 + i (j the warpgroup's n8
+  // block); y[r][c] lies at ys[r K + (c ^ 4 (r % 8))]
+  auto row_of = [&](int e) { return wl * 16 + g + 8 * ((e & 3) >> 1); };
+  auto col_of = [&](int e) {
+    return (int)rank * G::COLS + h * G::WIDTH + e / 4 * 8 + 2 * t4 + (e & 1);
+  };
+  const int sw = g << 2;  // the swizzle of this thread's rows (r % 8 = g)
+  const float* yf = ys + (wl * 16 + g) * K;
+  // the fragments of y's chunk c for this warp's 16 rows, split
+  auto load = [&](uint32_t (&ah)[4][4], uint32_t (&al)[4][4], int c) {
+#pragma unroll
+    for (int k8 = 0; k8 < 4; ++k8) {
+      const int k = c * BK + k8 * 8 + t4;
+      const float v[4] = {yf[k ^ sw], yf[8 * K + (k ^ sw)],
+                          yf[(k + 4) ^ sw], yf[8 * K + ((k + 4) ^ sw)]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split(v[i], ah[k8][i], al[k8][i]);
+    }
+  };
+  float acc[G::NACC], total[G::NACC];
+#pragma unroll
+  for (int i = 0; i < G::NACC; ++i) acc[i] = 0.f;
+  uint32_t ah0[4][4], al0[4][4], ah1[4][4], al1[4][4];
+  auto fence_all = [&] {
+    fence_acc(acc);
+    fence_regs(ah0);
+    fence_regs(al0);
+    if constexpr (G::PING) {
+      fence_regs(ah1);
+      fence_regs(al1);
+    }
+  };
+  const uint32_t ring_u32 = smem_u32(ring) + h * G::WIDTH * ROW;
+  int t = 0;  // the stream's chunk that this block reads next
+  auto wait_unit = [&](int u) {
+    if (STOP != kNoFeed || u < G::UNITS)
+      mbar_wait(full0 + 8 * (u % G::UNITS), (u / G::UNITS) & 1);
+  };
+  auto release = [&](int u) {  // this warp is done with unit u's slot
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * (u % G::UNITS));
+  };
+  // the i-th chunk of a product on the set loaded for it; the next one's
+  // set (`more`: one more in this half) loaded while its wgmmas run
+  // (PING), or after them into the same set. A chunk's units are waited
+  // for before its wgmmas: a barrier's wait between them would put ptxas's
+  // own wgmma fence on a divergent path, which serializes the wgmmas.
+  auto chunk = [&](int i, bool more, uint32_t (&ah)[4][4],
+                   uint32_t (&al)[4][4], uint32_t (&nh)[4][4],
+                   uint32_t (&nl)[4][4]) {
+    const int u = G::UPC * t;
+    const uint32_t bh = ring_u32 + u % G::UNITS * G::UNIT;
+    const uint32_t bl = G::UPC == 2
+                            ? ring_u32 + (u + 1) % G::UNITS * G::UNIT
+                            : bh + G::PLANE;
+    wait_unit(u);
+    if constexpr (G::UPC == 2) wait_unit(u + 1);
+    fence_acc(acc);
+    wgmma_fence();
+    wgmma_chunk<G::WIDTH, STOP == kOnePass ? 1 : 3>(acc, ah, al, bh, bl - bh,
+                                                    true);
+    wgmma_commit();
+    if constexpr (G::PING) {
+      if (more) load(nh, nl, chunk_at(i + 1));
+    }
+    wgmma_wait<0>();
+    fence_all();
+#pragma unroll
+    for (int j = 0; j < G::NACC; ++j) total[j] += acc[j];
+    release(u);
+    if constexpr (G::UPC == 2) release(u + 1);
+    if (STOP != kNoFeed && tid == 0)
+      while (issued < count && issued < u + G::UPC + G::UNITS) issue();
+    if constexpr (!G::PING) {
+      if (more) load(nh, nl, chunk_at(i + 1));
+    }
+    ++t;
+  };
+  // this block's half of y, rows r < TM: K / C floats at r K + rank COLS
+  // (the swizzle keeps a column within its 32), 16 bytes a thread a step
+  constexpr int ROW4 = G::COLS / 4;
+  float4* mine = reinterpret_cast<float4*>(ys + rank * G::COLS);
+
+  for (int item = first; item < items; item += clusters) {
+    const int step = item / TILES, tile = item % TILES;
+    const int seed = step_seed(x, step, redi);
+    {  // y0: every element equal, so the layout does not matter here
+      const float y0 = (float)seed * 1e-6f;
+      for (int i = tid; i < TM * K / 4; i += THREADS)
+        reinterpret_cast<float4*>(ys)[i] = make_float4(y0, y0, y0, y0);
+    }
+    __syncthreads();
+    for (int d = 0; d < DEPTH; ++d) {
+#pragma unroll
+      for (int i = 0; i < G::NACC; ++i) total[i] = 0.f;
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {
+        if (half == 1 && d > 0 && STOP != kNoExchange) {
+          cluster_wait();  // the other block is done reading the old y
+          const uint32_t there = map_rank(smem_u32(mine), rank ^ 1);
+          for (int i = tid; i < TM * ROW4; i += THREADS) {
+            const int o = i / ROW4 * (K / 4) + i % ROW4;
+            st_cluster4(there + 16 * o, mine[o]);
+          }
+          cluster_arrive();
+          cluster_wait();  // ... and has written its half into this y
+        }
+        const int i0 = half * G::HALF;
+        load(ah0, al0, chunk_at(i0));
+#pragma unroll 1
+        for (int i = i0; i < i0 + G::HALF; i += 2) {
+          const bool more = i + 2 < i0 + G::HALF;
+          if constexpr (G::PING) {
+            chunk(i, true, ah0, al0, ah1, al1);
+            chunk(i + 1, more, ah1, al1, ah0, al0);
+          } else {
+            chunk(i, true, ah0, al0, ah0, al0);
+            chunk(i + 1, more, ah0, al0, ah0, al0);
+          }
+        }
+      }
+      if (d + 1 == DEPTH) break;
+      __syncthreads();  // every warp is done reading this y
+#pragma unroll
+      for (int e = 0; e < G::NACC; e += 2) {  // the new half, into this y
+        const int r = row_of(e), c = col_of(e);
+        *reinterpret_cast<float2*>(ys + r * K + (c ^ sw)) =
+            make_float2(total[e], total[e + 1]);
+      }
+      __syncthreads();  // ... before its first chunks read it
+      if (STOP != kNoExchange) cluster_arrive();
+    }
+
+    if (tile == 0) {  // the output: sum(y[0, 0:128]) over the (8, 128) block
+      const uint32_t r0 = map_rank(smem_u32(row0), 0);
+#pragma unroll
+      for (int e = 0; e < G::NACC; ++e)
+        if (row_of(e) == 0 && col_of(e) < ROW0)
+          st_cluster(r0 + 4 * col_of(e), total[e]);
+      cluster_sync();  // block 0's row0 is whole
+      if (rank == 0 && warp == 0) {
+        float v = 0.f;
+        for (int q = 0; q < 4; ++q) v += row0[4 * lane + q];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, o);
+        float4* o4 = reinterpret_cast<float4*>(out + (size_t)step * XBLOCK);
+        for (int i = lane; i < XBLOCK / 4; i += 32)
+          o4[i] = make_float4(v, v, v, v);
+      }
+    }
+    if constexpr (!CHECK) {
+      // every final value stays live (see the int modes' kernel)
+      if (item == sink_at) {
+        float v = 0.f;
+#pragma unroll
+        for (int e = 0; e < G::NACC; ++e) v += total[e];
+        atomicAdd(sink, v);
+      }
+    } else {
+      double m0 = 0, m1 = 0, m2 = 0;
+#pragma unroll
+      for (int e = 0; e < G::NACC; ++e) {
+        const int idx = (tile * TM + row_of(e)) * K + col_of(e);
+        const double dv = (double)total[e];
+        m0 += dv;
+        m1 += dv * dv;
+        m2 += (double)(idx % POS_PERIOD) * dv;
+      }
+      m0 = block_sum<double>(m0, redm);
+      m1 = block_sum<double>(m1, redm);
+      m2 = block_sum<double>(m2, redm);
+      if (tid == 0) {
+        double* mo = moments + ((size_t)item * C + rank) * 3;
+        mo[0] = m0;
+        mo[1] = m1;
+        mo[2] = m2;
+      }
+    }
+  }
+  // no block leaves while another may still write into it
+  cluster_sync();
+}
+
+using Kernel = void (*)(const uint8_t*, const float*, float*, double*, float*,
+                        int, int);
+
+template <int K>
+Kernel entry_k(bool check, int stop) {
+  if (check) return chain_kernel<K, true, kAll>;
+  switch (stop) {
+    case kOnePass: return chain_kernel<K, false, kOnePass>;
+    case kNoExchange: return chain_kernel<K, false, kNoExchange>;
+    case kNoFeed: return chain_kernel<K, false, kNoFeed>;
+    default: return chain_kernel<K, false, kAll>;
+  }
+}
+Kernel entry(int K, bool check, int stop) {
+  return K == 384 ? entry_k<384>(check, stop) : entry_k<512>(check, stop);
+}
+
+struct Shape {
+  int units, smem, unit;
+};
+template <int K>
+constexpr Shape shape_of() {
+  return {Geo<K>::UNITS, Geo<K>::SMEM, Geo<K>::UNIT};
+}
+Shape shape(int K) { return K == 384 ? shape_of<384>() : shape_of<512>(); }
+
+cudaLaunchConfig_t config(int K, int clusters, cudaStream_t stream,
+                          cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * clusters, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = shape(K).smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// the clusters the card runs at once at K, asked once a device (the
+// attributes of every instantiation set with it)
+constexpr int kMaxDevices = 64;
+std::atomic<int> g_active[kMaxDevices][2];  // [dev][K]
+
+cudaError_t active_clusters(int K, int* active) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::atomic<int>& slot = g_active[dev][K == 512];
+  if (!slot.load()) {
+    for (bool check : {false, true})
+      for (int stop : {kAll, kOnePass, kNoExchange, kNoFeed}) {
+        e = cudaFuncSetAttribute(entry(K, check, stop),
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 shape(K).smem);
+        if (e != cudaSuccess) return e;
+      }
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = config(K, 1, nullptr, attr);
+    int n = 0;
+    e = cudaOccupancyMaxActiveClusters(&n, entry(K, false, kAll), &cfg);
+    if (e != cudaSuccess) return e;
+    if (n < 1) return cudaErrorInvalidConfiguration;
+    slot.store(n);
+  }
+  *active = slot.load();
+  return cudaSuccess;
+}
+
+int launch(const void* x, const void* w, void* out, void* moments, int steps,
+           int K, int stop, void* sink, int sink_at, cudaStream_t s) {
+  int active = 0;
+  cudaError_t e = active_clusters(K, &active);
+  if (e != cudaSuccess) return (int)e;
+  const int items = steps * TILES;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      config(K, active < items ? active : items, s, attr);
+  e = cudaLaunchKernelEx(&cfg, entry(K, moments != nullptr, stop),
+                         static_cast<const uint8_t*>(x),
+                         static_cast<const float*>(w),
+                         static_cast<float*>(out),
+                         static_cast<double*>(moments),
+                         static_cast<float*>(sink), sink_at, steps);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+}  // namespace chain32
+
+// ---------------------------------------------------------------- bf16
+// The bf16 chain on a cluster ring (mode 1; see the notes at the top).
+namespace chain16 {
+
+constexpr int CONSUMERS = 256, CWARPS = CONSUMERS / 32;
+constexpr int THREADS = CONSUMERS + 32;  // 8 MMA warps and 1 copy warp
+constexpr int KA = 64, ROW = 2 * KA;     // k a chunk; its bytes an n-row
+constexpr int Y_ATOM = TM * ROW;         // y's bytes of 64 k-columns
+constexpr int MAX_STAGES = 8;
+constexpr int ALIGN = 1024;  // the swizzle's period: planes start on it
+// a block's dynamic shared memory, beside its static 1 KB or less
+constexpr int SMEM_BUDGET = 232448 - 1024;
+constexpr int CLUSTERS[] = {1, 2, 3, 6};  // divisors of TILES
+
+// K's geometry: a chunk is 64 k-columns of W^T (one 128-byte row an n)
+// for one half of the n (columns of y W), HALF rows; a product's chunks
+// go atom by atom, half 0 then half 1; y is TM rows x K in bf16, both in
+// the swizzled layout (16-byte unit u of a 128-byte row r stored at
+// u ^ (r % 8): wgmma's 128-byte swizzle); the ring takes what y leaves,
+// at most MAX_STAGES; then the full and empty mbarrier of each stage;
+// ALIGN bytes to start y on 1024
+template <int K>
+struct Geo {
+  static constexpr int HALF = K / 2, CHUNK = HALF * ROW;
+  static constexpr int ATOMS = K / KA, CHUNKS = 2 * ATOMS;
+  static constexpr int Y_BYTES = TM * K * 2;
+  static constexpr int FIT =
+      (SMEM_BUDGET - ALIGN - Y_BYTES - 16 * MAX_STAGES) / CHUNK;
+  static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
+  static constexpr int SMEM = ALIGN + Y_BYTES + STAGES * CHUNK + 16 * STAGES;
+  static constexpr int NACC = K / 4;  // a thread's sums (64 x K/2 a group)
+  static_assert(K % 128 == 0 && HALF % 8 == 0 && STAGES >= 2 &&
+                    SMEM <= SMEM_BUDGET && Y_BYTES % ALIGN == 0 &&
+                    CHUNK % ALIGN == 0,
+                "whole atoms, swizzle rows, a ring, aligned planes");
+};
+
+// the 8 MMA warps alone (the copy warp never waits on them)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
 // byte offset of the 16-byte unit u of row r in a swizzled 128-byte-row
 // plane
@@ -946,22 +1313,24 @@ int launch(const void* x, const void* w, void* out, void* moments,
 }
 
 }  // namespace chain16
-
 }  // namespace
 
-// x: (steps * 8, 128) uint8; w: (K, K) f32 k-major for mode 0, W^T
-// (n-major) in s8 for modes 2, 3, and for mode 1 W^T in bf16 in chain16's
-// chunk layout (ops/cuda_dot_chain.pack_weights: atom a, row n, 16-byte
-// unit u of W^T[n, 64 a + 8 u ...] at unit u ^ (n % 8)), 16-byte aligned;
-// out: (steps, 8, 128) f32; moments: nullptr, or (steps, 6, 3) doubles
-// (modes 0, 1) or int64 (modes 2, 3), the check instantiation's; trace:
-// the check instantiation's (steps, 6, 14, K) bf16 in mode 1, else unused;
-// sink: one f32 that the timed instantiation's block sink_at (step * 6 +
-// tile; -1: none) adds the sum of its final values to. mode: 0 f32, 1
-// bf16, 2 int8, 3 int8i; K: 384 or 512; variant: mode 1's blocks a
-// cluster (1, 2, 3 or 6), 0 for dot_chain_plan's choice; 0 in the other
-// modes. Every variant computes the same bits. Returns the cudaError_t of
-// the launch.
+// x: (steps * 8, 128) uint8; w: for mode 0, W^T split hi / lo, (K / 32)
+// chunks of (2, K, 32) f32 in the 128-byte swizzle (ops/cuda_dot_chain.
+// pack_weights: chunk c, plane, row n, 16-byte unit u of W^T[n, 32 c + 4 u
+// ...] at unit u ^ (n % 8)); W^T (n-major) in s8 for modes 2, 3; for mode
+// 1 W^T in bf16 in chain16's chunk layout (atom a, row n, 16-byte unit u
+// of W^T[n, 64 a + 8 u ...] at unit u ^ (n % 8)); 16-byte aligned; out:
+// (steps, 8, 128) f32; moments: nullptr, or the check instantiation's
+// doubles (modes 0, 1) or int64 (modes 2, 3): (steps, 6, 3), in mode 0
+// (steps, 6, 2, 3), one triple a block of the cluster; trace: the check
+// instantiation's (steps, 6, 14, K) bf16 in mode 1, else unused; sink: one
+// f32 that the timed instantiation's block(s) of item sink_at (step * 6 +
+// tile; -1: none) add the sum of their final values to. mode: 0 f32, 1
+// bf16, 2 int8, 3 int8i; K: 384 or 512; variant: mode 1's blocks a cluster
+// (1, 2, 3 or 6), 0 for dot_chain_plan's choice; 0 in the other modes.
+// Every variant computes the same bits. Returns the cudaError_t of the
+// launch.
 extern "C" int dot_chain(const void* x, const void* w, void* out,
                          void* moments, void* trace, void* sink, int sink_at,
                          int steps, int K, int mode, int variant,
@@ -974,45 +1343,69 @@ extern "C" int dot_chain(const void* x, const void* w, void* out,
   auto s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case F32:
-      return launch_mode<F32>(x, w, out, moments, trace, steps, K, sink,
-                              sink_at, s);
+      return chain32::launch(x, w, out, moments, steps, K, chain32::kAll,
+                             sink, sink_at, s);
     case BF16:
       return chain16::launch(x, w, out, moments, trace, steps, K, variant,
                              sink, sink_at, s);
     case INT8:
-      return launch_mode<INT8>(x, w, out, moments, trace, steps, K, sink,
-                               sink_at, s);
+      return launch_mode8<INT8>(x, w, out, moments, steps, K, sink, sink_at,
+                                s);
     default:
-      return launch_mode<INT8I>(x, w, out, moments, trace, steps, K, sink,
-                                sink_at, s);
+      return launch_mode8<INT8I>(x, w, out, moments, steps, K, sink, sink_at,
+                                 s);
   }
 }
 
-// mode 1's launch at K on the current card, variant as dot_chain takes
-// it; out[0..7]: the cluster size, ring stages, dynamic shared memory bytes a block, bytes a chunk, threads
-// a block, the clusters of that size the card runs at once, the SMs they
-// cover and the card's SMs. Returns the cudaError_t of the occupancy
-// query.
-extern "C" int dot_chain_plan(int K, int variant, int* out) {
-  if ((K != 384 && K != 512) || !chain16::variant_ok(variant))
+// mode 0's timed instantiation with part of its work left out, to time
+// where its time goes (another function: out holds other values); x, w,
+// out, sink, steps, K as dot_chain takes them; stop: 1 one TF32 pass
+// (hi*hi alone), 2 no exchange of y between products, 3 no feed of W
+// after the ring's first fill. Returns the cudaError_t of the launch.
+extern "C" int dot_chain_f32_stop(const void* x, const void* w, void* out,
+                                  void* sink, int steps, int K, int stop,
+                                  void* stream) {
+  if (steps < 1 || (K != 384 && K != 512) || stop < chain32::kOnePass ||
+      stop > chain32::kNoFeed)
+    return (int)cudaErrorInvalidValue;
+  return chain32::launch(x, w, out, nullptr, steps, K, stop, sink, -1,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// mode 0's or 1's launch at K on the current card, variant as dot_chain
+// takes it; out[0..7]: the cluster size, ring stages (mode 0: units, one
+// plane of a chunk each), dynamic shared memory bytes a block, bytes a
+// stage, threads a block, the clusters of that size the card runs at once,
+// the SMs they cover and the card's SMs. Returns the cudaError_t of the
+// occupancy query.
+extern "C" int dot_chain_plan(int K, int mode, int variant, int* out) {
+  if ((K != 384 && K != 512) || (mode != F32 && mode != BF16) ||
+      !(mode == F32 ? variant == 0 : chain16::variant_ok(variant)))
     return (int)cudaErrorInvalidValue;
   int C = 0, active = 0, dev = 0, sms = 0;
-  cudaError_t e = chain16::resolve(K, variant, &C);
-  if (e == cudaSuccess) e = chain16::active_clusters(K, C, &active);
+  cudaError_t e = cudaSuccess;
+  if (mode == F32) {
+    C = chain32::C;
+    e = chain32::active_clusters(K, &active);
+  } else {
+    e = chain16::resolve(K, variant, &C);
+    if (e == cudaSuccess) e = chain16::active_clusters(K, C, &active);
+  }
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   const bool k384 = K == 384;
-  const int fields[] = {
-      C,
-      k384 ? chain16::Geo<384>::STAGES : chain16::Geo<512>::STAGES,
-      chain16::smem_of(K),
-      k384 ? chain16::Geo<384>::CHUNK : chain16::Geo<512>::CHUNK,
-      chain16::THREADS,
-      active,
-      active * C,
-      sms};
+  chain32::Shape f = {};
+  if (mode == F32)
+    f = chain32::shape(K);
+  else
+    f = {k384 ? chain16::Geo<384>::STAGES : chain16::Geo<512>::STAGES,
+         chain16::smem_of(K),
+         k384 ? chain16::Geo<384>::CHUNK : chain16::Geo<512>::CHUNK};
+  const int fields[] = {C,      f.units,    f.smem, f.unit,
+                        mode == F32 ? THREADS : chain16::THREADS,
+                        active, active * C, sms};
   for (int i = 0; i < 8; ++i) out[i] = fields[i];
   return 0;
 }

@@ -1,8 +1,9 @@
 // Hopper's warpgroup MMA (wgmma) from shared memory: the operand
-// descriptor, the fences and the TF32 instructions with A in registers by
-// output width, shared by the kernels that run it (wgmma_mainloop.cuh's
-// 3xTF32 mainloop: gru_proj.cu's large route and bwd_dots.cu's nt;
-// dot_chain.cu's bf16 chain).
+// descriptor, the fences, the TF32 instructions with A in registers by
+// output width and a 32-k chunk of them as 3xTF32, shared by the kernels
+// that run it (wgmma_mainloop.cuh's 3xTF32 mainloop: gru_proj.cu's large
+// route and bwd_dots.cu's nt; mm_rate.cu; dot_chain.cu's f32 and bf16
+// chains).
 
 #pragma once
 
@@ -46,6 +47,58 @@ template <int N>
 __device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (this warp's share of 64 x 64 f32) = A B (scale_d 0) or
+// d + A B: wgmma m64n64k8 tf32
+__device__ __forceinline__ void wgmma_tf32_n64(float* d,
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
+      "%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, {%32,%33,%34,%35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
+}
+
+// d (this warp's share of 64 x 96 f32) = A B (scale_d 0) or
+// d + A B: wgmma m64n96k8 tf32
+__device__ __forceinline__ void wgmma_tf32_n96(float* d,
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
+      "%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
+      "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47"
+      "}, {%48,%49,%50,%51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(scale_d));
 }
 
 // d (this warp's share of 64 x 104 f32) = A B (scale_d 0) or
@@ -194,9 +247,14 @@ __device__ __forceinline__ void wgmma_tf32_n192(float* d,
 template <int BN>
 __device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t (&a)[4],
                                            uint64_t db, int scale_d) {
-  static_assert(BN == 104 || BN == 128 || BN == 144 || BN == 192,
+  static_assert(BN == 64 || BN == 96 || BN == 104 || BN == 128 ||
+                    BN == 144 || BN == 192,
                 "a width with a wrapper above");
-  if constexpr (BN == 104)
+  if constexpr (BN == 64)
+    wgmma_tf32_n64(d, a, db, scale_d);
+  else if constexpr (BN == 96)
+    wgmma_tf32_n96(d, a, db, scale_d);
+  else if constexpr (BN == 104)
     wgmma_tf32_n104(d, a, db, scale_d);
   else if constexpr (BN == 128)
     wgmma_tf32_n128(d, a, db, scale_d);
@@ -204,6 +262,35 @@ __device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t (&a)[4],
     wgmma_tf32_n144(d, a, db, scale_d);
   else
     wgmma_tf32_n192(d, a, db, scale_d);
+}
+
+// a 32-k chunk's wgmmas into d (64 x BN f32, a warpgroup's): for each k8
+// lo*hi, hi*lo and hi*hi (PASSES 3) or hi*hi alone (1), A's hi / lo
+// fragments (this warp's 16 rows, split) in ah / al, B's hi plane at shared
+// address b_hi and its lo plane lo_offset bytes after it (BN rows of 128
+// bytes each, K-major in the 128-byte swizzle); `first`: the chunk's first
+// wgmma overwrites d; the k8 steps from `live` on (B's rows there are
+// zeros: the operand's end) are left out, which adds the same bits
+template <int BN, int PASSES>
+__device__ __forceinline__ void wgmma_chunk(float* d,
+                                            const uint32_t (&ah)[4][4],
+                                            const uint32_t (&al)[4][4],
+                                            uint32_t b_hi, uint32_t lo_offset,
+                                            bool first, int live = 4) {
+#pragma unroll
+  for (int k8 = 0; k8 < 4; ++k8) {
+    if (k8 >= live) break;
+    const uint64_t bh = wgmma_desc(b_hi + 32 * k8),
+                   bl = wgmma_desc(b_hi + lo_offset + 32 * k8);
+    const int scale = !first || k8 > 0;
+    if constexpr (PASSES == 3) {
+      wgmma_tf32<BN>(d, al[k8], bh, scale);
+      wgmma_tf32<BN>(d, ah[k8], bl, 1);
+      wgmma_tf32<BN>(d, ah[k8], bh, 1);
+    } else {
+      wgmma_tf32<BN>(d, ah[k8], bh, scale);
+    }
+  }
 }
 
 }  // namespace

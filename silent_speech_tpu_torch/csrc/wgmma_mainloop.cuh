@@ -63,27 +63,14 @@ struct Geo {
                 "a ring of 3, planes on the swizzle's period");
 };
 
-// a chunk's wgmmas: for each k8 lo*hi, hi*lo and hi*hi (PASSES 3) or hi*hi
-// alone (1); `first`: the chunk's first wgmma overwrites the sums
+// a chunk's wgmmas (wgmma.cuh's wgmma_chunk, the lo plane B_PLANE bytes
+// after the hi one); `first`: the chunk's first wgmma overwrites the sums
 template <int BN, int PASSES>
 __device__ __forceinline__ void mma_chunk(float (&acc)[Geo<BN>::NACC],
                                           const uint32_t (&ah)[4][4],
                                           const uint32_t (&al)[4][4],
                                           uint32_t b_hi, bool first) {
-  constexpr uint32_t LO = Geo<BN>::B_PLANE;
-#pragma unroll
-  for (int k8 = 0; k8 < BK / 8; ++k8) {
-    const uint64_t bh = wgmma_desc(b_hi + 32 * k8),
-                   bl = wgmma_desc(b_hi + LO + 32 * k8);
-    const int scale = !first || k8 > 0;
-    if constexpr (PASSES == 3) {
-      wgmma_tf32<BN>(acc, al[k8], bh, scale);
-      wgmma_tf32<BN>(acc, ah[k8], bl, 1);
-      wgmma_tf32<BN>(acc, ah[k8], bh, 1);
-    } else {
-      wgmma_tf32<BN>(acc, ah[k8], bh, scale);
-    }
-  }
+  wgmma_chunk<BN, PASSES>(acc, ah, al, b_hi, Geo<BN>::B_PLANE, first);
 }
 
 // the thread's outputs of the tile at (m0, n0), + bias[c] where BIAS, rows

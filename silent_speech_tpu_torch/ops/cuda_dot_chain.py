@@ -35,6 +35,24 @@ after each product, which :func:`check_rounding` holds product by product
 against the bf16 rounding of the exact product of the row before. The
 timed instantiation writes only the TPU kernel's output.
 
+**The f32 kernel** (csrc/dot_chain.cu, namespace chain32). What bounds it
+is the multiply-adds at the f32 FMAs and 3xTF32 together (1.750 / 3.110
+ms at K=384 / 512 for 256 steps) and, behind them, W's hi and lo planes,
+re-read from L2 every product of a 64-row tile. A 64-row y tile in f32
+and a whole-width chunk of W do not fit one block, so a cluster of
+:data:`F32_CLUSTER` blocks shares a tile, each block holding all of y
+and computing half of the columns: W^T's planes (packed once by
+:func:`pack_weights`, split as the kernel splits) come by TMA bulk copies
+into a ring, y's fragments are split in registers, wgmma m64n(K/4)k8 tf32,
+each 32-k chunk's 12 wgmmas summed from zero and added into the product's
+f32 total. A block takes a product's chunks from its own half of y on
+(:func:`f32_chunk_order`): it runs the first half on the columns it wrote
+itself, and the two blocks swap their halves through distributed shared
+memory halfway through the product. :func:`f32_geometry` mirrors its shared
+memory, :func:`plan` reads its launch on the card,
+:func:`dot_chain_f32_stop` times its parts. Its CPU test (the sum order
+emulated, the packing, the geometry) is tests/test_torch_mr_dc_tc.py.
+
 **The bf16 kernel** (csrc/dot_chain.cu, namespace chain16). What bounds it
 is the bf16 multiply-adds (0.41 / 0.73 ms at K=384 / 512 for 256 steps)
 and, behind them, W: a 64-row tile re-reads the whole of W every product.
@@ -60,6 +78,7 @@ import numpy as np
 import torch
 
 from . import _kernels
+from .tf32_bars import tf32_round
 
 GRID, DEPTH, M = 256, 14, 384  # probe_int8.py:51-53
 KS = (384, 512)
@@ -110,8 +129,65 @@ def bf16_geometry(K: int) -> Bf16Geometry:
                         BF16_ALIGN + y + stages * (chunk + 16))
 
 
+# the f32 chain's geometry (csrc/dot_chain.cu, namespace chain32), which
+# f32_geometry mirrors: clusters of F32_CLUSTER blocks on a tile, a block
+# K / F32_CLUSTER columns; a plane is W^T's rows of those columns for F32_BK
+# k (F32_ROW bytes a row), hi or lo; a unit of the ring holds both planes
+# of a chunk where two such units fit, else one plane; ALIGN bytes, a ring
+# of at most F32_MAX_UNITS units with two 8-byte barriers each and the y
+# tile (TM x K f32) fill what a block's static shared memory (at most 1 KB)
+# leaves of SMEM_BYTES; F32_THREADS a block
+F32_CLUSTER, F32_BK, F32_ROW, F32_MAX_UNITS, F32_THREADS = 2, 32, 128, 8, 256
+F32_STOPS = {"one_pass": 1, "no_exchange": 2, "no_feed": 3}
+
+KERNEL_F32_STOP = _kernels.Kernel(
+    "dot_chain_f32_stop", "dot_chain_f32_stop",
+    [_P, _P, _P, _P,              # x, packed W, out, sink
+     _I, _I, _I, _P])             # steps, K, stop, stream
+
+
+class F32Geometry(NamedTuple):
+    """The f32 chain's launch shape at K (:func:`f32_geometry`): the
+    blocks a ``cluster``, each block's ``cols`` and each warpgroup's
+    ``width`` (the wgmma's n), the planes a ring unit holds (``planes``:
+    2, a whole chunk, or 1) and its bytes (``unit``), of the ``y`` tile,
+    the ring's ``units`` and the block's dynamic ``smem`` bytes."""
+
+    cluster: int
+    cols: int
+    width: int
+    planes: int
+    unit: int
+    y_bytes: int
+    units: int
+    smem: int
+
+
+def f32_chunk_order(K: int, rank: int) -> list[int]:
+    """The 32-k chunks of a product in the order block ``rank`` of the f32
+    chain's cluster sums them for its columns: from its own half of y on,
+    wrapping around."""
+    chunks = K // F32_BK
+    return [(i + rank * chunks // 2) % chunks for i in range(chunks)]
+
+
+def f32_geometry(K: int) -> F32Geometry:
+    """csrc/dot_chain.cu's ``chain32::Geo<K>``."""
+    if K % (64 * F32_CLUSTER):
+        raise ValueError(f"K must be a multiple of {64 * F32_CLUSTER}, got "
+                         f"{K}")
+    cols = K // F32_CLUSTER
+    plane, y = cols * F32_ROW, TM * K * 4
+    room = SMEM_BYTES - 1024 - BF16_ALIGN - y - 16 * F32_MAX_UNITS
+    planes = 2 if room // (2 * plane) >= 2 else 1
+    unit = planes * plane
+    units = min(F32_MAX_UNITS, room // unit)
+    return F32Geometry(F32_CLUSTER, cols, cols // 2, planes, unit, y, units,
+                       BF16_ALIGN + units * unit + y + 16 * units)
+
+
 class Plan(NamedTuple):
-    """The bf16 chain's launch on the card (csrc/dot_chain.cu's
+    """The f32 or bf16 chain's launch on the card (csrc/dot_chain.cu's
     dot_chain_plan): blocks a ``cluster``, ring ``stages``, dynamic
     ``smem`` bytes a block, ``chunk`` bytes, ``threads`` a block, the
     ``clusters`` of that size the card runs at once, the SMs they cover
@@ -128,41 +204,51 @@ class Plan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=64)
-def _plan(device: int, K: int, variant: int) -> Plan:
+def _plan(device: int, K: int, mode: int, variant: int) -> Plan:
     lib = _kernels.library()
     fn = lib.dot_chain_plan
-    fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [_I, _I, _I, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 8)()
     with torch.cuda.device(device):
-        err = fn(K, variant, out)
+        err = fn(K, mode, variant, out)
     if err:
-        raise RuntimeError(f"dot_chain_plan(K={K}, variant={variant}): CUDA "
-                           f"error {err}: "
+        raise RuntimeError(f"dot_chain_plan(K={K}, mode={mode}, variant="
+                           f"{variant}): CUDA error {err}: "
                            f"{lib.sst_cuda_error_string(err).decode()}")
     return Plan(*out)
 
 
-def _variant(cluster: int) -> int:
-    """csrc/dot_chain.cu's variant code: the cluster size (0: the
-    kernel's choice)."""
+def _variant(cluster: int, mode: str = "bf16") -> int:
+    """csrc/dot_chain.cu's variant code: the bf16 chain's cluster size (0:
+    the kernel's choice); the other modes take none."""
+    if mode != "bf16":
+        if cluster:
+            raise ValueError(f"cluster is the bf16 chain's, not {mode!r}'s "
+                             "(the f32 chain's clusters are of "
+                             f"{F32_CLUSTER})")
+        return 0
     if cluster not in (0,) + BF16_CLUSTERS:
         raise ValueError(f"cluster must be 0 (the kernel's choice) or one "
                          f"of {BF16_CLUSTERS}, got {cluster}")
     return cluster
 
 
-def plan(K: int, cluster: int = 0, device=None) -> Plan:
-    """The bf16 chain's launch at K on a card (the current one by
-    default); ``cluster`` 0 for the kernel's choice (the largest cluster
-    whose clusters cover at least 15/16 of the SMs at once)."""
+def plan(K: int, cluster: int = 0, device=None, mode: str = "bf16") -> Plan:
+    """The ``mode`` (f32 or bf16) chain's launch at K on a card (the
+    current one by default); bf16's ``cluster`` 0 for the kernel's choice
+    (the largest cluster whose clusters cover at least 15/16 of the SMs at
+    once). For f32, ``stages`` and ``chunk`` are the ring's units and a
+    unit's bytes (:class:`F32Geometry`)."""
     if K not in KS:
         raise ValueError(f"the kernel takes K in {KS}, got {K}")
-    variant = _variant(cluster)
+    if mode not in ("f32", "bf16"):
+        raise ValueError(f"plan is the f32 and bf16 chains', not {mode!r}'s")
+    variant = _variant(cluster, mode)
     device = torch.device("cuda" if device is None else device)
     index = torch.cuda.current_device() if device.index is None \
         else device.index
-    return _plan(index, K, variant)
+    return _plan(index, K, _MODE_CODE[mode], variant)
 
 
 def _check_mode(mode: str, K: int) -> None:
@@ -186,20 +272,29 @@ def make_weights(mode: str, K: int) -> torch.Tensor:
 
 
 def pack_weights(w: torch.Tensor, mode: str) -> torch.Tensor:
-    """W as the kernel reads it, (K, K): f32 k-major for ``f32``; W
-    transposed (n-major) in int8 for the int modes; for ``bf16`` W
-    transposed in bf16, in the chain's chunk layout: atom a (64 k-columns)
-    after atom, each n's 128 bytes in turn, its 16-byte unit u (W^T[n, 64 a
-    + 8 u ... + 7]) stored at unit u ^ (n % 8), so that a chunk is one
-    contiguous copy in wgmma's 128-byte swizzle."""
-    if mode == "f32":
-        return w.to(torch.float32).contiguous()
-    if mode != "bf16":
+    """W as the kernel reads it: for ``f32``, W transposed and split as
+    the kernel splits (hi = TF32(w), lo = TF32(w - hi)), (2 K, K) f32 in
+    the f32 chain's chunk layout: chunk c (32 k-columns) after chunk, the
+    hi plane then the lo plane, each n's 128 bytes in turn, its 16-byte
+    unit u (W^T[n, 32 c + 4 u ... + 3]) stored at unit u ^ (n % 8); W
+    transposed (n-major) in int8 for the int modes, (K, K); for ``bf16`` W
+    transposed in bf16, (K, K), in the chain's chunk layout: atom a (64
+    k-columns) after atom, each n's 128 bytes in turn, its 16-byte unit u
+    (W^T[n, 64 a + 8 u ... + 7]) stored at unit u ^ (n % 8), so that a
+    chunk is one contiguous copy in wgmma's 128-byte swizzle."""
+    if mode.startswith("int8"):
         return w.t().to(torch.int8).contiguous()
     K = w.shape[0]
-    units = w.t().to(torch.bfloat16).reshape(K, K // BF16_KA, 8, 8)
     n = torch.arange(K, device=w.device)[:, None]
     swizzle = torch.arange(8, device=w.device)[None, :] ^ (n % 8)
+    if mode == "f32":
+        wt = w.t().to(torch.float32).contiguous()
+        hi = tf32_round(wt)
+        planes = torch.stack([hi, tf32_round(wt - hi)])  # (2, n, k)
+        units = planes.reshape(2, K, K // F32_BK, 8, 4)
+        units = units.permute(2, 0, 1, 3, 4)[:, :, n, swizzle]
+        return units.reshape(2 * K, K).contiguous()
+    units = w.t().to(torch.bfloat16).reshape(K, K // BF16_KA, 8, 8)
     units = units.permute(1, 0, 2, 3)[:, n, swizzle]  # [a][n][u ^ n % 8]
     return units.reshape(K, K).contiguous()
 
@@ -329,9 +424,7 @@ def dot_chain(x: torch.Tensor, w: torch.Tensor, mode: str, *,
     ``cluster``: the bf16 chain's blocks a cluster, 0 for the kernel's
     choice (:func:`plan`); every cluster size computes the same bits."""
     K = _check_w(w, mode)
-    variant = _variant(cluster)
-    if variant and mode != "bf16":
-        raise ValueError(f"cluster is the bf16 chain's, not {mode!r}'s")
+    variant = _variant(cluster, mode)
     steps = _steps(x)
     if not _kernels.use_kernel(impl, x):
         y = chain_plain(x, w, mode)
@@ -346,7 +439,8 @@ def dot_chain(x: torch.Tensor, w: torch.Tensor, mode: str, *,
         packed = pack_weights(w, mode)
     want = {"f32": torch.float32, "bf16": torch.bfloat16}.get(mode,
                                                              torch.int8)
-    if packed.shape != (K, K) or packed.dtype != want or \
+    shape = (2 * K, K) if mode == "f32" else (K, K)
+    if packed.shape != shape or packed.dtype != want or \
             packed.device != x.device or not packed.is_contiguous():
         raise ValueError(f"packed must be pack_weights(w, {mode!r}) on "
                          f"{x.device}")
@@ -356,7 +450,8 @@ def dot_chain(x: torch.Tensor, w: torch.Tensor, mode: str, *,
     out = torch.empty((steps, 8, 128), dtype=torch.float32, device=x.device)
     mom = None
     if check:
-        mom = torch.empty((steps, TILES, 3), device=x.device,
+        parts = F32_CLUSTER if mode == "f32" else 1
+        mom = torch.empty((steps, TILES * parts, 3), device=x.device,
                           dtype=torch.int64 if mode.startswith("int8")
                           else torch.float64)
     trace = None
@@ -376,6 +471,31 @@ def dot_chain(x: torch.Tensor, w: torch.Tensor, mode: str, *,
     return out, mom.sum(dim=1), trace
 
 
+def dot_chain_f32_stop(x: torch.Tensor, w: torch.Tensor, stop: str, *,
+                       packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The f32 chain's kernel with part of its work left out, to time where
+    its time goes (card only; another function): ``one_pass``, hi*hi alone
+    (one TF32 pass); ``no_exchange``, each block's y kept its own between
+    products; ``no_feed``, W's planes brought into the ring once and re-read
+    stale. Returns the (steps, 8, 128) output, which is not the chain's."""
+    K = _check_w(w, "f32")
+    steps = _steps(x)
+    if stop not in F32_STOPS:
+        raise ValueError(f"stop must be one of {sorted(F32_STOPS)}, got "
+                         f"{stop!r}")
+    if not x.is_cuda or K not in KS or not steps:
+        raise ValueError("dot_chain_f32_stop times the kernel: x on the "
+                         f"card, K in {KS}, steps >= 1")
+    if packed is None:
+        packed = pack_weights(w, "f32")
+    out = torch.empty((steps, 8, 128), dtype=torch.float32, device=x.device)
+    sink = torch.zeros(1, dtype=torch.float32, device=x.device)
+    KERNEL_F32_STOP.launch(_kernels.ptr(x), _kernels.ptr(packed),
+                           _kernels.ptr(out), _kernels.ptr(sink), steps, K,
+                           F32_STOPS[stop], _kernels.stream_ptr(x.device))
+    return out
+
+
 def macs(steps: int, K: int) -> int:
     """Multiply-adds of one call: steps * 14 * 384 * K^2."""
     return steps * DEPTH * M * K * K
@@ -383,8 +503,9 @@ def macs(steps: int, K: int) -> int:
 
 def bytes_moved(steps: int, K: int, mode: str) -> int:
     """Bytes a call must move: x read (1,024 a step), the (8, 128) f32
-    output written a step, and the packed W read once."""
-    esize = {"f32": 4, "bf16": 2}.get(mode, 1)
+    output written a step, and the packed W read once (f32: its hi and lo
+    planes)."""
+    esize = {"f32": 8, "bf16": 2}.get(mode, 1)
     return steps * 1024 + steps * 4096 + K * K * esize
 
 

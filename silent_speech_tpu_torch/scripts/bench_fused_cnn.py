@@ -7,9 +7,10 @@ packed shapes (port of scripts/bench_fused_cnn.py).
 
 ``mxu`` (``probe_mxu``): for each of the JAX script's six (M, K, N) shapes,
 the sum of 64 products of A, lane-rolled by ``r % 8``, with B, in each of
-64 steps (ops/cuda_mm_rate.py, csrc/mm_rate.cu, f32 FMAs on the CUDA
-cores), held against its plain version, then timed: T MAC/s, the share of
-the f32 bound, the plain version's time, the library time of the same work
+64 steps (ops/cuda_mm_rate.py, csrc/mm_rate.cu, 3xTF32 on wgmma), held
+against its plain version, then timed: T MAC/s, the share of the bound at
+232 TFLOP/s (the f32 FMAs and 3xTF32 together), the plain version's time,
+the library time of the same work
 (:func:`same_work_call`: one ``torch.matmul`` of the stacked operands, TF32
 off) and one ``torch.matmul`` at the same (M, K, N) as a rate beside it.
 With no argument, ``mxu`` then ``main``:
@@ -97,7 +98,9 @@ def same_work_call(a: torch.Tensor, b: torch.Tensor, reps: int, grid: int
 def mxu_rate(M: int, K: int, N: int, args: harness.Args) -> dict:
     """mxu_rate (bench_fused_cnn.py:73): the kernel's T MAC/s at (M, K, N)
     over ``mr.REPS`` x ``mr.GRID`` products, its check against the plain
-    version on the card, the share of the f32 bound, the plain version's
+    version on the card, the share of the bound at 232 TFLOP/s (the f32
+    FMAs and 3xTF32 together; a, b and out's bytes, which never bind), the
+    plain version's
     time, the library's same-work time (:func:`same_work_call`; where it
     is one step's call, its time times grid, ``library_calls``) and
     torch.matmul's rate at (M, K, N)."""
@@ -115,7 +118,8 @@ def mxu_rate(M: int, K: int, N: int, args: harness.Args) -> dict:
     call, calls = same_work_call(a, b, reps, grid)
     lib_ms = harness.timed_ms(call, few) * calls
     del call
-    b_ms, b_by = harness.bound_ms(macs, 4 * (M * K + K * N + M * N))
+    b_ms, b_by = harness.bound_ms(macs, 4 * (M * K + K * N + M * N),
+                                  "f32_3xtf32")
     return {"ms": ms, "t_macs": macs / (ms * 1e-3) / 1e12,
             "bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain_ms,
             "library_ms": lib_ms, "library_calls": calls,
@@ -135,7 +139,7 @@ def probe_mxu(argv: Optional[Sequence[str]] = None) -> dict:
             r = mxu_rate(M, K, N, args)
             print(f"  ({M:5d},{K:5d},{N:5d}) {tag:20s}: {r['t_macs']:7.2f} "
                   f"T MAC/s  {r['ms']:9.4f} ms, {r['bound_ms'] / r['ms']:6.1%}"
-                  f" of its f32 bound {r['bound_ms']:.4f} ms; plain "
+                  f" of its bound {r['bound_ms']:.4f} ms; plain "
                   f"{r['plain_ms']:.4f} ms; library (the same work) "
                   f"{r['library_ms']:.4f} ms"
                   + ("" if r["library_calls"] == 1 else

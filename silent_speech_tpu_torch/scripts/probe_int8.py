@@ -6,9 +6,9 @@ tile shapes (port of scripts/probe_int8.py).
 
 For each K (384, 512), each mode runs ``build(mode, K)``: GRID (256) steps of a serial
 chain of 14 (384, K) x (K, K) products, seeded from the step's uint8 block
-(ops/cuda_dot_chain.py, csrc/dot_chain.cu): ``f32`` on the CUDA cores,
-``bf16`` and ``int8`` (s8 x s8 -> s32, re-narrowed by ``>> 7`` between
-products) through mma.sync on the tensor cores, ``int8i`` 14 independent
+(ops/cuda_dot_chain.py, csrc/dot_chain.cu): ``f32`` as 3xTF32 and
+``bf16`` on wgmma, ``int8`` (s8 x s8 -> s32, re-narrowed by ``>> 7``
+between products) through mma.sync on the tensor cores, ``int8i`` 14 independent
 s8 products summed in s32. W is defined (``cuda_dot_chain.make_weights``),
 where the TPU kernel's was never written. On the card each mode's kernel is
 first held against its plain version (``cuda_dot_chain.check``: bitwise
@@ -37,7 +37,10 @@ from ..ops import cuda_dot_chain as dc
 from . import proto_parity_cnn as harness
 
 ITERS = 50  # probe_int8.py:54
-PEAK_KIND = {"f32": "f32", "bf16": "bf16", "int8": "int8", "int8i": "int8"}
+# the bound's rate (proto_parity_cnn.PEAK_OPS): f32 at the f32 FMAs and
+# 3xTF32 together, 232 TFLOP/s
+PEAK_KIND = {"f32": "f32_3xtf32", "bf16": "bf16", "int8": "int8",
+             "int8i": "int8"}
 
 
 def build(mode: str, K: int, x: torch.Tensor) -> Callable[[], torch.Tensor]:

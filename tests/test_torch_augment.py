@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 from silent_speech_tpu.data import augment as ja
 from silent_speech_tpu_torch.data import augment as ta
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 EXTREME = dataclasses.replace(ja.OFFICIAL_AUGMENT, drop_max=12, drop_min_t=4)
 

@@ -36,6 +36,7 @@ from silent_speech_tpu_torch.scripts import (proto_bwd_dots,
                                              proto_bwd_dots2,
                                              proto_bwd_dots3)
 from silent_speech_tpu_torch.scripts import proto_parity_cnn as harness
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REL = 1e-5

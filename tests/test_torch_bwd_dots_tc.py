@@ -44,6 +44,7 @@ from silent_speech_tpu_torch.ops import cuda_bwd_dots as bd
 from silent_speech_tpu_torch.scripts import proto_bwd_dots
 from silent_speech_tpu_torch.scripts import proto_parity_cnn as harness
 from tc_emulation import step_product, tf32_rna
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REL = 1e-5  # of the largest value, as tests/test_torch_bwd_dots.py

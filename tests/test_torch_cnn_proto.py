@@ -39,6 +39,7 @@ from silent_speech_tpu_torch.ops import cuda_parity_cnn as pc
 from silent_speech_tpu_torch.scripts import (probe_front, proto_ablate,
                                              proto_parity_cnn,
                                              proto_parity_e2e)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 32

@@ -30,6 +30,7 @@ from silent_speech_tpu.ops import ctc as jctc
 from silent_speech_tpu_torch.infer import ctc_decode as tdec
 from silent_speech_tpu_torch.models import ctc_model as tcm
 from silent_speech_tpu_torch.ops import ctc as tctc
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 WORDS = ["yes", "no", "hello", "please", "thanks", "six", "seven", "aura"]

@@ -48,6 +48,7 @@ from silent_speech_tpu_torch.train import checkpoint as tckpt
 from silent_speech_tpu_torch.train.ctc_loop import train_ctc
 from silent_speech_tpu_torch.train.loop import train
 from silent_speech_tpu_torch.train.step import smoothed_cross_entropy
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 WORDS = ["yes", "no", "hello"]
 CTC = dict(epochs=3, patience=3, batch_size=4, max_t=40, hidden=24,

@@ -29,10 +29,13 @@ layout kernel in every body, its product body also within a float64 bar
 that one TF32 pass misses, its copied lanes bitwise, at 1 to 512 steps)
 against their plain versions, their launch
 counts, the inputs they refuse, and the three scripts' main at small
-sizes; the backward-dot probes' kernels (tt, xp, nt, and nn with its two
-epilogues) at ragged shapes, bitwise repeatable, nt's zero tail, nt within
-the float64 bar with one TF32 pass outside it, its stops and plan, the
-inputs they refuse, and the three scripts' main at small sizes. Every test
+sizes; the matmul-rate kernel also at the probe's six shapes, and both
+it and the chained-dot kernel's f32 chain bitwise on repeats, their
+plans their Python mirrors', their timing stops; the backward-dot
+probes' kernels (tt, xp, nt, and nn with its two epilogues) at ragged
+shapes, bitwise repeatable, nt's zero tail, nt within the float64 bar
+with one TF32 pass outside it, its stops and plan, the inputs they
+refuse, and the three scripts' main at small sizes. Every test
 needs
 a CUDA device and skips without one. On the GPU machine (which has no jax, and tests/conftest.py
 imports jax) run them with
@@ -1397,6 +1400,60 @@ def test_mm_rate_kernel_matches_plain(dev, M, K, N, reps, grid):
     torch.cuda.synchronize()
     assert cuda_mm_rate.KERNEL.launches == before + 1
     assert r["share_of_bar"] <= 1.0
+
+
+@pytest.mark.parametrize("M,K,N,reps,grid", [
+    (M, K, N, cuda_mm_rate.REPS, cuda_mm_rate.GRID)
+    for M, K, N, _ in cuda_mm_rate.SHAPES] + [
+    (16, 24, 16, 9, 2), (70, 104, 130, 9, 2), (192, 104, 128, 9, 2)])
+def test_mm_rate_plan_repeats_and_bar(dev, M, K, N, reps, grid):
+    """MR at the probe's six shapes and the small ragged ones: within its
+    bar of the plain version, two launches and both column tiles bitwise
+    equal, the launch plan its Python mirror's."""
+    a, b = cuda_mm_rate.make_problem(M, K, N, dev)
+    with full_f32():
+        assert cuda_mm_rate.check(a, b, reps, grid)["share_of_bar"] <= 1.0
+    first = cuda_mm_rate.mm_rate(a, b, reps, grid)
+    assert torch.equal(first, cuda_mm_rate.mm_rate(a, b, reps, grid))
+    for bn in cuda_mm_rate.BNS:  # every column tile: the same sums
+        assert torch.equal(first, cuda_mm_rate.mm_rate(a, b, reps, grid,
+                                                       bn=bn))
+    pl = cuda_mm_rate.plan(M, K, N, grid)
+    geo = cuda_mm_rate.geometry(M, K, N, grid)
+    assert (pl.bn, pl.items, pl.smem, pl.stages, pl.threads) == (
+        geo.bn, geo.items, geo.smem, geo.stages, geo.threads)
+    assert 1 <= pl.blocks == min(pl.items, pl.slots)
+
+
+@pytest.mark.parametrize("K", cuda_dot_chain.KS)
+def test_dot_chain_f32_plan_repeats_and_stops(dev, K):
+    """DC-f32 at 3 and 256 steps: within BAR_F32 of the plain chain, two
+    launches bitwise equal, its launch plan its Python mirror's; its three
+    timing stops launch, count apart and compute other values."""
+    w = cuda_dot_chain.make_weights("f32", K).to(dev)
+    packed = cuda_dot_chain.pack_weights(w, "f32")
+    for steps in (3, 256):
+        x = torch.from_numpy(np.random.default_rng(K + steps).integers(
+            0, 256, (steps * 8, 128), dtype=np.uint8)).to(dev)
+        with full_f32():
+            cuda_dot_chain.check(x, w, "f32", packed=packed)
+        want = cuda_dot_chain.dot_chain(x, w, "f32", packed=packed)
+        assert torch.equal(cuda_dot_chain.dot_chain(x, w, "f32",
+                                                    packed=packed), want)
+    pl = cuda_dot_chain.plan(K, mode="f32")
+    geo = cuda_dot_chain.f32_geometry(K)
+    assert (pl.cluster, pl.stages, pl.smem, pl.chunk) == (
+        geo.cluster, geo.units, geo.smem, geo.unit)
+    assert pl.threads == 256 and pl.clusters >= 1
+    assert pl.sms_used == pl.clusters * pl.cluster <= pl.sms
+    before = cuda_dot_chain.KERNEL.launches
+    stops = cuda_dot_chain.KERNEL_F32_STOP.launches
+    for stop in cuda_dot_chain.F32_STOPS:
+        got = cuda_dot_chain.dot_chain_f32_stop(x, w, stop, packed=packed)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and not torch.equal(got, want), stop
+    assert cuda_dot_chain.KERNEL.launches == before
+    assert cuda_dot_chain.KERNEL_F32_STOP.launches == stops + 3
 
 
 @pytest.mark.parametrize("mode", cuda_dot_chain.MODES)

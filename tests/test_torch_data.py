@@ -16,6 +16,7 @@ from silent_speech_tpu_torch.core.schema import Clip, load_clip, save_clip
 from silent_speech_tpu_torch.data import corpus as tcorpus
 from silent_speech_tpu_torch.data import dataset as tdataset
 from silent_speech_tpu_torch.data.synthetic import generate_corpus
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 WORDS = ["yes", "no", "hello"]
 

@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from silent_speech_tpu_torch.ops import cuda_dot_chain as dc
+from silent_speech_tpu_torch.ops.tf32_bars import tf32_round
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("K", dc.KS)
@@ -68,8 +70,14 @@ def test_packed_bf16_weights_are_the_chunk_layout(K):
 def test_the_other_modes_keep_their_packing():
     w8 = dc.make_weights("int8", 384)
     assert torch.equal(dc.pack_weights(w8, "int8"), w8.t().contiguous())
-    w32 = dc.make_weights("f32", 384)
-    assert torch.equal(dc.pack_weights(w32, "f32"), w32)
+    w32 = dc.make_weights("f32", 384)  # the f32 chain's split planes
+    planes = dc.pack_weights(w32, "f32").reshape(384 // 32, 2, 384, 8, 4)
+    n = torch.arange(384)[:, None]
+    units = planes[:, :, n, torch.arange(8)[None, :] ^ (n % 8)]
+    hi, lo = units.permute(1, 2, 0, 3, 4).reshape(2, 384, 384)
+    want = tf32_round(w32.t())
+    assert torch.equal(hi, want)
+    assert torch.equal(lo, tf32_round(w32.t() - want))
 
 
 def test_variant_codes_and_refusals():

@@ -41,6 +41,7 @@ from silent_speech_tpu_torch.infer import evaluator
 from silent_speech_tpu_torch.infer.predictor import Predictor
 from silent_speech_tpu_torch.train.loop import train
 from silent_speech_tpu_torch.core.config import TrainConfig
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 WORDS = ["yes", "no", "hello", "thanks"]
 MAX_T = 24

@@ -13,6 +13,7 @@ from silent_speech_tpu.core.torch_export import (
 from silent_speech_tpu.core.torch_import import import_bigru_classifier
 from silent_speech_tpu.infer import Predictor
 from silent_speech_tpu.models import bigru as model
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_export_import_roundtrip(rng):

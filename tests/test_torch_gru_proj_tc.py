@@ -24,6 +24,7 @@ import jax.numpy as jnp
 
 from silent_speech_tpu_torch.ops import cuda_gru
 from tc_emulation import split_tf32, tc_product
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BAR = 1e-4
 N = 1152  # 6H at H=192: both directions of a layer

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 from silent_speech_tpu_torch.ops import cuda_gru_proto
 from silent_speech_tpu_torch.scripts import (bench_gru, proto_gru2,
                                              proto_gru3, proto_gru4)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-4

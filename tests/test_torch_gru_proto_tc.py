@@ -30,6 +30,7 @@ import jax.numpy as jnp
 from silent_speech_tpu_torch.ops import cuda_gru_proto as gp
 from silent_speech_tpu_torch.ops.tf32_bars import bar64, shares
 from tc_emulation import step_product
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BAR_GRU, BAR_GRU_BF16 = 1e-4, 2e-3  # chip_smoke.py

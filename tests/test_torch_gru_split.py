@@ -20,6 +20,7 @@ import jax.numpy as jnp
 from silent_speech_tpu.ops.pallas_gru import (bigru_pallas, gru_layer_pallas,
                                               gru_sequence_pallas)
 from silent_speech_tpu_torch.ops import cuda_gru
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 

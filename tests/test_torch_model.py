@@ -16,6 +16,7 @@ from silent_speech_tpu.core.torch_export import (export_bigru_classifier,
 from silent_speech_tpu.models import bigru as jm
 from silent_speech_tpu_torch.models import bigru as tm
 from silent_speech_tpu_torch.ops import cuda_cnn
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NARROW = dict(x_dim=20, hidden=16, head_hidden=8, roi_emb=8)
 

@@ -37,6 +37,7 @@ from silent_speech_tpu_torch.ops import cuda_layout_micro as lm
 from silent_speech_tpu_torch.ops import cuda_mm_rate as mr
 from silent_speech_tpu_torch.scripts import bench_fused_cnn
 from tc_emulation import step_product
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REL = 1e-5  # of the largest value, as tests/test_torch_bwd_dots.py

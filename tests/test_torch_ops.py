@@ -16,6 +16,7 @@ from silent_speech_tpu.ops import pooling as jpool
 from silent_speech_tpu_torch.ops import gru as tgru
 from silent_speech_tpu_torch.ops import nn as tnn
 from silent_speech_tpu_torch.ops import pooling as tpool
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 

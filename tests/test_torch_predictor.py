@@ -20,6 +20,7 @@ from silent_speech_tpu_torch.infer.predictor import (Predictor, _bucket,
 from silent_speech_tpu_torch.train.checkpoint import (load_checkpoint,
                                                       reference_meta,
                                                       save_checkpoint)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LABELS = ["yes", "no", "hello", "thanks", "please", "six", "seven", "aura",
           "lebron", "fahhh"]

@@ -21,6 +21,7 @@ from silent_speech_tpu.models.bigru import init_roi_cnn
 from silent_speech_tpu.ops.pallas_cnn2 import pack_roi_cnn_fused, roi_cnn_fused
 from silent_speech_tpu_torch.models.bigru import TinyROICNN
 from silent_speech_tpu_torch.ops import cuda_cnn
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _params(seed):

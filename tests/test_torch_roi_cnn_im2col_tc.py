@@ -31,6 +31,7 @@ from silent_speech_tpu_torch.models.bigru import init_roi_cnn as torch_init
 from silent_speech_tpu_torch.ops import cuda_cnn, cuda_cnn_im2col
 from silent_speech_tpu_torch.ops.nn import conv2d_nhwc, dense, max_pool_2x2
 from tc_emulation import tc_product
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_FRAMES = 6
 # K1's f32 bars on the card, live and standardized (chip_smoke.py

@@ -24,6 +24,7 @@ from silent_speech_tpu.ops.pallas_cnn2 import (_pack_indices,
                                                pack_roi_cnn_fused,
                                                roi_cnn_fused)
 from silent_speech_tpu_torch.ops import cuda_cnn, cuda_cnn_im2col, cuda_cnn_q8
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # bf16 against the Pallas bf16 kernel: both round at the same points, so
 # they differ by f32 reassociation, and where an f32 sum taken in another

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 from silent_speech_tpu.models import bigru as jm
 from silent_speech_tpu.ops.pallas_cnn2_grad import roi_cnn_fused_train
 from silent_speech_tpu_torch.ops import _kernels, cuda_cnn
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BAR = 5e-5
 

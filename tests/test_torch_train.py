@@ -37,6 +37,7 @@ from silent_speech_tpu_torch.train.step import (StepConfig,
                                                 make_optimizer,
                                                 smoothed_cross_entropy,
                                                 train_step)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SMALL = dict(x_dim=12, num_classes=4, hidden=16, roi_emb=8, head_hidden=8,
              gru_dropout=0.0, head_dropout=0.0)
