@@ -84,10 +84,16 @@ prints no result line):
 9. the CNN-front prototypes (silent_speech_tpu_torch/scripts): the parity
    conv1 + pool1 kernel in both layouts against its plain version at
    N=8192 and N=16, on all-0 and all-255 frames, with packed and random
-   weights, its ablation's ``full`` bitwise the kernel; each stage of the
+   weights, a second launch and its ablation's ``full`` bitwise the
+   kernel, every stop run; at N=8192 with random weights its and the plain
+   version's distance from float64, the one-sum control's error and the W_hi-pass control, which must miss the
+   bar; each stage of the
    front probe and each of K1's debug stops against its plain version; K1
-   itself within its bar; their times, bounds (K1's stops on K1's routes,
-   over 100% failing) and plain versions' times at N=8192; and the main() of proto_parity_cnn, proto_parity_e2e,
+   itself within its bar; their times, bounds (the parity kernel's at the
+   FMAs and two TF32 passes together, K1's stops' at the FMAs and 3xTF32
+   together, over 100% failing) and
+   plain versions' times at N=8192, the parity kernel's stops and
+   controls; and the main() of proto_parity_cnn, proto_parity_e2e,
    proto_ablate and probe_front at N=8192, with the launch counts over each;
 10. the forward rate probes (silent_speech_tpu_torch/scripts): the
    matmul-rate kernel (MR) at bench_fused_cnn's six shapes and small ragged
@@ -96,7 +102,8 @@ prints no result line):
    version (DC in bf16 also product by product, with two controls that
    must fail; LP's product body, 3xTF32, also against the float64
    version, with one TF32 pass as the control that must fail, its copied
-   lanes bitwise); then the main() of probe_int8, bench_fused_cnn (mxu,
+   lanes bitwise; its moving bodies also at a step count that leaves
+   their persistent blocks a partial last sweep, each bitwise); then the main() of probe_int8, bench_fused_cnn (mxu,
    main and ftile) and mosaic_micro at full size, with the launch counts
    over each, whose rows give the kernels' times, bounds (a row above
    100% of its bound fails), and the plain versions' and library calls'
@@ -104,7 +111,9 @@ prints no result line):
    product body: its product part, and with the copy the same work);
    and DC's bf16 kernel in each variant (clusters of 1, 2, 3 and 6
    blocks), each bitwise the checked output, with its plan
-   (cluster, stages, shared memory) and time beside the bound;
+   (cluster, stages, shared memory) and time beside the bound; LP's moving
+   bodies, cold L2, in turns beside their library call
+   (:func:`time_lp_moves`);
 11. the backward-dot probes (silent_speech_tpu_torch/scripts): the tt, xp,
    nt, base and nn kernels against their plain versions at small ragged
    shapes (rows 100, m 24, K 104, N 130; dots3's form at 7 steps), all
@@ -293,6 +302,10 @@ FRONT_KERNELS = {
 # runs 104 patch rows, but rows 102 and 103 of the patch are zero and add
 # nothing; csrc/roi_parity.cu sums r < 102)
 PARITY_MACS = 12 * 4 * 3 * 2 * 102 * 128
+# the rate of the parity function's f32 work: the patch is uint8 values,
+# exact in TF32, so two TF32 passes (patch x W_hi, patch x W_lo) carry
+# 3xTF32's accuracy; on the FMAs and the tensor cores together
+PARITY_PEAK = PEAK_F32_FLOPS + PEAK_TF32_FLOPS / 2
 # multiply-adds a frame up to each of K1's debug stops
 STOP_MACS = {"load": 0, "norm": 0, "conv1": 48 * 96 * 8 * 9,
              "conv2": 48 * 96 * 8 * 9 + 24 * 48 * 16 * 8 * 9,
@@ -1966,21 +1979,16 @@ def parity_inputs(N: int, kind: str, rng, dev):
     return roi, pc.split_classes(roi), [t.to(dev) for t in w]
 
 
-def check_cnn_front(dev) -> dict:
-    """The CNN-front prototypes' kernels against their plain versions (TF32
-    off): the parity kernel in both layouts at N in (16, FRONT_N) with
-    packed and random weights, all-0 and all-255 frames among them; its
-    ablation's ``full`` bitwise the kernel; each probe stage's per-block
-    value; K1's debug stops, live and standardized. Returns each kernel's
-    largest errors ({name: {key: value}}); raises on a failure."""
+def check_parity(dev, rng, errs: dict) -> None:
+    """The parity kernel against its plain version (TF32 off) in both
+    layouts at N in (16, FRONT_N) with packed and random weights, all-0
+    and all-255 frames among them (the bars of the JAX scripts: BAR_PARITY,
+    BAR_PARITY_REL of max|ref|), packed also against the plain conv1 +
+    pool1; a second launch bitwise the first, the ablation's ``full``
+    bitwise the kernel, and every stop of the ablation run once. Notes the
+    largest errors in ``errs``; raises on a failure."""
     from silent_speech_tpu_torch.infer.predictor import full_f32
-    from silent_speech_tpu_torch.models.bigru import init_roi_cnn
-    from silent_speech_tpu_torch.ops import cuda_cnn
-    from silent_speech_tpu_torch.ops import cuda_front_probe as fp
     from silent_speech_tpu_torch.ops import cuda_parity_cnn as pc
-
-    rng = np.random.default_rng(SEED + 9)
-    errs = {name: {"max_abs_err": 0.0} for name in FRONT_KERNELS}
 
     def close(name, label, got, ref, kind):
         if kind == "packed":
@@ -1998,6 +2006,7 @@ def check_cnn_front(dev) -> dict:
             roi, xs, w = parity_inputs(N, kind, rng, dev)
             flat = [x.reshape(-1, 96) for x in xs]
             halves = pc.conv1pool1_parity(*xs, *w, impl="kernel")
+            again = pc.conv1pool1_parity(*xs, *w, impl="kernel")
             one = pc.conv1pool1(*flat, *w, impl="kernel")
             full = pc.run(*flat, *w, mode="full", impl="kernel")
             torch.cuda.synchronize()
@@ -2008,9 +2017,12 @@ def check_cnn_front(dev) -> dict:
                 close("conv1pool1_parity", f"{label} m-{half}", g, r, kind)
             close("conv1pool1", label, one,
                   pc.pooled1_from_quadrants(ref, N), kind)
+            if not all(torch.equal(a, b) for a, b in zip(again, halves)):
+                fail(f"conv1pool1_parity: two launches differ ({label})")
             if not all(torch.equal(a, b) for a, b in zip(full, halves)):
                 fail(f"parity_ablate full differs from the kernel ({label})")
-            print(f"  parity_ablate full {label}: bitwise the kernel")
+            print(f"  conv1pool1_parity {label}: two launches bitwise equal;"
+                  " parity_ablate full bitwise the kernel")
             if kind == "packed":  # and the plain conv1 + pool1 itself
                 k = torch.stack([torch.stack([w[0][dy * 34 + dx, :8]
                                               for dx in range(3)])
@@ -2019,6 +2031,64 @@ def check_cnn_front(dev) -> dict:
                     conv = pc.ref_conv1pool1(roi, k, w[2][0, :8])
                 check_close(f"conv1pool1 {label} vs plain conv1+pool1", one,
                             conv, BAR_PARITY)
+            if N == FRONT_N and kind == "random":
+                parity_controls(pc, xs, w, halves, ref, errs)
+                for mode in pc.ABLATION_MODES:
+                    out = pc.run(*flat, *w, mode=mode, impl="kernel")
+                    torch.cuda.synchronize()
+                    if [tuple(o.shape) for o in out] != [(N * 12, 384)] * 2:
+                        fail(f"parity_ablate {mode}: shapes "
+                             f"{[tuple(o.shape) for o in out]}")
+                print(f"  parity_ablate: every stop ran at N={N} "
+                      f"({', '.join(pc.ABLATION_MODES)})")
+
+
+def parity_controls(pc, xs, w, halves, ref, errs: dict) -> None:
+    """Random weights: the kernel's, the plain version's and its two
+    controls' (one tensor-core sum over all K; W_hi's pass alone) largest
+    difference from the float64 version, as shares of max|ref64|, and the
+    controls' from the plain one; the one-pass control must miss
+    BAR_PARITY_REL, or the bar could not tell it from the kernel."""
+    patch = pc.parity_patches(xs).double()
+    ref64 = pc.pool_halves(patch @ w[0].double(), patch @ w[1].double(),
+                           w[2].double())
+    del patch
+    scale = max(r.abs().max().item() for r in ref64)
+
+    def off(outs, want):
+        return max((a.double() - b.double()).abs().max().item()
+                   for a, b in zip(outs, want)) / scale
+
+    e = errs["conv1pool1_parity"]
+    e["rel_err64"], e["plain_rel_err64"] = off(halves, ref64), off(ref, ref64)
+    for which in ("one_sum", "one_pass"):
+        got = pc.control(*xs, *w, which)
+        e[f"{which}_rel_err"] = off(got, ref)
+        e[f"{which}_rel_err64"] = off(got, ref64)
+    print(f"  conv1pool1_parity N={FRONT_N} random weights, max|err| / "
+          f"max|ref|: kernel {e['rel_err64']:.3e} off float64 (the plain f32 "
+          f"version {e['plain_rel_err64']:.3e}); one tensor-core sum over K "
+          f"{e['one_sum_rel_err']:.3e} off plain, {e['one_sum_rel_err64']:.3e}"
+          f" off float64; W_hi's pass alone {e['one_pass_rel_err']:.3e} off "
+          f"plain (bar {BAR_PARITY_REL:g})")
+    if not e["one_pass_rel_err"] > BAR_PARITY_REL:
+        fail("conv1pool1_parity: W_hi's pass alone passes the random-weight "
+             "bar, which then cannot tell it from the two passes")
+
+
+def check_cnn_front(dev) -> dict:
+    """The CNN-front prototypes' kernels against their plain versions (TF32
+    off): the parity kernel (:func:`check_parity`); each probe stage's
+    per-block value; K1's debug stops, live and standardized. Returns each
+    kernel's largest errors ({name: {key: value}}); raises on a failure."""
+    from silent_speech_tpu_torch.infer.predictor import full_f32
+    from silent_speech_tpu_torch.models.bigru import init_roi_cnn
+    from silent_speech_tpu_torch.ops import cuda_cnn
+    from silent_speech_tpu_torch.ops import cuda_front_probe as fp
+
+    rng = np.random.default_rng(SEED + 9)
+    errs = {name: {"max_abs_err": 0.0} for name in FRONT_KERNELS}
+    check_parity(dev, rng, errs)
 
     roi_np = rng.integers(0, 256, (FRONT_N, 48, 96), dtype=np.uint8)
     roi_np[0], roi_np[1] = 0, 255
@@ -2073,6 +2143,79 @@ def check_cnn_front(dev) -> dict:
     return errs
 
 
+def time_parity(dev, card: str, rng, out: dict) -> torch.Tensor:
+    """The parity kernel at N=FRONT_N, packed weights, on the held-stream
+    timer: each of its three wrappers, the ablation's stops, the plain
+    version (TF32 off) and the plain conv1 + ReLU + pool1; the bound at
+    :data:`PARITY_PEAK` (a row over 100% of it fails), and beside it the
+    bounds at 3xTF32's rate with the FMAs and at the FMA rate alone.
+    Fills ``out``'s three parity rows; returns the frames."""
+    from silent_speech_tpu_torch.infer.predictor import full_f32
+    from silent_speech_tpu_torch.ops import cuda_parity_cnn as pc
+    from silent_speech_tpu_torch.scripts import proto_parity_cnn as harness
+
+    N = FRONT_N
+    hold = harness.Args(N, dev, 20)
+
+    def timed(fn, by: str) -> float:
+        return harness.device_ms(fn, hold, cold=by == "bytes")
+
+    roi, xs, w = parity_inputs(N, "packed", rng, dev)
+    flat = [x.reshape(-1, 96) for x in xs]
+    in_bytes, out_bytes = N * 48 * 96, 4 * N * 12 * 768
+    w_bytes = 4 * (2 * 104 * 128 + 384)
+    nbytes = in_bytes + out_bytes + w_bytes
+    p_bound = bound_ms(2 * N * PARITY_MACS, nbytes, PARITY_PEAK)
+    p_bound_3x = tc_bound(2 * N * PARITY_MACS, nbytes)[0]
+    p_bound_fma = bound_ms(2 * N * PARITY_MACS, nbytes)[0]
+    p_bound_taps = bound_ms(2 * N * 48 * 96 * 8 * 9, nbytes, PARITY_PEAK)[0]
+    with full_f32():
+        plain_ms = timed(lambda: pc.parity_halves_plain(xs, *w), p_bound[1])
+        k = torch.randn(3, 3, 1, 8, device=dev)
+        conv_ms = timed(lambda: pc.ref_conv1pool1(roi, k, w[2][0, :8]),
+                        p_bound[1])
+    cases = {
+        "conv1pool1_parity": lambda: pc.conv1pool1_parity(*xs, *w,
+                                                          impl="kernel"),
+        "conv1pool1": lambda: pc.conv1pool1(*flat, *w, impl="kernel"),
+        "parity_ablate": lambda: pc.run(*flat, *w, mode="full",
+                                        impl="kernel"),
+    }
+    for name, fn in cases.items():
+        r = out[name]
+        r["ms"] = timed(fn, p_bound[1])
+        r["plain_ms"], r["plain_conv_ms"] = plain_ms, conv_ms
+        r["bound_ms"], r["bound_by"] = p_bound
+        r["bound_ms_3xtf32"] = p_bound_3x
+        r["bound_ms_f32_fma"] = p_bound_fma
+        r["bound_ms_9_taps"] = p_bound_taps
+        r["share_of_bound"] = check_bound(f"{name} N={N}", r["ms"],
+                                          p_bound[0])
+        r["library_ms"] = None
+        print(f"  {name} N={N}: kernel {r['ms']:.4f} ms, plain (through WE, "
+              f"WO) {plain_ms:.4f} ms, plain conv1+ReLU+pool1 (cuDNN, three "
+              f"calls) {conv_ms:.4f} ms, bound {p_bound[0]:.4f} ms "
+              f"({p_bound[1]}, FMAs and two TF32 passes together; at "
+              f"3xTF32's rate {p_bound_3x:.4f}, at the FMA rate "
+              f"{p_bound_fma:.4f}; the 9 useful taps alone "
+              f"{p_bound_taps:.4f}), {r['share_of_bound']:.1%} of it; no "
+              f"single PyTorch call computes it {card}")
+    r = out["parity_ablate"]
+    io_bound = bound_ms(0, in_bytes + out_bytes)
+    r["bound_ms_io_only"] = io_bound[0]
+    for mode in ("io_only", "widen_only", "halo_only", "no_dot"):
+        fn = lambda: pc.run(*flat, *w, mode=mode, impl="kernel")
+        r[f"ms_{mode}"] = timed(fn, p_bound[1])
+        print(f"  parity_ablate {mode}: {r[f'ms_{mode}']:.4f} ms {card}")
+    r = out["conv1pool1_parity"]
+    for which in pc.CONTROLS:
+        r[f"ms_{which}"] = timed(lambda: pc.control(*xs, *w, which),
+                                 p_bound[1])
+        print(f"  conv1pool1_parity control {which}: {r[f'ms_{which}']:.4f} "
+              f"ms {card}")
+    return roi
+
+
 def time_cnn_front(dev, card: str) -> dict:
     """Each CNN-front kernel, its plain version and its bound at N=FRONT_N
     (TF32 off for the plain versions), the ablation's stops, the probe's
@@ -2098,44 +2241,8 @@ def time_cnn_front(dev, card: str) -> dict:
 
     rng = np.random.default_rng(SEED + 10)
     out = {name: {} for name in FRONT_KERNELS}
-    roi, xs, w = parity_inputs(N, "packed", rng, dev)
-    flat = [x.reshape(-1, 96) for x in xs]
-    in_bytes, out_bytes = N * 48 * 96, 4 * N * 12 * 768
-    w_bytes = 4 * (2 * 104 * 128 + 384)
-    p_bound = bound_ms(2 * N * PARITY_MACS, in_bytes + out_bytes + w_bytes)
-    p_bound_taps = bound_ms(2 * N * 48 * 96 * 8 * 9,
-                            in_bytes + out_bytes + w_bytes)[0]
-    with full_f32():
-        plain_ms = timed(lambda: pc.parity_halves_plain(xs, *w), p_bound[1])
-        k = torch.randn(3, 3, 1, 8, device=dev)
-        conv_ms = timed(lambda: pc.ref_conv1pool1(roi, k, w[2][0, :8]),
-                        p_bound[1])
-    cases = {
-        "conv1pool1_parity": lambda: pc.conv1pool1_parity(*xs, *w,
-                                                          impl="kernel"),
-        "conv1pool1": lambda: pc.conv1pool1(*flat, *w, impl="kernel"),
-        "parity_ablate": lambda: pc.run(*flat, *w, mode="full",
-                                        impl="kernel"),
-    }
-    for name, fn in cases.items():
-        r = out[name]
-        r["ms"] = timed(fn, p_bound[1])
-        r["plain_ms"], r["plain_conv_ms"] = plain_ms, conv_ms
-        r["bound_ms"], r["bound_by"] = p_bound
-        r["bound_ms_9_taps"] = p_bound_taps
-        r["library_ms"] = None
-        print(f"  {name} N={N}: kernel {r['ms']:.4f} ms, plain (through WE, "
-              f"WO) {plain_ms:.4f} ms, plain conv1+ReLU+pool1 (cuDNN, three "
-              f"calls) {conv_ms:.4f} ms, bound {p_bound[0]:.4f} ms "
-              f"({p_bound[1]}; the 9 useful taps alone {p_bound_taps:.4f}); "
-              f"no single PyTorch call computes it {card}")
-    r = out["parity_ablate"]
-    io_bound = bound_ms(0, in_bytes + out_bytes)
-    r["bound_ms_io_only"] = io_bound[0]
-    for mode in ("io_only", "widen_only", "halo_only", "no_dot"):
-        fn = lambda: pc.run(*flat, *w, mode=mode, impl="kernel")
-        r[f"ms_{mode}"] = timed(fn, p_bound[1])
-        print(f"  parity_ablate {mode}: {r[f'ms_{mode}']:.4f} ms {card}")
+    roi = time_parity(dev, card, rng, out)
+    in_bytes = N * 48 * 96
 
     cnn = {k_: {n: t.to(dev) for n, t in v.items()}
            for k_, v in proto_parity_e2e.tiny_roi_cnn().items()}
@@ -2259,19 +2366,11 @@ def check_rate_probes(dev) -> dict:
     product (ops/cuda_dot_chain.check_rounding, with two controls that must
     fail it: the chain held in f32 and in f16 between products), and the
     timed instantiation's output bitwise the check instantiation's; LP's
-    nine bodies at 512 steps and 2,
-    bitwise but the product (scripts/mosaic_micro.check_body), the
-    unaligned body on its written lanes with zeros in the rest; the product
-    body's copied lanes bitwise, its product within 4 sqrt(512) 2^-24 of
-    each sum of |terms| and within the float64 bar of
-    ops/cuda_layout_micro.compare_product, which one TF32 pass
-    (cuda_layout_micro.one_pass, the control) must fail. Returns {kernel:
-    {key: value}}; raises on a failure."""
+    nine bodies (:func:`check_lp`). Returns {kernel: {key: value}}; raises
+    on a failure."""
     from silent_speech_tpu_torch.infer.predictor import full_f32
     from silent_speech_tpu_torch.ops import cuda_dot_chain as dc
-    from silent_speech_tpu_torch.ops import cuda_layout_micro as lm
     from silent_speech_tpu_torch.ops import cuda_mm_rate as mr
-    from silent_speech_tpu_torch.scripts import mosaic_micro
 
     errs = {name: {"max_abs_err": 0.0, "max_share_of_bar": 0.0}
             for name in RATE_KERNELS}
@@ -2337,31 +2436,109 @@ def check_rate_probes(dev) -> dict:
                         if not bad:
                             fail(f"dot_chain bf16: the control held in {keep}"
                                  " passed the rounding check")
-        for steps in (lm.STEPS, 2):
-            x = torch.from_numpy(rng.standard_normal((steps * lm.R, lm.L))
-                                 .astype(np.float32)).to(dev)
-            for body in lm.BODIES:
-                err = mosaic_micro.check_body(body, x)
-                note("layout_micro", f"{body} steps={steps}",
-                     {"max_abs_err": err, "share_of_bar": 0.0})
-            r = lm.compare_product(lm.layout(lm.MATMUL, x), x)
-            control = lm.measure_product(lm.one_pass(x), x)
-            e = errs["layout_micro"]
-            for key, v in (("product_share_of_bar", r["share_of_bar"]),
-                           ("product_share_of_bar64", r["share_of_bar64"]),
-                           ("product_max_abs_err64", r["max_abs_err64"])):
-                e[key] = max(e.get(key, 0.0), v)
-            print(f"  layout_micro {lm.MATMUL} steps={steps}: product "
-                  f"{r['share_of_bar']:.3f} of the f32 bar, "
-                  f"{r['share_of_bar64']:.3f} of the float64 bar (max "
-                  f"difference {r['max_abs_err64']:.3e}); lanes "
-                  f"{lm.MM_N}..{lm.L - 1} bitwise; one TF32 pass "
-                  f"{control['share_of_bar64']:.3f} of the float64 bar")
-            if not control["share_of_bar64"] > 1.0:
-                fail(f"layout_micro {lm.MATMUL}: one TF32 pass passes the "
-                     "float64 bar, which then cannot tell it from 3xTF32")
-            del x
+        check_lp(dev, rng, errs["layout_micro"])
     return errs
+
+
+def partial_sweep_steps(lm) -> int:
+    """The fewest steps (at least 3) at which every moving LP body's
+    launch leaves a partial last sweep of its persistent blocks
+    (more units than blocks, not a multiple of them)."""
+    for steps in range(3, 200):
+        plans = [lm.move_plan(b, steps) for b in lm.MOVING]
+        if all(p.units > p.blocks and p.units % p.blocks for p in plans):
+            return steps
+    fail("layout_micro: no step count below 200 leaves every moving body "
+         "a partial last sweep")
+
+
+def check_lp(dev, rng, e: dict) -> None:
+    """LP's nine bodies at 512 steps, 2, and a step count that leaves the
+    moving bodies' persistent blocks a partial last sweep
+    (:func:`partial_sweep_steps`): bitwise their plain versions but the
+    product (scripts/mosaic_micro.check_body), the unaligned body on its
+    written lanes with zeros in the rest; the product body's copied lanes
+    bitwise, its product within 4 sqrt(512) 2^-24 of each sum of |terms| and
+    within the float64 bar of ops/cuda_layout_micro.compare_product, which one
+    TF32 pass (cuda_layout_micro.one_pass, the control) must fail. Notes
+    the largest errors in ``e``; raises on a failure."""
+    from silent_speech_tpu_torch.ops import cuda_layout_micro as lm
+    from silent_speech_tpu_torch.scripts import mosaic_micro
+
+    partial = partial_sweep_steps(lm)
+    for body in lm.MOVING:
+        pl = lm.move_plan(body, partial)
+        big = lm.move_plan(body, lm.STEPS)
+        print(f"  layout_micro {body} plan: {pl.route}, blocks of "
+              f"{pl.threads}; {big.units} units on {big.blocks} blocks at "
+              f"{lm.STEPS} steps, {pl.units} on {pl.blocks} at {partial}")
+    for steps in (lm.STEPS, 2, partial):
+        x = torch.from_numpy(rng.standard_normal((steps * lm.R, lm.L))
+                             .astype(np.float32)).to(dev)
+        for body in lm.BODIES:
+            err = mosaic_micro.check_body(body, x)
+            e["max_abs_err"] = max(e["max_abs_err"], err)
+            print(f"  layout_micro {body} steps={steps}: max difference "
+                  f"{err:.3e}" + ("" if body == lm.MATMUL else " (bitwise)"))
+        r = lm.compare_product(lm.layout(lm.MATMUL, x), x)
+        control = lm.measure_product(lm.one_pass(x), x)
+        for key, v in (("product_share_of_bar", r["share_of_bar"]),
+                       ("product_share_of_bar64", r["share_of_bar64"]),
+                       ("product_max_abs_err64", r["max_abs_err64"])):
+            e[key] = max(e.get(key, 0.0), v)
+        print(f"  layout_micro {lm.MATMUL} steps={steps}: product "
+              f"{r['share_of_bar']:.3f} of the f32 bar, "
+              f"{r['share_of_bar64']:.3f} of the float64 bar (max "
+              f"difference {r['max_abs_err64']:.3e}); lanes "
+              f"{lm.MM_N}..{lm.L - 1} bitwise; one TF32 pass "
+              f"{control['share_of_bar64']:.3f} of the float64 bar")
+        if not control["share_of_bar64"] > 1.0:
+            fail(f"layout_micro {lm.MATMUL}: one TF32 pass passes the "
+                 "float64 bar, which then cannot tell it from 3xTF32")
+        del x
+
+
+def time_lp_moves(dev, card: str) -> dict:
+    """LP's moving bodies at 512 steps on the held-stream timer, the L2
+    evicted before each call (the bytes bind them), twice, beside the
+    body's library call where there is one (``clone`` for copy and
+    aligned_128lane_x6), in turns: library, kernel, kernel, library.
+    Returns {body: {key: value}}: the kernel's mean and two times, the
+    library's, the bound, the route."""
+    from silent_speech_tpu_torch.ops import cuda_layout_micro as lm
+    from silent_speech_tpu_torch.scripts import proto_parity_cnn as harness
+
+    steps = lm.STEPS
+    hold = harness.Args(steps, dev, 10)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (steps * lm.R, lm.L)).astype(np.float32)).to(dev)
+    out = {}
+    with torch.no_grad():
+        for body in lm.MOVING:
+            b_ms = bound_ms(0, lm.bytes_moved(body, steps))[0]
+            kernel = lambda body=body: lm.layout(body, x)
+            lib = (lambda body=body: lm.library(body, x)) \
+                if lm.library(body, x) is not None else None
+            order = (lib, kernel, kernel, lib) if lib else (kernel, kernel)
+            times = [(fn is lib, harness.device_ms(fn, hold, cold=True))
+                     for fn in order]
+            mine = [t for is_lib, t in times if not is_lib]
+            libs = [t for is_lib, t in times if is_lib]
+            r = {"bound_ms": b_ms, "bound_by": "bytes",
+                 "route": lm.move_plan(body, steps).route,
+                 "ms": statistics.mean(mine), "ms_each": mine,
+                 "library_ms": statistics.mean(libs) if libs else None,
+                 "library_ms_each": libs or None}
+            r["share_of_bound"] = check_bound(f"layout_micro {body}",
+                                              r["ms"], b_ms)
+            out[body] = r
+            print(f"  layout_micro {body} ({r['route']}): " + " / ".join(
+                f"{t:.4f}" for t in mine) + f" ms; bound {b_ms:.4f} ms "
+                f"({r['share_of_bound']:.1%})" + (
+                    "" if lib is None else "; library " + " / ".join(
+                        f"{t:.4f}" for t in libs) + " ms") + f" {card}")
+    del x
+    return out
 
 
 def run_rate_probe_scripts(card: str) -> tuple[dict, dict]:
@@ -3563,6 +3740,8 @@ def main() -> int:
     rate_ms["dot_chain"]["bf16_variants"] = time_dc_variants(dev, card)
     print(f"MR's and DC-f32's parts {card}:")
     rate_ms["mm_rate"]["parts"] = time_mr_dc_f32(dev, card)
+    print(f"LP's moving bodies beside their library calls, cold L2 {card}:")
+    rate_ms["layout_micro"]["moves"] = time_lp_moves(dev, card)
 
     # ---- 11. the backward-dot probes: kernels vs plain, the scripts
     print("backward-dot probes, kernel vs plain (TF32 off):")

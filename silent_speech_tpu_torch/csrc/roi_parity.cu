@@ -27,54 +27,94 @@
 //
 // What bounds it on the H100: arithmetic. For any weights, through the
 // packed matrices' 102 live rows, a frame is 12 x 4 x 3 x 2 x 102 x 128 =
-// 3.76 M multiply-adds against 4,608 bytes in and 36,864 bytes out: 0.92 ms
-// of f32 FMAs at N=8192 against 0.10 ms of bytes. (Only 9 of the 102 rows
-// of a packed column are nonzero; a kernel that used that would compute
-// another function for unpacked weights, which proto_ablate feeds.)
+// 3.76 M multiply-adds against 4,608 bytes in and 36,864 bytes out: 0.27 ms
+// at N=8192 at the f32 FMAs and 3xTF32 together (232 TFLOP/s), against
+// 0.10 ms of bytes. (Only 9 of the 102 rows of a packed column are nonzero;
+// a kernel that used that would compute another function for unpacked
+// weights, which proto_ablate feeds.)
 //
-// The design: a GEMM of the frame's 144 patch rows (k, c, j) by the 256
-// columns [WE | WO] on the CUDA cores, with no patch matrix.
-// - One block of 288 threads a SM walks frames (grid-stride), so WE and WO
-//   (106,496 bytes) are loaded into shared memory once a block, not once a
-//   frame: they do not fit the 64 KB constant bank.
-// - Each frame's image is rebuilt from the four class arrays (one 16-byte
-//   load a thread, prefetched one frame ahead) into shared memory as three
-//   zero-haloed, transposed copies, one per dy: xT[dy][L][h'] =
-//   img[h' + dy - 1][L - 1]. The 8 patch rows of a thread, classes 0..3 of
-//   two consecutive k, are the 8 consecutive h' = 8 kp .. 8 kp + 7 of one
-//   copy: two 16-byte loads a patch lane.
-// - A thread owns 2 k x 4 classes x 4 columns, each through WE and WO: 64
-//   accumulators, 64 FMAs for every 4 shared-memory loads (2 patch, 2
-//   weight); its warp covers two (kp, j) row groups and 16 column groups,
-//   so the patch loads broadcast and the weight loads are conflict-free. The
-//   pool over the w pair (WE against WO), over the class pair and the bias
-//   and ReLU are applied in registers, and each output is written once, 16
-//   bytes at a time.
+// The design: a GEMM of each frame's 144 patch rows (k, c, j) by the 256
+// columns [WE | WO] on the tensor cores, wgmma m64n128k8 TF32, with no
+// patch matrix.
+// - Two passes, not 3xTF32's three. The patch holds the frame's uint8
+//   values widened without scaling; each is exact in TF32, so its split
+//   has no lo part. W = hi + lo, each rounded as mma_tf32.cuh's split, and
+//   a k8 step is patch x W_lo, then patch x W_hi (3xTF32's order, the zero
+//   term left out).
+// - W's planes. The hi and lo planes of all 256 columns, K = 104 padded to
+//   four chunks of 32 in wgmma's 128-byte swizzle, take 256 KB: more than a
+//   block has. So a block owns one column half (blockIdx.x & 1): columns
+//   [64 h, 64 h + 64) of WE, then the same of WO, as B's 128 rows (128 KB
+//   of planes, made once a block from WE and WO, rows 102.. zero). Each
+//   frame is read by the two blocks of a pair, the second time from L2.
+// - The patch is wgmma's A, in registers (implicit im2col). A warp's 16
+//   rows are 8 (k, m-parity) pairs of one tile j: class ca in row g, class
+//   cb in row g + 8. Its fragment values are loaded from the frame's
+//   zero-haloed uint8 image in shared memory and widened there (one OR and
+//   one FADD). A warpgroup's four warps are any four such slices.
+// - The pool in registers. A thread's accumulators i and i + 32 are WE's
+//   and WO's column c, and its rows g and g + 8 the class pair: the max,
+//   the bias and the ReLU need no exchange, and each output is written
+//   once, 8 bytes a thread and 32 a sector.
+// - The sums. Each 32-deep chunk's wgmmas start from zero and the chunk's
+//   sum is added into the tile's in f32 (the tensor cores truncate their
+//   accumulation: TT's and NT's order). An output's order is fixed, so
+//   repeated launches are bitwise equal. The zero k8 steps past K are left
+//   out (3 of the last chunk's 4).
+// - Persistent blocks, one an SM, of three warpgroups, walk groups of 8
+//   frames (72 slices of 16 rows: 18 tiles of 64, 6 a warpgroup). A
+//   group's bytes come by 4-byte cp.async into a double-buffered image
+//   ring (rows of 104 bytes, the data at byte 4, so that the A loads are
+//   conflict-free), the next group's while this one's wgmmas run.
+// - A warpgroup waits for each chunk's wgmmas before it adds their sum
+//   (a second set of sums does not fit its registers: 168 a thread, a few
+//   spilled), so the tensor cores are kept busy by the other warpgroups:
+//   each starts a group's tiles once the one before has issued its first
+//   chunk (named barriers 1 and 2), and they stay a chunk apart, each
+//   adding and storing while the others' wgmmas run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
+#include "wgmma.cuh"
+
 namespace {
 
+namespace parity {
+
 constexpr int HQ = 12, W0 = 96, H0 = 48;
-constexpr int KP = 104;                // packed patch rows: 3 x 34 + 2 zero
+constexpr int KLIVE = 102;             // live patch rows: 3 x 34
 constexpr int NCOL = 128;              // columns of WE and of WO
 constexpr int HALF = 384;              // output lanes of one m-parity half
-constexpr int THREADS = 288;           // 9 warps: 4,608 bytes = 16 a thread
-constexpr int FRAME_BYTES = H0 * W0;
-constexpr int CLASS_BYTES = HQ * W0;   // one class array's bytes a frame
-constexpr int XT_L = W0 + 2;           // haloed lanes L = w + 1
-constexpr int XT_S = H0 + 4;           // row stride: 48 h', 16-byte aligned
-constexpr int XT_SIZE = XT_L * XT_S;
-constexpr size_t SMEM_BYTES = (size_t)(2 * KP * NCOL + 3 * XT_SIZE) * 4;
-static_assert(THREADS * 16 == FRAME_BYTES, "one 16-byte load a thread");
-static_assert(CLASS_BYTES % 16 == 0, "class rows of a frame 16-byte aligned");
-static_assert((XT_S * 4) % 16 == 0 && (XT_SIZE * 4) % 16 == 0, "float4 rows");
+constexpr int BN = 128;                // B's rows: 64 of WE, then 64 of WO
+constexpr int CHUNKS = 4, ROW = 128;   // 32 k a chunk: a 128-byte row
+constexpr int B_PLANE = BN * ROW;      // one chunk's hi (or lo) plane
+constexpr int PLANES = CHUNKS * 2 * B_PLANE;
+constexpr int IMG_S = 104;             // image row: 4 halo, 96, 4 halo bytes
+constexpr int IMG_ROWS = H0 + 2;       // zero rows above and below
+constexpr int IMG_BYTES = IMG_ROWS * IMG_S;
+constexpr int GROUP = 8;               // frames a group
+constexpr int SLICES = 9;              // 16-row slices a frame
+constexpr int TILES = GROUP * SLICES / 4;  // 64-row tiles a group
+constexpr int BUF = GROUP * IMG_BYTES;
+constexpr int ALIGN = 1024;            // the 128-byte swizzle's period
+constexpr int SMEM_BYTES = ALIGN + PLANES + HALF * 4 + 2 * BUF;
+constexpr int WORDS = GROUP * H0 * (W0 / 4);  // a group's 4-byte copies
+constexpr int WGS = 3, THREADS = WGS * 128;  // warpgroups a block
+static_assert(TILES * 4 == GROUP * SLICES && TILES % WGS == 0,
+              "whole tiles, as many for each warpgroup");
+static_assert(IMG_S % 4 == 0 && BUF % 16 == 0 && PLANES % ALIGN == 0,
+              "aligned copies and planes");
+static_assert(SMEM_BYTES <= 232448, "a block's shared memory");
 
 enum Layout { LAYOUT_SPLIT = 0, LAYOUT_ONE = 1 };
 // proto_ablate's stages, in ladder order (see ops/cuda_parity_cnn.py)
 enum Stop { STOP_IO = 0, STOP_WIDEN = 1, STOP_HALO = 2, STOP_NO_DOT = 3,
-            STOP_FULL = 4 };
+            STOP_FULL = 4,
+            // two controls of the products (ops/cuda_parity_cnn.CONTROLS):
+            // one wgmma sum over all chunks; W_hi's pass alone
+            STOP_ONE_SUM = 5, STOP_ONE_PASS = 6 };
 
 struct Args {
   const uint8_t* x[4];  // class arrays (N*12, 96) uint8
@@ -86,216 +126,250 @@ struct Args {
   int n;
 };
 
-// this thread's 16 bytes of frame n, from src = its class array + its
-// offset in a frame's 12 rows
-__device__ __forceinline__ uint4 load_frame(const uint8_t* src, int n) {
-  return *reinterpret_cast<const uint4*>(src + (size_t)n * CLASS_BYTES);
+// a uint8 in the low byte of b, as the f32 of its value (exact)
+__device__ __forceinline__ uint32_t widen(uint32_t b) {
+  return __float_as_uint(__uint_as_float(0x4b000000u | b) - 8388608.f);
 }
 
-__device__ __forceinline__ void widen(const uint4 q, float v[16]) {
-  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-  for (int i = 0; i < 16; ++i) v[i] = (float)((w[i >> 2] >> (8 * (i & 3))) & 0xffu);
+// the byte offset of patch lane r from (row h, column 32 j - 1) of the
+// haloed image: r = dy * 34 + l lies at row h + dy, column 32 j + l - 1
+__device__ __forceinline__ int lane_offset(int r) {
+  const int dy = (r >= 34) + (r >= 68);
+  return r + dy * (IMG_S - 34);
 }
 
-// Write 4 pooled columns of output row k, half `half`, at lane `lane`.
-template <int LAYOUT>
-__device__ __forceinline__ void store4(const Args& a, int n, int k, int half,
-                                       int lane, float4 v) {
-  const size_t row = (size_t)n * HQ + k;
-  float* p = LAYOUT == LAYOUT_ONE ? a.out0 + row * (2 * HALF) + half * HALF
-                                  : (half ? a.out1 : a.out0) + row * HALF;
-  *reinterpret_cast<float4*>(p + lane) = v;
+// this warp's A fragments for the k8 steps of chunk c (wgmma's A: rows g
+// and g + 8, k t and t + 4), widened, from the image bytes at `row` (row g's
+// origin); patch lanes 102 and 103 are zeros
+__device__ __forceinline__ void load_chunk(uint32_t (&a)[4][4],
+                                           const uint8_t* row, int c, int t) {
+#pragma unroll
+  for (int k8 = 0; k8 < 4; ++k8) {
+    const int s = 4 * c + k8;
+    if (s * 8 >= KLIVE) break;
+    const int o0 = lane_offset(8 * s + t), o1 = lane_offset(8 * s + t + 4);
+    a[k8][0] = widen(row[o0]);
+    a[k8][1] = widen(row[o0 + IMG_S]);
+    const bool live = 8 * s + t + 4 < KLIVE;
+    a[k8][2] = live ? widen(row[o1]) : 0u;
+    a[k8][3] = live ? widen(row[o1 + IMG_S]) : 0u;
+  }
 }
 
-// A stop's output: s in every output this thread writes (2 column passes
-// x 2 k x 2 halves, 4 columns each).
-template <int LAYOUT>
-__device__ __forceinline__ void store_all(const Args& a, int n, int j, int kp,
-                                          int lane, float s) {
-  const float4 v = make_float4(s, s, s, s);
+// chunk c's wgmmas into acc, from zero where `first`: for each live k8,
+// patch x W_lo (LO) then patch x W_hi (planes of chunk c at shared
+// address `planes`)
+template <bool LO>
+__device__ __forceinline__ void mma_chunk(float (&acc)[BN / 2],
+                                          const uint32_t (&a)[4][4],
+                                          uint32_t planes, int c, bool first) {
+  const uint32_t hi = planes + c * 2 * B_PLANE;
 #pragma unroll
-  for (int p = 0; p < 2; ++p)
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-        store4<LAYOUT>(a, n, 2 * kp + kk, half,
-                       128 * j + 4 * ((lane & 15) + 16 * p), v);
-}
-
-// Build the frame's three transposed, zero-haloed image copies from this
-// thread's 16 widened pixels (row h_in, columns w_in .. w_in + 15).
-__device__ __forceinline__ void build_image(float* xt, const float v[16],
-                                            int h_in, int w_in) {
-  __syncthreads();  // the last frame's reads of xt are done (and setup)
-#pragma unroll
-  for (int dy = 0; dy < 3; ++dy) {
-    const int hp = h_in - dy + 1;
-    if (hp >= 0 && hp < H0) {
-      float* dst = xt + dy * XT_SIZE + (w_in + 1) * XT_S + hp;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) dst[i * XT_S] = v[i];
+  for (int k8 = 0; k8 < 4; ++k8) {
+    if ((4 * c + k8) * 8 >= KLIVE) break;
+    const int scale = !first || k8 > 0;
+    if constexpr (LO) {
+      wgmma_tf32<BN>(acc, a[k8], wgmma_desc(hi + B_PLANE + 32 * k8), scale);
+      wgmma_tf32<BN>(acc, a[k8], wgmma_desc(hi + 32 * k8), 1);
+    } else {
+      wgmma_tf32<BN>(acc, a[k8], wgmma_desc(hi + 32 * k8), scale);
     }
   }
-  __syncthreads();
 }
 
-// The products of this thread's 8 patch rows (h' = 8 kp .. 8 kp + 7 of
-// tile j) with its 4 columns of WE and WO, pooled, + bias, ReLU, stored;
-// STOP_NO_DOT puts image values in place of the products.
-template <int LAYOUT, int STOP>
-__device__ __forceinline__ void pool_products(const Args& a, int n,
-                                              const float* xt, const float* we,
-                                              const float* wo, int j, int kp,
-                                              int lane) {
-#pragma unroll 1
-  for (int p = 0; p < 2; ++p) {
-    const int cg = (lane & 15) + 16 * p;  // columns 4 cg .. 4 cg + 3
-    float ae[8][4], ao[8][4];
-    if constexpr (STOP == STOP_NO_DOT) {
+// Write this thread's 16 pooled outputs: column pair 64 h + 8 q + 2 t (+1),
+// q < 8, of tile j, output row k of frame nf, m-parity `half`; the pool
+// over WE / WO (s[i], s[i + 32]) and rows g / g + 8 (s[i], s[i + 2]),
+// + bias, ReLU
+template <int LAYOUT>
+__device__ __forceinline__ void store_pooled(const Args& a,
+                                             const float (&s)[BN / 2],
+                                             const float* bias_s, int nf,
+                                             int k, int half, int j, int h,
+                                             int t) {
+  const size_t row = (size_t)nf * HQ + k;
+  float* o = LAYOUT == LAYOUT_ONE ? a.out0 + row * (2 * HALF) + half * HALF
+                                  : (half ? a.out1 : a.out0) + row * HALF;
+  const int col = 128 * j + 64 * h + 2 * t;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float4* xr = reinterpret_cast<const float4*>(
-            xt + (32 * j + c) * XT_S + 8 * kp);
-        const float4 lo = xr[0], hi = xr[1];
-        const float r[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+  for (int q = 0; q < 8; ++q) {
+    float v[2];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) ae[i][c] = ao[i][c] = r[i];
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) ae[i][c] = ao[i][c] = 0.f;
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        const float* xrow = xt + dy * XT_SIZE + (32 * j) * XT_S + 8 * kp;
-        const float* wer = we + (dy * 34) * NCOL + 4 * cg;
-        const float* wor = wo + (dy * 34) * NCOL + 4 * cg;
-#pragma unroll 2
-        for (int l = 0; l < 34; ++l) {
-          const float4 lo = *reinterpret_cast<const float4*>(xrow + l * XT_S);
-          const float4 hi = *reinterpret_cast<const float4*>(xrow + l * XT_S + 4);
-          const float4 e = *reinterpret_cast<const float4*>(wer + l * NCOL);
-          const float4 o = *reinterpret_cast<const float4*>(wor + l * NCOL);
-          const float r[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-          const float ev[4] = {e.x, e.y, e.z, e.w};
-          const float ov[4] = {o.x, o.y, o.z, o.w};
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              ae[i][c] = fmaf(r[i], ev[c], ae[i][c]);
-              ao[i][c] = fmaf(r[i], ov[c], ao[i][c]);
-            }
-        }
-      }
+    for (int e = 0; e < 2; ++e) {
+      const int i = 4 * q + e;
+      const float m = fmaxf(fmaxf(s[i], s[i + 32]), fmaxf(s[i + 2], s[i + 34]));
+      v[e] = fmaxf(m + bias_s[col + 8 * q + e], 0.f);
     }
-    // pool over the w pair, then the class pair; + bias; ReLU
-    const float4 b4 =
-        *reinterpret_cast<const float4*>(a.bias + 128 * j + 4 * cg);
-    const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int ia = 4 * kk + 2 * half, ib = ia + 1;  // classes ca, cb
-        float o[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float m = fmaxf(fmaxf(ae[ia][c], ao[ia][c]),
-                                fmaxf(ae[ib][c], ao[ib][c]));
-          o[c] = fmaxf(m + bv[c], 0.f);
-        }
-        store4<LAYOUT>(a, n, 2 * kp + kk, half, 128 * j + 4 * cg,
-                       make_float4(o[0], o[1], o[2], o[3]));
-      }
+    *reinterpret_cast<float2*>(o + col + 8 * q) = make_float2(v[0], v[1]);
   }
 }
 
 template <int LAYOUT, int STOP>
 __global__ void __launch_bounds__(THREADS, 1)
 parity_kernel(const Args a) {
-  extern __shared__ float4 smem4[];
-  float* we = reinterpret_cast<float*>(smem4);   // [104][128]
-  float* wo = we + KP * NCOL;                    // [104][128]
-  float* xt = wo + KP * NCOL;                    // [3][98][52]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // each warpgroup starts a group's tiles once the one before has issued
+  // its first chunk of wgmmas; the stops without products run free
+  constexpr bool STAGGER = STOP >= STOP_FULL;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((ALIGN - (smem_u32(smem_raw) & (ALIGN - 1))) &
+                              (ALIGN - 1));
+  uint8_t* planes = base;  // [chunk][hi, lo][128 rows][128 bytes]
+  float* bias_s = reinterpret_cast<float*>(base + PLANES);
+  uint8_t* ring = base + PLANES + HALF * 4;  // two image buffers
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wg = tid >> 7, wl = (tid >> 5) & 3, g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x & 1, pairs = gridDim.x >> 1;
+  const int groups = (a.n + GROUP - 1) / GROUP;
 
-  // this thread's tile: row group rc = (j, kp), 4 columns a pass
-  const int rc = 2 * warp + (lane >> 4);         // 0..17
-  const int j = rc / 6, kp = rc % 6;
-  // this thread's load: class ci, bytes [off, off + 16) of the class's
-  // rows of a frame; where they land in the image
-  const int ci = tid / (CLASS_BYTES / 16);
-  const int off = (tid % (CLASS_BYTES / 16)) * 16;
-  const int h_in = 4 * (off / W0) + ci, w_in = off % W0;
-  const uint8_t* src = (ci == 0 ? a.x[0] : ci == 1 ? a.x[1]
-                        : ci == 2 ? a.x[2] : a.x[3]) + off;
-
-  if constexpr (STOP >= STOP_HALO) {
-    for (int i = tid; i < KP * NCOL / 4; i += THREADS) {
-      smem4[i] = reinterpret_cast<const float4*>(a.we)[i];
-      smem4[KP * NCOL / 4 + i] = reinterpret_cast<const float4*>(a.wo)[i];
+  // the halos are never written by a copy: zero both buffers once
+  for (int i = tid; i < 2 * BUF / 16; i += THREADS)
+    reinterpret_cast<uint4*>(ring)[i] = make_uint4(0, 0, 0, 0);
+  for (int i = tid; i < HALF; i += THREADS) bias_s[i] = a.bias[i];
+  if constexpr (STOP >= STOP_HALO) {  // W's planes of this column half
+    for (int e = tid; e < CHUNKS * 32 * BN; e += THREADS) {
+      const int k = e / BN, n = e % BN, col = 64 * h + (n & 63);
+      const float w = k < KLIVE ? (n < 64 ? a.we : a.wo)[k * NCOL + col] : 0.f;
+      uint32_t hi, lo;
+      split(w, hi, lo);
+      const int at = (k >> 5) * 2 * B_PLANE + n * ROW +
+                     ((((k & 31) >> 2) ^ (n & 7)) << 4) + (k & 3) * 4;
+      *reinterpret_cast<uint32_t*>(planes + at) = hi;
+      *reinterpret_cast<uint32_t*>(planes + at + B_PLANE) = lo;
     }
-    // the halo cells are never written by a frame: zero them once
-    for (int i = tid; i < 3 * XT_SIZE; i += THREADS) xt[i] = 0.f;
   }
 
-  const int stride = gridDim.x;
-  uint4 next = make_uint4(0, 0, 0, 0);
-  if ((int)blockIdx.x < a.n) next = load_frame(src, blockIdx.x);
-  for (int n = blockIdx.x; n < a.n; n += stride) {
-    const uint4 q = next;
-    if (n + stride < a.n) next = load_frame(src, n + stride);
-    if constexpr (STOP == STOP_IO) {  // the bytes in, the outputs out
-      store_all<LAYOUT>(a, n, j, kp, lane,
-                        (float)((q.x ^ q.y ^ q.z ^ q.w) & 0xffu));
-    } else {
-      float v[16];
-      widen(q, v);
-      if constexpr (STOP == STOP_WIDEN) {
-        float s = 0.f;
+  // group gi's bytes into buffer buf: class c's row k of frame f at image
+  // row 4k + c + 1, bytes 4..99
+  auto fetch = [&](int gi, uint8_t* buf) {
+    for (int e = tid; e < WORDS; e += THREADS) {
+      const int f = e / (H0 * W0 / 4), hw = e % (H0 * W0 / 4);
+      const int hh = hw / (W0 / 4), w4 = hw % (W0 / 4);
+      const int nf = gi * GROUP + f, c = hh & 3;
+      if (nf >= a.n) continue;
+      const uint8_t* src = (c == 0 ? a.x[0] : c == 1 ? a.x[1]
+                            : c == 2 ? a.x[2] : a.x[3]) +
+                           ((size_t)nf * HQ + (hh >> 2)) * W0 + 4 * w4;
+      cp_async4_fill(buf + f * IMG_BYTES + (hh + 1) * IMG_S + 4 + 4 * w4,
+                     src, 4);
+    }
+  };
+
+  const uint32_t planes_u32 = smem_u32(planes);
+  int it = 0;
+  __syncthreads();  // the zeros are in before any copy lands
+  if ((int)(blockIdx.x >> 1) < groups) fetch(blockIdx.x >> 1, ring);
+  cp_async_commit();
+  for (int gi = blockIdx.x >> 1; gi < groups; gi += pairs, ++it) {
+    const uint8_t* cur = ring + (it & 1) * BUF;
+    __syncthreads();  // the other buffer's last reads are done (and setup)
+    if (gi + pairs < groups) fetch(gi + pairs, ring + ((it + 1) & 1) * BUF);
+    cp_async_commit();
+    cp_async_wait<1>();  // this group's bytes have landed, for this thread
+    __syncthreads();     // ... for all
+    if (STAGGER && wg > 0)  // a chunk behind warpgroup wg - 1
+      asm volatile("bar.sync %0, 256;\n" ::"r"(wg) : "memory");
+#pragma unroll 1
+    for (int tt = wg; tt < TILES; tt += WGS) {
+      // this warp's slice: frame f of the group, tile j, pairs p0 .. p0 + 7
+      const int sl = 4 * tt + wl, f = sl / SLICES, s = sl % SLICES;
+      const int j = s / 3, p = 8 * (s % 3) + g;  // p = 2 k + m-parity
+      const int nf = gi * GROUP + f;
+      // row g: image row 2p (class 2 * parity of output row k = p / 2)
+      const uint8_t* row = cur + f * IMG_BYTES + 2 * p * IMG_S + 32 * j + 3;
+      float total[BN / 2];
+      if constexpr (STOP == STOP_IO) {
+        const float v = (float)row[4 * t + 1];
 #pragma unroll
-        for (int i = 0; i < 16; ++i) s += v[i];
-        store_all<LAYOUT>(a, n, j, kp, lane, s);
+        for (int i = 0; i < BN / 2; ++i) total[i] = v;
+      } else if constexpr (STOP == STOP_WIDEN || STOP == STOP_HALO) {
+        uint32_t af[4][4];
+        float v = STOP == STOP_HALO
+                      ? *reinterpret_cast<const float*>(planes + 4 * tid)
+                      : 0.f;
+#pragma unroll
+        for (int c = 0; c < CHUNKS; ++c) {
+          load_chunk(af, row, c, t);
+#pragma unroll
+          for (int k8 = 0; k8 < 4; ++k8)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              if ((4 * c + k8) * 8 < KLIVE) v += __uint_as_float(af[k8][r]);
+        }
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) total[i] = v;
       } else {
-        build_image(xt, v, h_in, w_in);
-        if constexpr (STOP == STOP_HALO)
-          store_all<LAYOUT>(a, n, j, kp, lane,
-                            xt[XT_SIZE + (32 * j + 1) * XT_S + 8 * kp]);
-        else
-          pool_products<LAYOUT, STOP>(a, n, xt, we, wo, j, kp, lane);
+        uint32_t a0[4][4], a1[4][4];
+        float acc[BN / 2];
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) total[i] = 0.f;
+        load_chunk(a0, row, 0, t);
+#pragma unroll
+        for (int c = 0; c < CHUNKS; ++c) {
+          uint32_t (&cur_a)[4][4] = (c & 1) ? a1 : a0;
+          uint32_t (&next_a)[4][4] = (c & 1) ? a0 : a1;
+          if constexpr (STOP >= STOP_FULL) {  // full, one_sum, one_pass
+            fence_acc(acc);
+            fence_regs(cur_a);
+            wgmma_fence();
+            mma_chunk<STOP != STOP_ONE_PASS>(acc, cur_a, planes_u32, c,
+                                             STOP != STOP_ONE_SUM || c == 0);
+            wgmma_commit();
+            if (STAGGER && wg + 1 < WGS && tt == wg && c == 0)
+              asm volatile("bar.arrive %0, 256;\n" ::"r"(wg + 1) : "memory");
+          } else {  // no_dot: the fragments in place of the products
+#pragma unroll
+            for (int i = 0; i < BN / 2; ++i)
+              acc[i] = __uint_as_float(cur_a[(i >> 2) & 3][i & 3]);
+          }
+          if (c + 1 < CHUNKS) load_chunk(next_a, row, c + 1, t);
+          if constexpr (STOP >= STOP_FULL) {
+            wgmma_wait<0>();
+            fence_acc(acc);
+            fence_regs(a0);
+            fence_regs(a1);
+          }
+          if (STOP != STOP_ONE_SUM || c == CHUNKS - 1) {
+#pragma unroll
+            for (int i = 0; i < BN / 2; ++i) total[i] += acc[i];
+          }
+        }
       }
+      if (nf < a.n)
+        store_pooled<LAYOUT>(a, total, bias_s, nf, p >> 1, p & 1, j, h, t);
     }
   }
+  cp_async_wait_all();
 }
 
 template <int LAYOUT, int STOP>
 int launch(const Args& a, int grid, cudaStream_t s) {
-  const size_t smem = STOP >= STOP_HALO ? SMEM_BYTES : 0;
   cudaError_t e = cudaFuncSetAttribute(
       parity_kernel<LAYOUT, STOP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      SMEM_BYTES);
   if (e != cudaSuccess) return (int)e;
-  parity_kernel<LAYOUT, STOP><<<grid, THREADS, smem, s>>>(a);
+  parity_kernel<LAYOUT, STOP><<<grid, THREADS, SMEM_BYTES, s>>>(a);
   return (int)cudaGetLastError();
 }
+
+}  // namespace parity
 
 }  // namespace
 
 // x0..x3: (n*12, 96) uint8 class arrays (rows h = 4k + c), 16-byte aligned;
 // we, wo: (104, 128) f32; bias: (384,) f32; out0 (and out1 for layout 0):
 // f32 outputs as in the note above. layout: 0 split, 1 one array; stop:
-// 0 io, 1 widen, 2 halo, 3 no_dot, 4 full (stops only with layout 0).
-// grid: blocks (one a SM). Returns the cudaError_t of the launch.
+// 0 io, 1 widen, 2 halo, 3 no_dot, 4 full, 5 one_sum, 6 one_pass (all but
+// full only with layout 0).
+// grid: the SMs to fill; the kernel runs pairs of blocks, one a column
+// half, at most one pair a group of 8 frames. Returns the cudaError_t of
+// the launch.
 extern "C" int roi_parity_forward(const void* x0, const void* x1,
                                   const void* x2, const void* x3,
                                   const void* we, const void* wo,
                                   const void* bias, void* out0, void* out1,
                                   int n, int layout, int stop, int grid,
                                   void* stream) {
+  using namespace parity;
   if (n < 0 || grid < 1 || (layout == LAYOUT_ONE && stop != STOP_FULL))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
@@ -311,7 +385,10 @@ extern "C" int roi_parity_forward(const void* x0, const void* x1,
   a.out1 = static_cast<float*>(out1);
   a.n = n;
   auto s = static_cast<cudaStream_t>(stream);
-  if (grid > n) grid = n;
+  const int groups = (n + GROUP - 1) / GROUP;
+  int pairs = grid / 2 < groups ? grid / 2 : groups;
+  if (pairs < 1) pairs = 1;
+  grid = 2 * pairs;
   if (layout == LAYOUT_ONE) return launch<LAYOUT_ONE, STOP_FULL>(a, grid, s);
   switch (stop) {
     case STOP_IO: return launch<LAYOUT_SPLIT, STOP_IO>(a, grid, s);
@@ -319,6 +396,8 @@ extern "C" int roi_parity_forward(const void* x0, const void* x1,
     case STOP_HALO: return launch<LAYOUT_SPLIT, STOP_HALO>(a, grid, s);
     case STOP_NO_DOT: return launch<LAYOUT_SPLIT, STOP_NO_DOT>(a, grid, s);
     case STOP_FULL: return launch<LAYOUT_SPLIT, STOP_FULL>(a, grid, s);
+    case STOP_ONE_SUM: return launch<LAYOUT_SPLIT, STOP_ONE_SUM>(a, grid, s);
+    case STOP_ONE_PASS: return launch<LAYOUT_SPLIT, STOP_ONE_PASS>(a, grid, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -9,6 +9,15 @@ unwritten (NaN in interpret mode, undefined on the TPU); :data:`WRITTEN`
 are the lanes it writes. ``library`` names the one torch call that
 computes a body, where there is one.
 
+Each element-moving body (all but the transpose and the product) runs on
+one route (:data:`MOVE_ROUTES`; :func:`move_plan` reads its launch on the
+card): ``bulk`` (copy, aligned_128lane_x6, rows_strided_slice,
+rows_reshape_max: TMA bulk copies through a ring of shared-memory stages),
+``registers`` (lanes_roll_max, unaligned_18lane_x6: persistent blocks over
+units of 8 x 256 output float4s, a thread's loads of the next unit issued
+before its stores of this one) or ``walk`` (rows_roll_max down its
+columns, each row loaded once).
+
 On the card ``matmul_768x512x128`` forms its product as 3xTF32 on the
 tensor cores (bwd_dots.cu's nn mainloop: 128 x 128 tiles over K = 512, each
 chunk of 32 from zero and the chunks added in f32) and copies lanes
@@ -20,7 +29,7 @@ form, which one TF32 pass (:func:`one_pass`) misses.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -45,6 +54,18 @@ KERNEL = _kernels.Kernel(
     [ctypes.c_void_p, ctypes.c_void_p,      # x, out
      ctypes.c_int, ctypes.c_int,            # steps, body
      ctypes.c_void_p])                      # stream
+MOVING = tuple(b for b in BODIES if b not in ("transpose", MATMUL))
+# csrc/layout_micro.cu's Route, in its order
+MOVE_ROUTES = ("bulk", "registers", "walk")
+
+
+class MovePlan(NamedTuple):
+    """A moving body's launch: persistent blocks of ``threads``, the units
+    they walk and the route they take."""
+    blocks: int
+    units: int
+    threads: int
+    route: str
 
 
 def out_rows(body: str) -> int:
@@ -105,6 +126,23 @@ def layout(body: str, x: torch.Tensor, *, impl: str = "auto"
         KERNEL.launch(_kernels.ptr(x), _kernels.ptr(out), S, _CODE[body],
                       _kernels.stream_ptr(x.device))
     return out
+
+
+def move_plan(body: str, steps: int) -> MovePlan:
+    """The kernel's launch of a moving body at ``steps`` (card only: the
+    block count comes from the card's SMs and the kernel's occupancy)."""
+    if body not in MOVING:
+        raise ValueError(f"{body} is not a moving body: {MOVING}")
+    lib = _kernels.library()
+    fn = lib.layout_micro_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(steps, _CODE[body], out)
+    if err:
+        raise RuntimeError(f"layout_micro_plan: CUDA error {err}: "
+                           f"{lib.sst_cuda_error_string(err).decode()}")
+    return MovePlan(out[0], out[1], out[2], MOVE_ROUTES[out[3]])
 
 
 def _product64(x: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,12 @@ The wrappers keep the JAX names and argument order; ``impl`` replaces
 step, so frames past the last multiple of 16 are never written there; the
 port raises when N % 16 != 0 instead.
 
+On the card the products run on the tensor cores (csrc/roi_parity.cu:
+wgmma TF32, the patch exact in TF32 and W split into hi + lo, two passes,
+each 32-deep chunk from zero and the chunks added in f32); the plain
+version forms them as f32 matrix products (:func:`parity_patches` @ W,
+then :func:`pool_halves`).
+
 proto_ablate's stages are the kernel's STOP template parameter. The JAX
 modes map onto the points of the CUDA design that answer the same
 question (:data:`ABLATION_MODES`); the three that ask about the TPU's lane
@@ -53,22 +59,30 @@ _ARGS = [_P, _P, _P, _P,      # x0..x3
 PARITY = _kernels.Kernel("conv1pool1_parity", "roi_parity_forward", _ARGS)
 PARITY_ONE = _kernels.Kernel("conv1pool1", "roi_parity_forward", _ARGS)
 ABLATE = _kernels.Kernel("parity_ablate", "roi_parity_forward", _ARGS)
+# the kernel's controls, split layout, card only: one tensor-core sum over
+# all K in place of 32-deep chunks added in f32; W_hi's pass alone (one
+# TF32 pass: another function)
+CONTROL = _kernels.Kernel("parity_control", "roi_parity_forward", _ARGS)
+CONTROLS = {"one_sum": 5, "one_pass": 6}
 _SPLIT, _ONE = 0, 1
 
-# JAX mode -> the kernel's stop, in ladder order: block I/O (each thread's
-# 16-byte load and the full output store), + the u8 -> f32 widen, + the
-# zero-haloed shared-memory image, + the epilogue with image values in place
-# of the products (what the products cost is full - no_dot), + the products
+# JAX mode -> the kernel's stop, in ladder order: block I/O (the frames'
+# bytes copied into the zero-haloed shared-memory image, every output
+# stored once), + the u8 -> f32 widen (each warp's patch fragments formed
+# from that image: the implicit im2col), + the weights' hi / lo planes made
+# in shared memory (the image's halo is io_only's already), + the chunk
+# loop and the epilogue with fragment values in place of the products
+# (what the products cost is full - no_dot), + the products
 ABLATION_MODES = {"io_only": 0, "widen_only": 1, "halo_only": 2,
                   "no_dot": 3, "full": 4}
 NO_COUNTERPART = {
     "halo_aligned": "the TPU mode moves the halo's 96 lanes from [1:97] to "
-                    "the 128-lane-aligned [0:96]; the card's image copies "
-                    "are 16-byte aligned by construction",
+                    "the 128-lane-aligned [0:96]; the card's image rows "
+                    "hold their 96 bytes 4-byte aligned by construction",
     "no_patch": "the TPU mode skips the copy of the (M, 104) patch buffer; "
-                "the card's kernel has no patch buffer: its products read "
-                "the haloed image copies directly (their cost is "
-                "halo_only - widen_only)",
+                "the card's kernel has no patch buffer: each warp forms "
+                "its patch fragments from the haloed image directly "
+                "(their cost is widen_only - io_only)",
     "patch_aligned": "the TPU mode copies 32-lane (aligned) dy slices into "
                      "the patch instead of 34-lane ones; the card's kernel "
                      "copies no patch",
@@ -113,12 +127,11 @@ def split_classes(roi_u8: torch.Tensor) -> list[torch.Tensor]:
     return [roi_u8[:, c::4].contiguous() for c in range(4)]
 
 
-def parity_halves_plain(xs, WE: torch.Tensor, WO: torch.Tensor,
-                        bias: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """The plain version: the four class arrays (each N*12 rows of 96
-    uint8, any leading shape) -> the m-even and m-odd halves, each
-    (N*12, 384) f32, through the 104-long patches and WE, WO as the TPU
-    kernel computes them."""
+def parity_patches(xs) -> torch.Tensor:
+    """The four class arrays (each N*12 rows of 96 uint8, any leading
+    shape) -> the 104-long patches (N, 48, 3, 104) f32, image row h, tile
+    j: the frame's values widened without scaling, zeros outside it and in
+    lanes 102 and 103."""
     x = torch.stack([t.reshape(-1, HQ, W1) for t in xs], dim=2)
     N = x.shape[0]
     img = x.reshape(N, 4 * HQ, W1).to(torch.float32)
@@ -126,12 +139,30 @@ def parity_halves_plain(xs, WE: torch.Tensor, WO: torch.Tensor,
     rows = torch.stack([xp[:, dy:dy + 4 * HQ] for dy in range(3)], dim=2)
     tiles = torch.stack([rows[..., 32 * j:32 * j + 34] for j in range(3)],
                         dim=2)                       # (N, 48, j, dy, 34)
-    patch = torch.nn.functional.pad(tiles.reshape(N, 4 * HQ, 3, 102),
-                                    (0, KP - 102))   # (N, 48, 3, 104)
-    m = torch.maximum(patch @ WE, patch @ WO).reshape(N, HQ, 4, 3, 128)
+    return torch.nn.functional.pad(tiles.reshape(N, 4 * HQ, 3, 102),
+                                   (0, KP - 102))    # (N, 48, 3, 104)
+
+
+def pool_halves(ye: torch.Tensor, yo: torch.Tensor, bias: torch.Tensor
+                ) -> tuple[torch.Tensor, ...]:
+    """The patches' products with WE and WO, (N, 48, 3, 128) each ->
+    the m-even and m-odd halves (N*12, 384): the max over WE / WO, then
+    over the class pair, + bias, ReLU."""
+    N = ye.shape[0]
+    m = torch.maximum(ye, yo).reshape(N, HQ, 4, 3, 128)
     b = bias.reshape(1, 1, 3, 128)
     return tuple(torch.relu(torch.maximum(m[:, :, ca], m[:, :, cb]) + b)
                  .reshape(N * HQ, HALF) for ca, cb in ((0, 1), (2, 3)))
+
+
+def parity_halves_plain(xs, WE: torch.Tensor, WO: torch.Tensor,
+                        bias: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The plain version: the four class arrays (each N*12 rows of 96
+    uint8, any leading shape) -> the m-even and m-odd halves, each
+    (N*12, 384) f32, through the 104-long patches and WE, WO as the TPU
+    kernel computes them."""
+    patch = parity_patches(xs)
+    return pool_halves(patch @ WE, patch @ WO, bias)
 
 
 def pooled1_from_quadrants(qs, N: int) -> torch.Tensor:
@@ -254,6 +285,17 @@ def run(x0, x1, x2, x3, WE, WO, bias, mode: str = "full", *,
                              "tensor")
         return list(parity_halves_plain(xs, WE, WO, bias))
     return _launch(ABLATE, xs, WE, WO, bias, _SPLIT, ABLATION_MODES[mode])
+
+
+def control(x0, x1, x2, x3, WE, WO, bias, which: str):
+    """The split kernel with its products formed as :data:`CONTROLS`
+    ``which`` says, on CUDA tensors only. Returns [out_even, out_odd]."""
+    if which not in CONTROLS:
+        raise ValueError(f"unknown control {which!r}: {tuple(CONTROLS)}")
+    xs = (x0, x1, x2, x3)
+    _check_inputs(xs, WE, WO, bias)
+    _kernels.use_kernel("kernel", x0)
+    return _launch(CONTROL, xs, WE, WO, bias, _SPLIT, CONTROLS[which])
 
 
 # ------------------------------------------------------ the whole CNN

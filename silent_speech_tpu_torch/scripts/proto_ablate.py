@@ -7,11 +7,13 @@
 The kernel of proto_parity_cnn (csrc/roi_parity.cu) takes a stop template
 parameter; each of the JAX script's modes runs the point of the CUDA design
 that answers the same question, in the JAX script's order
-(ops/cuda_parity_cnn.ABLATION_MODES): ``io_only`` each thread's 16-byte
-load and the full output store; ``widen_only`` + the u8 -> f32 widen;
-``halo_only`` + the zero-haloed shared-memory image; ``no_dot`` + the
-epilogue over image values in place of the products; ``full`` + the
-products, the kernel itself. The modes about the TPU's lane alignment and
+(ops/cuda_parity_cnn.ABLATION_MODES): ``io_only`` the frames' bytes into
+the zero-haloed shared-memory image and every output stored once;
+``widen_only`` + the u8 -> f32 widen (each warp's patch fragments formed
+from the image); ``halo_only`` + the weights' hi / lo planes in shared
+memory; ``no_dot`` + the chunk loop and the epilogue over fragment values
+in place of the products; ``full`` + the products on the tensor cores,
+the kernel itself. The modes about the TPU's lane alignment and
 its patch buffer (``halo_aligned``, ``no_patch``, ``patch_aligned``) print
 one row that says why the card's design has no such stage. The inputs are
 the JAX script's: random class arrays and random (unpacked) WE, WO, bias.

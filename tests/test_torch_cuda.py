@@ -19,13 +19,16 @@ and K4's check entry (its stops, and stage 1 on either route); the GRU probes' k
 kernel with one and two weight sets, the dual-chain kernel) in f32 and
 bf16, their launch counts, their independence of the knobs and the inputs
 they refuse; the CNN-front prototypes' kernels (the parity conv1 + pool1
-kernel in both layouts and its ablation stops, the front probe's stages,
+kernel in both layouts, bitwise on a repeat, its ablation stops, the
+front probe's stages,
 K1's debug stops) against their plain versions, and the four scripts' main
 at N=64; the forward rate probes' kernels (the matmul-rate kernel at small
 ragged shapes, the chained-dot kernel in every mode at K=384 and 512 (in
 bf16 every cluster size bitwise the check instantiation at
 1, 3 and 256 steps, and its plan), the
-layout kernel in every body, its product body also within a float64 bar
+layout kernel in every body, its moving bodies also at a step
+count that leaves their persistent blocks a partial last sweep, its
+product body also within a float64 bar
 that one TF32 pass misses, its copied lanes bitwise, at 1 to 512 steps)
 against their plain versions, their launch
 counts, the inputs they refuse, and the three scripts' main at small
@@ -1267,6 +1270,8 @@ def _parity_close(got, ref, kind):
 @pytest.mark.parametrize("kind", ["packed", "random"])
 @pytest.mark.parametrize("N", [16, 48])
 def test_parity_kernel_matches_plain(dev, N, kind):
+    """Both layouts against the plain version (N=48: a partial group of 8
+    frames for some blocks), a second launch bitwise the first."""
     roi, xs, w = _parity_inputs(dev, N, kind, N, const=True)
     before = _kernels.launch_counts()
     halves = cuda_parity_cnn.conv1pool1_parity(*xs, *w)
@@ -1276,6 +1281,9 @@ def test_parity_kernel_matches_plain(dev, N, kind):
     assert {n: after[n] - before[n] for n in after
             if after[n] != before[n]} == {"conv1pool1_parity": 1,
                                           "conv1pool1": 1}
+    again = cuda_parity_cnn.conv1pool1_parity(*xs, *w)
+    for a, b in zip(again, halves):
+        assert torch.equal(a, b)
     ref = cuda_parity_cnn.parity_halves_plain(xs, *w)
     for g, r in zip(halves, ref):
         _parity_close(g, r, kind)
@@ -1297,6 +1305,8 @@ def _conv0_of(w, dev):
 
 
 def test_parity_ablation_full_is_the_kernel_bitwise(dev):
+    """Every stop runs (finite values of the outputs' shapes); ``full`` is
+    the kernel, bitwise."""
     roi, xs, w = _parity_inputs(dev, 32, "random", 5)
     flat = [x.reshape(-1, 96) for x in xs]
     pp = cuda_parity_cnn.conv1pool1_parity(*xs, *w)
@@ -1305,6 +1315,7 @@ def test_parity_ablation_full_is_the_kernel_bitwise(dev):
     for mode in ("io_only", "widen_only", "halo_only", "no_dot"):
         out = cuda_parity_cnn.run(*flat, *w, mode=mode)
         assert [o.shape for o in out] == [(32 * 12, 384)] * 2
+        assert all(torch.isfinite(o).all() for o in out)
     torch.cuda.synchronize()
     assert cuda_parity_cnn.ABLATE.launches == before + 5
     for a, b in zip(full, pp):
@@ -1546,13 +1557,26 @@ def test_rate_probe_kernels_refuse_what_they_do_not_take(dev):
 
 @pytest.mark.parametrize("body", cuda_layout_micro.BODIES)
 def test_layout_kernel_matches_plain(dev, body):
+    """Every body bitwise its plain version (the product within its bars)
+    at 2 steps; a moving body also at a step count where its persistent
+    blocks' last sweep is partial (its plan: more units than blocks, not a
+    multiple of them)."""
     from silent_speech_tpu_torch.scripts import mosaic_micro
+    lm = cuda_layout_micro
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (2 * 768, 768)).astype(np.float32)).to(dev)
-    before = cuda_layout_micro.KERNEL.launches
+    before = lm.KERNEL.launches
     mosaic_micro.check_body(body, x)
     torch.cuda.synchronize()
-    assert cuda_layout_micro.KERNEL.launches == before + 1
+    assert lm.KERNEL.launches == before + 1
+    if body not in lm.MOVING:
+        return
+    steps = next(s for s in range(3, 200)
+                 if (p := lm.move_plan(body, s)).units > p.blocks
+                 and p.units % p.blocks)
+    x = torch.from_numpy(np.random.default_rng(steps).standard_normal(
+        (steps * 768, 768)).astype(np.float32)).to(dev)
+    mosaic_micro.check_body(body, x)
 
 
 @pytest.mark.parametrize("script,argv,want", [
