@@ -88,7 +88,9 @@ prints no result line):
    kernel, every stop run; at N=8192 with random weights its and the plain
    version's distance from float64, the one-sum control's error and the W_hi-pass control, which must miss the
    bar; each stage of the
-   front probe and each of K1's debug stops against its plain version; K1
+   front probe (its ladder also at N just below and above one wave of its
+   persistent blocks, one geometry for every rung) and each of K1's
+   debug stops against its plain version; K1
    itself within its bar; their times, bounds (the parity kernel's at the
    FMAs and two TF32 passes together, K1's stops' at the FMAs and 3xTF32
    together, over 100% failing) and
@@ -97,7 +99,9 @@ prints no result line):
    proto_ablate and probe_front at N=8192, with the launch counts over each;
 10. the forward rate probes (silent_speech_tpu_torch/scripts): the
    matmul-rate kernel (MR) at bench_fused_cnn's six shapes and small ragged
-   ones, the chained-dot kernel (DC) in its four modes at K=384 and 512,
+   ones, the chained-dot kernel (DC) in its four modes at K=384 and 512
+   (int8 and int8i also at a partial last sweep of their persistent grid,
+   each tile's moments and repeats bitwise, their plan the mirror's),
    and the layout kernel (LP) in its nine bodies, each against its plain
    version (DC in bf16 also product by product, with two controls that
    must fail; LP's product body, 3xTF32, also against the float64
@@ -108,7 +112,8 @@ prints no result line):
    over each, whose rows give the kernels' times, bounds (a row above
    100% of its bound fails), and the plain versions' and library calls'
    times (MR's: one matmul of its stacked operands, the same work; LP's
-   product body: its product part, and with the copy the same work);
+   product body: its product part, and with the copy the same work; DC's
+   int8 and int8i beside the bf16 chain and 14 ``_int_mm`` calls);
    and DC's bf16 kernel in each variant (clusters of 1, 2, 3 and 6
    blocks), each bitwise the checked output, with its plan
    (cluster, stages, shared memory) and time beside the bound; LP's moving
@@ -2095,21 +2100,36 @@ def check_cnn_front(dev) -> dict:
     x = torch.from_numpy(roi_np.reshape(-1, 384))
     x_small = torch.from_numpy(rng.integers(0, 256, (FRONT_N, 4),
                                             dtype=np.uint8))
+    pl = fp.plan()
+    if (pl.slots, pl.smem, pl.threads) != fp.ring_geometry():
+        fail(f"roi_front_probe: the ladder's plan {pl} is not its mirror")
+    # ragged: below and above one wave
+    ragged = (16 * ((pl.blocks - 1) // 16), 16 * (pl.blocks // 16 + 1))
+    walks = {n: fp.frame_walk(n, pl.blocks) for n in (FRONT_N,) + ragged}
+    print(f"  roi_front_probe ladder: plan {pl.blocks} blocks "
+          f"({pl.blocks // pl.sms} an SM), {pl.slots} ring slots, {pl.smem} "
+          "B, every rung; " + ", ".join(
+              f"N={n} {len(w)} blocks of {len(w[0])} to {len(w[-1])} frames"
+              for n, w in walks.items()))
     for stage in fp.STAGES:
+        ns = (FRONT_N,) + (ragged if stage in fp.LADDER else ())
         for F in (fp.DMA_FRAMES if stage == "dma" else (1,)):
-            xi = x_small if stage == "overlap_b" else x
-            got = fp.probe(stage, xi.to(dev), F).cpu().double()
-            want = fp.probe_plain(stage, xi, F).double()
-            err = (got - want).abs()
-            bar = fp.bar(stage, xi, F).double()
-            print(f"  roi_front_probe {stage} F={F}: max difference per "
-                  f"block {err.max().item():.3e} (bar: 1e-5 of each "
-                  f"moment's sum of |terms|, 0 for integer sums)")
-            if (err > bar).any():
-                fail(f"roi_front_probe {stage} F={F}: {int((err > bar).sum())}"
-                     " blocks off the plain version")
-            e = errs["roi_front_probe"]
-            e["max_abs_err"] = max(e["max_abs_err"], err.max().item())
+            for n in ns:
+                xi = x_small if stage == "overlap_b" else x[:n * fp.HQ]
+                got = fp.probe(stage, xi.to(dev), F).cpu()
+                want = fp.probe_plain(stage, xi, F).double()
+                err = (got.double() - want).abs()
+                bar = fp.bar(stage, xi, F).double()
+                print(f"  roi_front_probe {stage} F={F} N={n}: max "
+                      f"difference per block {err.max().item():.3e} (bar: "
+                      "1e-5 of each moment's sum of |terms|, 0 for integer "
+                      "sums)")
+                if (err > bar).any():
+                    fail(f"roi_front_probe {stage} F={F} N={n}: "
+                         f"{int((err > bar).sum())} blocks off the plain "
+                         "version")
+                e = errs["roi_front_probe"]
+                e["max_abs_err"] = max(e["max_abs_err"], err.max().item())
 
     p = {k: {n: t.to(dev) for n, t in v.items()}
          for k, v in init_roi_cnn(32, torch.Generator().manual_seed(SEED + 9))
@@ -2270,7 +2290,7 @@ def time_cnn_front(dev, card: str) -> dict:
     for stage in fp.STAGES:
         for F in (fp.DMA_FRAMES if stage == "dma" else (1,)):
             xi = x_small if stage == "overlap_b" else x
-            key = stage if F == 1 else f"{stage}_f{F}"
+            key = stage + ("" if F == 1 else f"_f{F}")
             macs = N * fp.THREADS * fp.CHAIN_ACC * fp.CHAIN_LEN \
                 if stage.startswith("overlap") else 0
             blocks = N // F
@@ -2278,15 +2298,20 @@ def time_cnn_front(dev, card: str) -> dict:
                 2 * macs, (0 if stage == "overlap_b" else in_bytes)
                 + 4 * blocks * (1 if stage in fp.SCALAR else 3))
             r[f"bound_ms_{key}"], r[f"bound_by_{key}"] = b_ms, b_by
-            r[f"ms_{key}"] = timed(lambda: fp.probe(stage, xi, F), b_by)
+            r[f"ms_{key}"] = timed(
+                lambda: fp.probe(stage, xi, F), b_by)
+            r[f"share_of_bound_{key}"] = check_bound(
+                f"roi_front_probe {key}", r[f"ms_{key}"], b_ms)
             print(f"  roi_front_probe {key}: {r[f'ms_{key}']:.4f} ms"
                   f"{' (cold L2)' if b_by == 'bytes' else ''}, bound "
-                  f"{b_ms:.4f} ms ({b_by}) {card}")
+                  f"{b_ms:.4f} ms ({b_by}), "
+                  f"{r[f'share_of_bound_{key}']:.1%} of it {card}")
+    r["row"] = "front"  # the live front's rung
     r["ms"], r["bound_ms"], r["bound_by"] = \
-        r["ms_dma"], r["bound_ms_dma"], "bytes"
-    r["plain_ms"] = timed(lambda: fp.probe_plain("dma", x), "bytes")
+        r["ms_front"], r["bound_ms_front"], r["bound_by_front"]
+    r["plain_ms"] = timed(lambda: fp.probe_plain("front", x), "bytes")
     r["library_ms"] = None
-    print(f"  roi_front_probe dma: plain {r['plain_ms']:.4f} ms {card}")
+    print(f"  roi_front_probe front: plain {r['plain_ms']:.4f} ms {card}")
 
     p = {k_: {n: t.to(dev) for n, t in v.items()}
          for k_, v in init_roi_cnn(32, torch.Generator().manual_seed(SEED + 10))
@@ -2359,8 +2384,10 @@ def check_rate_probes(dev) -> dict:
     (TF32 off): MR at the six probe shapes (reps 64, grid 64) and at small
     ragged ones (reps 9, grid 2), within 4 sqrt(reps K) 2^-24 of each
     element's sum of |terms| (ops/tf32_bars.BAR_DEPTH); DC in every mode
-    at K=384 and 512, 256 steps and 3, its check instantiation's output and
-    moments bitwise for int8 / int8i and within 1e-5 (f32) or 2e-2 (bf16,
+    at K=384 and 512, 256 steps and 3 (int8 / int8i also at a partial last
+    sweep of their persistent grid, :func:`check_dc_s8`), its check
+    instantiation's output and moments bitwise for int8 / int8i and within
+    1e-5 (f32) or 2e-2 (bf16,
     rounding flips) of each value's sum of |terms|
     (ops/cuda_dot_chain.compare), in bf16 its traced rows product by
     product (ops/cuda_dot_chain.check_rounding, with two controls that must
@@ -2401,15 +2428,25 @@ def check_rate_probes(dev) -> dict:
                   f"blocks ({pl.slots} at once), {pl.smem} B; two launches "
                   "bitwise equal")
         rng = np.random.default_rng(SEED + 11)
+        check_dc_s8(dev, rng, note)
         for steps in (dc.GRID, 3):
             x = torch.from_numpy(rng.integers(0, 256, (steps * 8, 128),
                                               dtype=np.uint8)).to(dev)
             for K in dc.KS:
-                for mode in dc.MODES:
+                for mode in ("f32", "bf16"):
                     w = dc.make_weights(mode, K).to(dev)
                     note("dot_chain", f"{mode} K={K} steps={steps}",
                          dc.check(x, w, mode))
-                    if mode != "f32":
+                    if mode == "bf16":
+                        for keep in (torch.float32, torch.float16):
+                            bad = dc.rounding_outside(
+                                dc.trace_plain(x, w, keep), x, w)
+                            print(f"  dot_chain bf16 K={K} steps={steps}, "
+                                  f"control held in {keep}: {bad} traced "
+                                  "values outside their windows")
+                            if not bad:
+                                fail(f"dot_chain bf16: the control held in "
+                                     f"{keep} passed the rounding check")
                         continue
                     packed = dc.pack_weights(w, mode)
                     want = dc.dot_chain(x, w, mode, packed=packed)
@@ -2425,19 +2462,53 @@ def check_rate_probes(dev) -> dict:
                           f"{pl.stages} units of {pl.chunk} B, {pl.smem} B, "
                           f"{pl.clusters} clusters at once; two launches "
                           "bitwise equal")
-                    if mode != "bf16":
-                        continue
-                    for keep in (torch.float32, torch.float16):
-                        bad = dc.rounding_outside(dc.trace_plain(x, w, keep),
-                                                  x, w)
-                        print(f"  dot_chain bf16 K={K} steps={steps}, control"
-                              f" held in {keep}: {bad} traced values outside "
-                              "their windows")
-                        if not bad:
-                            fail(f"dot_chain bf16: the control held in {keep}"
-                                 " passed the rounding check")
         check_lp(dev, rng, errs["layout_micro"])
     return errs
+
+
+def check_dc_s8(dev, rng, note) -> None:
+    """DC's s8 kernel (int8, int8i) at K=384 and 512: its plan against its
+    mirror (ops/cuda_dot_chain.s8_geometry), then at 256 steps and at two
+    ragged step counts that leave its persistent grid a partial last sweep
+    (3: most warpgroups idle; one more step than a sweep holds), its check
+    instantiation's output and moments bitwise the plain version's
+    (ops/cuda_dot_chain.check, which also holds the timed instantiation
+    bitwise the checked one), and two launches of each bitwise equal."""
+    from silent_speech_tpu_torch.ops import cuda_dot_chain as dc
+
+    for K in dc.KS:
+        pl, geo = dc.plan(K, mode="int8"), dc.s8_geometry(K)
+        if (pl.cluster, pl.stages, pl.smem, pl.chunk, pl.threads) != \
+                (geo.cluster, 1, geo.smem, geo.w_bytes, dc.S8_THREADS):
+            fail(f"dot_chain s8 K={K}: plan {pl} is not its mirror {geo}")
+        slots = pl.clusters * dc.S8_WARPGROUPS
+        steps_all = (dc.GRID, 3, slots // dc.TILES + 1)
+        walks = [dc.s8_walk(st, pl.clusters) for st in steps_all]
+        print(f"    s8 plan K={K}: clusters of {pl.cluster}, {pl.clusters} "
+              f"at once ({slots} warpgroup slots), {pl.smem} B, W^T "
+              f"{pl.chunk} B a block; steps {steps_all} leave "
+              + ", ".join(f"{sum(len(s) == len(w[0]) for s in w)} of "
+                          f"{len(w)}" for w in walks)
+              + " launched slots a last sweep")
+        for steps in steps_all:
+            x = torch.from_numpy(rng.integers(0, 256, (steps * 8, 128),
+                                              dtype=np.uint8)).to(dev)
+            for mode in ("int8", "int8i"):
+                w = dc.make_weights(mode, K).to(dev)
+                packed = dc.pack_weights(w, mode)
+                note("dot_chain", f"{mode} K={K} steps={steps}",
+                     dc.check(x, w, mode, packed=packed))
+                out, mom, _ = dc.dot_chain(x, w, mode, packed=packed,
+                                           check=True)
+                out2, mom2, _ = dc.dot_chain(x, w, mode, packed=packed,
+                                             check=True)
+                timed = dc.dot_chain(x, w, mode, packed=packed)
+                if not (torch.equal(out, out2) and torch.equal(mom, mom2)
+                        and torch.equal(timed, dc.dot_chain(
+                            x, w, mode, packed=packed))):
+                    fail(f"dot_chain {mode} K={K} steps={steps}: two "
+                         "launches differ")
+        print(f"    s8 K={K}: every check twice bitwise equal")
 
 
 def partial_sweep_steps(lm) -> int:
@@ -2608,6 +2679,15 @@ def run_rate_probe_scripts(card: str) -> tuple[dict, dict]:
         rates[name] = {**{k: rows[first][k] for k in keys}, "row": first,
                        "rows": {k: {c: v for c, v in r.items() if c != "name"}
                                 for k, r in rows.items()}}
+    rows = rates["dot_chain"]["rows"]
+    for K in (384, 512):  # what probe_int8 asks: does int8 beat bf16?
+        b16 = rows[f"bf16_k{K}"]["ms"]
+        print(f"  dot_chain s8 K={K}: " + "; ".join(
+            f"{m} {rows[f'{m}_k{K}']['ms']:.4f} ms, "
+            f"{rows[f'{m}_k{K}']['share_of_bound']:.1%} of the int8 bound, "
+            f"{b16 / rows[f'{m}_k{K}']['ms']:.2f}x the bf16 chain's speed, "
+            f"14 _int_mm {rows[f'{m}_k{K}']['library_ms']:.4f} ms"
+            for m in ("int8", "int8i")) + f"; bf16 {b16:.4f} ms {card}")
     return counts, rates
 
 

@@ -11,9 +11,9 @@
 //   bf16   y0 = bf16(f32(seed) * 1e-6); y <- bf16(y W), each product's f32
 //          sum rounded to bf16 (wgmma m64nNk16 bf16 -> f32, namespace
 //          chain16)
-//   int8   y0 = s8(seed & 63); y <- s8(acc >> 7), acc = y W in s32 (mma.sync
-//          m16n8k32 s8 -> s32), the arithmetic shift then a wrap modulo 256
-//          as XLA's convert does (not a saturation)
+//   int8   y0 = s8(seed & 63); y <- s8(acc >> 7), acc = y W in s32 (wgmma
+//          m64nNk32 s8 -> s32, namespace chain8), the arithmetic shift
+//          then a wrap modulo 256 as XLA's convert does (not a saturation)
 //   int8i  acc = sum over d < 14 of (base + d) W in s32, base = s8(seed & 63):
 //          14 independent s8 products, no re-narrowing
 // The int modes' output sum is taken exactly (int64) and rounded once to
@@ -22,9 +22,9 @@
 //
 // The TPU kernel keeps the whole (384, K) chain state in VMEM (576-768 KB
 // in f32), more than a block's 227 KB of shared memory. y <- y W acts row
-// by row, so here a block (f32: a cluster of blocks) owns a tile of TM = 64
-// rows of one step through all 14 products, in shared memory, and streams
-// W from L2 in chunks: every row of every step is still computed.
+// by row, so here a block (or a cluster of blocks, or a warpgroup) owns a
+// tile of TM = 64 rows of one step through all 14 products, in shared
+// memory: every row of every step is still computed.
 //
 // What bounds it: the multiply-adds, steps * 14 * 384 * K^2 (203 G at
 // K=384, 361 G at K=512 for 256 steps): 1.750 / 3.110 ms at the f32 FMAs
@@ -33,9 +33,28 @@
 // bf16 peak one SM would draw 117 GB/s of W from L2, 15.5 TB/s for 132
 // SMs; in f32, W's hi and lo planes are 4x bf16's bytes a multiply-add.
 //
-// int8, int8i (dot_chain_kernel): all 256 threads stage each W chunk
-// (rows of W^T, so that a B fragment's k-quads are one 32-bit word)
-// synchronously, then multiply it (mma.sync m16n8k32 s8).
+// int8, int8i (namespace chain8): W^T in s8 stays in shared memory for
+// the life of a persistent block, brought from L2 once by TMA (packed by
+// ops/cuda_dot_chain.pack_weights in wgmma's 128-byte swizzle, 128 k an
+// atom): all of it at K=384 (147,456 B), at K=512 (256 KB, more than a
+// block holds) half of its rows in each block of a cluster of 2 (131,072
+// B), each block computing half of the columns. Beside it, one 64-row y
+// tile (s8, the same swizzle) for each of the block's two warpgroups, which
+// walk the (step, tile) items on their own: a product is one group of
+// wgmma m64n192k32 (two a k32 step, 192 s32 sums a thread) or m64n256k32
+// (one, 128 sums) s8 -> s32 with A (y) and B (W^T) from shared memory;
+// then the warpgroup narrows its sums into y (int8: (acc >> 7) & 0xff,
+// stored into the swizzled A layout) or refills y with the next constant
+// (int8i, whose sums go on in the same registers: every product's 64 x K x
+// K multiply-adds run), between two barriers of its own (named barriers:
+// no block-wide barrier between products), so that one warpgroup's tail
+// runs under the other's wgmmas. At K=512 (int8) the blocks of a pair
+// exchange their new halves of y: one bulk copy from shared memory into the
+// other block's y (cp.async.bulk shared::cluster), completing on that
+// block's full barrier, once both warpgroups have arrived on each other's
+// empty barrier (their reads of y, and the previous copy, are done). W
+// comes from L2 once a block (about 20 MB a call), not once a product of
+// a tile (3.2 / 5.6 GB at 256 steps).
 //
 // f32 (namespace chain32): a 64-row y tile in f32 is 96 KB at K=384 and
 // 128 KB at K=512, and one 32-k chunk of both of W^T's planes at full width
@@ -92,14 +111,17 @@
 // and the chunk layout (tests/test_torch_dot_chain_bf16.py) and the
 // chain's arithmetic against the Pallas kernel
 // (tests/test_torch_rate_probes.py); the f32 chain's arithmetic and
-// geometry are tests/test_torch_mr_dc_tc.py's.
+// geometry are tests/test_torch_mr_dc_tc.py's; the s8 chains' layouts,
+// geometry and item walk (a numpy model of the index maps, through exact
+// integer products) tests/test_torch_dc_s8_tc.py's.
 
 // A check instantiation (moments != nullptr) also writes the three moments
 // of each block's final y values (the sum, the sum of squares and the sum
 // weighted by i % 31, i = row * K + col in the step's (384, K) y): doubles
 // for f32 / bf16, int64 sums modulo 2^64 for the int modes (exact, so any
-// order gives the same bits), one triple a (step, tile), and in f32 one a
-// (step, tile, block of the cluster). In bf16 it also
+// order gives the same bits: each warp adds its share atomically), one
+// triple a (step, tile), and in f32 one a (step, tile, block of the
+// cluster). In bf16 it also
 // writes the trace: row 13 * tile % 64 of the block's tile after each of
 // the 14 products, the bf16 values the next product reads, so that each
 // product's rounding can be held against the product of the block's own
@@ -236,155 +258,351 @@ __device__ __forceinline__ int step_seed(const uint8_t* __restrict__ x,
 }
 
 // ------------------------------------------------------- int8, int8i
-// the s8 modes' shared memory at K: the y tile (TM rows, stride YS bytes)
-// and one chunk of W^T (K n-rows of BK k, stride WSS bytes)
+// The s8 chains on wgmma with W^T resident in shared memory (modes 2, 3;
+// see the notes at the top).
+namespace chain8 {
+
+constexpr int WGS = 2;                 // warpgroups a block, an item each
+constexpr int THREADS = 128 * WGS;
+constexpr int KA = 128;                // k of a swizzle atom: 128 bytes a row
+constexpr int Y_ATOM = TM * KA;        // y's bytes of one atom
+constexpr int ALIGN = 1024;            // the swizzle's period: planes on it
+// a block's dynamic shared memory, beside its static 1 KB or less
+constexpr int SMEM_BUDGET = 232448 - 1024;
+
+// K's geometry: clusters of C blocks, block `rank` holding W^T's COLS rows
+// [rank COLS, rank COLS + COLS) (the columns of y W it computes) for every
+// atom of 128 k, each atom a PLANE of COLS rows x 128 bytes in the
+// 128-byte swizzle; then one y tile (TM x K s8, ATOMS atoms of TM rows in
+// the same swizzle) a warpgroup. A warpgroup's sums are 64 x COLS s32:
+// PARTS wgmmas m64nWNk32 a k32 step, NACC registers a thread. At K=384 all
+// of W^T fits (C 1, two n192 wgmmas); at K=512 it does not, and each block
+// of a pair holds half (C 2, one n256 wgmma), the blocks swapping their
+// new halves of y (OWN atoms each) after every int8 product.
 template <int K>
-struct Geo8 {
-  static constexpr int YS = K + 16, BK = 64, WSS = BK + 16;  // 16 B of pad
-  static constexpr int Y_BYTES = TM * YS, W_BYTES = K * WSS;
-  static constexpr int SMEM = Y_BYTES + W_BYTES;
-  static_assert(K % 128 == 0 && K % BK == 0, "K a multiple of 128");
-  static_assert(Y_BYTES % 16 == 0, "W chunk 16-byte aligned");
+struct Geo {
+  static constexpr int C = K == 384 ? 1 : 2;
+  static constexpr int COLS = K / C, WN = K / 2, PARTS = COLS / WN;
+  static constexpr int ATOMS = K / KA, OWN = ATOMS / C;
+  static constexpr int PLANE = COLS * KA, W_BYTES = ATOMS * PLANE;
+  static constexpr int Y_BYTES = TM * K;
+  static constexpr int SMEM = ALIGN + W_BYTES + WGS * Y_BYTES;
+  static constexpr int NACC = COLS / 2;
+  static_assert(K % KA == 0 && COLS % KA == 0 && (WN == 192 || WN == 256) &&
+                    PLANE % ALIGN == 0 && Y_ATOM % ALIGN == 0 &&
+                    SMEM <= SMEM_BUDGET,
+                "whole atoms, wgmma widths, aligned planes, one block an SM");
 };
 
-__device__ __forceinline__ void mma_s8(int& d0, int& d1, int& d2, int& d3,
-                                       const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
+// this warp's share of d (64 x 192 s32) = A B (scale_d 0) or d + A B:
+// wgmma m64n192k32 s8, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_s8_n192(int* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d0), "+r"(d1), "+r"(d2), "+r"(d3)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
+      "%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
+      "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,"
+      "%60,%61,%62,%63,%64,%65,%66,%67,%68,%69,%70,%71,"
+      "%72,%73,%74,%75,%76,%77,%78,%79,%80,%81,%82,%83,"
+      "%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95"
+      "}, %96, %97, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]),
+        "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
+        "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]),
+        "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]),
+        "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]),
+        "+r"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// copy columns [k0, k0 + BK) of W^T (n-major) into the chunk buffer, 16
-// bytes a thread a step
-template <int K>
-__device__ void stage_w(const uint8_t* __restrict__ w, uint8_t* ws, int k0) {
-  using G = Geo8<K>;
-  constexpr int VEC = G::BK / 16;  // 16-byte pieces an n-row
-  for (int i = threadIdx.x; i < K * VEC; i += THREADS) {
-    const int n = i / VEC, v = i % VEC;
-    const uint4 q =
-        *reinterpret_cast<const uint4*>(w + (size_t)n * K + k0 + v * 16);
-    *reinterpret_cast<uint4*>(ws + n * G::WSS + v * 16) = q;
-  }
+// this warp's share of d (64 x 256 s32) = A B (scale_d 0) or d + A B:
+// wgmma m64n256k32 s8, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_s8_n256(int* d, uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
+      "%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
+      "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,"
+      "%60,%61,%62,%63,%64,%65,%66,%67,%68,%69,%70,%71,"
+      "%72,%73,%74,%75,%76,%77,%78,%79,%80,%81,%82,%83,"
+      "%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,"
+      "%96,%97,%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,"
+      "%108,%109,%110,%111,%112,%113,%114,%115,%116,%117,%118,%119,"
+      "%120,%121,%122,%123,%124,%125,%126,%127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]),
+        "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]),
+        "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]),
+        "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]),
+        "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]),
+        "+r"(d[95]), "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
+        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]),
+        "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]),
+        "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]),
+        "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]),
+        "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
+template <int WN>
+__device__ __forceinline__ void wgmma_s8(int* d, uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (WN == 192)
+    wgmma_s8_n192(d, da, db, scale_d);
+  else
+    wgmma_s8_n256(d, da, db, scale_d);
+}
+
+// keeps the s32 sums live and in place across the asynchronous wgmmas
+template <int N>
+__device__ __forceinline__ void fence_sums(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// the 128 threads of warpgroup h alone
+__device__ __forceinline__ void wg_sync(int h) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + h) : "memory");
+}
+
+// `bytes` from this block's shared memory into a block of the cluster
+// (dst, bar: shared::cluster addresses there), by the TMA unit, completing
+// on that block's barrier
+__device__ __forceinline__ void bulk_copy_s2s(uint32_t dst, uint32_t src,
+                                              uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst), "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// grid (C x clusters), clusters of C along x, WGS warpgroups a block:
+// warpgroup h of cluster i takes slot i WGS + h and walks the items (step,
+// tile) = slot, slot + slots, ... (item = step TILES + tile), each block of
+// the cluster computing its COLS columns of every product of the tile's 64
+// rows; the blocks' warpgroups h run the same items. Thread 0 brings the
+// block's W^T planes once, by TMA. A product is one group of wgmmas over
+// all of y and the planes, its sums in registers; then (int8) the
+// warpgroup narrows them into its y, between two barriers of its own, or
+// (int8i) fills y with the next constant. At C 2 (int8) it also sends its
+// new half to the other block's y by one bulk copy, completing on that
+// block's `full` barrier, once that block's warps have arrived on this
+// one's `empty` barrier (they are done reading the old y; this block's
+// previous copy has landed); a product's wgmmas on its own half of y are
+// in flight before it waits for the other half.
 template <int MODE, int K, bool CHECK>
 __global__ void __launch_bounds__(THREADS, 1)
-dot_chain_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
-                 float* __restrict__ out,
-                 unsigned long long* __restrict__ moments,
-                 float* __restrict__ sink, int sink_at) {
+chain_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
+             float* __restrict__ out,
+             unsigned long long* __restrict__ moments,
+             float* __restrict__ sink, int sink_at, int steps) {
   static_assert(MODE == INT8 || MODE == INT8I, "the s8 modes");
-  using G = Geo8<K>;
+  using G = Geo<K>;
   using Mom = unsigned long long;
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* ys = smem;               // the y tile
-  uint8_t* ws = smem + G::Y_BYTES;  // one chunk of W^T
-  __shared__ int row0[ROW0];        // y[0, 0:128] (tile 0)
-  __shared__ int redi[NWARPS + 1];
-  __shared__ Mom redm[NWARPS + 1];
+  constexpr int C = G::C;
+  constexpr bool SWAP = C > 1 && MODE == INT8;  // halves of y swapped
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  uint8_t* ws = smem_raw + ((ALIGN - (smem_u32(smem_raw) & (ALIGN - 1))) &
+                            (ALIGN - 1));
+  // W's barrier, then each warpgroup's full and empty barriers
+  __shared__ __align__(8) uint64_t bars[1 + 2 * WGS];
+  __shared__ int redi[WGS][4];
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tile = blockIdx.x, step = blockIdx.y;
-  const int seed = step_seed(x, step, redi);
-
-  if constexpr (MODE == INT8) {  // y0, all TM x K elements of the tile equal
-    for (int i = tid; i < TM * G::YS; i += THREADS)
-      ys[i] = (uint8_t)(seed & 63);
+  const int tid = threadIdx.x, h = tid >> 7, wt = tid & 127;
+  const int lane = tid & 31, wl = wt >> 5, g = lane >> 2, t4 = lane & 3;
+  const uint32_t rank = C > 1 ? cta_rank() : 0, peer = rank ^ 1;
+  uint8_t* ys = ws + G::W_BYTES + h * G::Y_BYTES;
+  const uint32_t w_u32 = smem_u32(ws), y_u32 = smem_u32(ys);
+  const uint32_t wbar = smem_u32(&bars[0]);
+  const uint32_t full = smem_u32(&bars[1 + h]);
+  const uint32_t empty = smem_u32(&bars[1 + WGS + h]);
+  if (tid == 0) {
+    mbar_init(wbar, 1);
+    for (int i = 0; i < WGS; ++i) {
+      mbar_init(smem_u32(&bars[1 + i]), 1);        // the block's own arrival
+      mbar_init(smem_u32(&bars[1 + WGS + i]), 4);  // the other's 4 warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if constexpr (C > 1) cluster_sync();  // every block's barriers are set
+  if (tid == 0) {  // W^T's COLS rows of every atom, once
+    mbar_expect(wbar, G::W_BYTES);
+    for (int a = 0; a < G::ATOMS; ++a)
+      bulk_copy(w_u32 + a * G::PLANE,
+                w + (size_t)(rank * G::ATOMS + a) * G::PLANE, G::PLANE,
+                wbar);
   }
 
-  // per-thread outputs: 4 m16 tiles x NT n8 tiles x 4 values
-  constexpr int KW = K / NWARPS, NT = KW / 8;  // a warp's columns
-  constexpr int NACC = 4 * NT * 4;
-  int acc[NACC];
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) acc[i] = 0;
-  const int g = lane >> 2, t = lane & 3;
-
-  // (row, col) of accumulator i in the tile
-  auto row_of = [&](int i) -> int {
-    return (i / (NT * 4)) * 16 + g + ((i & 3) >= 2 ? 8 : 0);
+  // (row, column) of acc[e] in the item's tile, e = j 4 + i (j the n8
+  // block of the block's columns)
+  auto row_of = [&](int e) { return wl * 16 + g + 8 * ((e & 3) >> 1); };
+  auto col_of = [&](int e) {
+    return (int)rank * G::COLS + 8 * (e >> 2) + 2 * t4 + (e & 1);
   };
-  auto col_of = [&](int i) -> int {
-    return warp * KW + ((i / 4) % NT) * 8 + 2 * t + (i & 1);
-  };
-
-  for (int d = 0; d < DEPTH; ++d) {
-    if constexpr (MODE == INT8I) {  // this product's A: base + d, in s8
-      __syncthreads();  // the previous product's reads of ys are done
-      const uint8_t v = (uint8_t)((seed & 63) + d);
-      for (int i = tid; i < TM * G::YS; i += THREADS) ys[i] = v;
-    } else {
+  int acc[G::NACC];
 #pragma unroll
-      for (int i = 0; i < NACC; ++i) acc[i] = 0;
+  for (int e = 0; e < G::NACC; ++e) acc[e] = 0;
+  auto final_value = [&](int e) -> int {
+    if constexpr (MODE == INT8)
+      return (int)(int8_t)(uint8_t)((uint32_t)(acc[e] >> 7) & 0xffu);
+    else
+      return acc[e];
+  };
+  // y's every byte = v (y0; int8i's constant of each product)
+  auto fill = [&](uint32_t v) {
+    const uint32_t v4 = v * 0x01010101u;
+    uint4* y4 = reinterpret_cast<uint4*>(ys);
+    for (int i = wt; i < G::Y_BYTES / 16; i += 128)
+      y4[i] = make_uint4(v4, v4, v4, v4);
+  };
+  const int clusters = gridDim.x / C, slots = clusters * WGS;
+  const int items = steps * TILES;
+  const uint32_t own = rank * G::OWN * Y_ATOM;  // this block's half of y
+  bool w_ready = false;
+  uint32_t n_full = 0, n_empty = 0;  // phases of full / empty completed
+
+  for (int item = (int)(blockIdx.x / C) * WGS + h; item < items;
+       item += slots) {
+    const int step = item / TILES, tile = item % TILES;
+    int seed;
+    {  // the step's 1,024 bytes, 8 a thread
+      const uint2 q =
+          reinterpret_cast<const uint2*>(x + (size_t)step * XBLOCK)[wt];
+      int s = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        s += (int)((q.x >> (8 * b)) & 0xffu) + (int)((q.y >> (8 * b)) & 0xffu);
+      s = __reduce_add_sync(0xffffffffu, s);
+      if (lane == 0) redi[h][wl] = s;
+      wg_sync(h);  // (the last product's reads of y are done too)
+      seed = redi[h][0] + redi[h][1] + redi[h][2] + redi[h][3];
     }
-    for (int k0 = 0; k0 < K; k0 += G::BK) {
-      __syncthreads();  // the previous chunk is consumed (and y written)
-      stage_w<K>(w, ws, k0);
-      __syncthreads();
-      constexpr int KSTEP = 32;  // k a fragment
-#pragma unroll 1
-      for (int kk = 0; kk < G::BK; kk += KSTEP) {
-        uint32_t b[NT][2];
+    const int base = seed & 63;
+    fill((uint32_t)base);
+    if constexpr (SWAP) {  // all of y0 is here: the first product's phase
+      if (wt == 0) mbar_arrive(full);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    wg_sync(h);  // y is written before the wgmmas read it
+
+    for (int d = 0; d < DEPTH; ++d) {
+      if (!w_ready) {
+        mbar_wait(wbar, 0);
+        w_ready = true;
+      }
+      // ---- the product: y (A) x W^T's planes (B), all from shared
+      // memory, atom a = (i + rank OWN) % ATOMS i-th: the block's own half
+      // of y first
+      const int keep = MODE == INT8I && d > 0;  // int8i sums on
+      auto product = [&](int i0, int i1) {
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const uint8_t* p = ws + (warp * KW + nt * 8 + g) * G::WSS + kk;
-          b[nt][0] = *reinterpret_cast<const uint32_t*>(p + 4 * t);
-          b[nt][1] = *reinterpret_cast<const uint32_t*>(p + 4 * t + KSTEP / 2);
-        }
+        for (int i = i0; i < i1; ++i) {
+          const int a = (i + (int)rank * G::OWN) % G::ATOMS;
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          const uint8_t* p0 = ys + (mt * 16 + g) * G::YS + k0 + kk;
-          const uint8_t* p1 = p0 + 8 * G::YS;
-          const uint32_t a[4] = {
-              *reinterpret_cast<const uint32_t*>(p0 + 4 * t),
-              *reinterpret_cast<const uint32_t*>(p1 + 4 * t),
-              *reinterpret_cast<const uint32_t*>(p0 + 4 * t + KSTEP / 2),
-              *reinterpret_cast<const uint32_t*>(p1 + 4 * t + KSTEP / 2)};
+          for (int kk = 0; kk < KA / 32; ++kk) {
+            const uint64_t da = wgmma_desc(y_u32 + a * Y_ATOM + 32 * kk);
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            const int c = (mt * NT + nt) * 4;
-            mma_s8(acc[c], acc[c + 1], acc[c + 2], acc[c + 3], a, b[nt][0],
-                   b[nt][1]);
+            for (int p = 0; p < G::PARTS; ++p)
+              wgmma_s8<G::WN>(acc + p * (G::WN / 2), da,
+                              wgmma_desc(w_u32 + a * G::PLANE +
+                                         p * G::WN * KA + 32 * kk),
+                              keep || i > 0 || kk > 0);
           }
         }
+        wgmma_commit();
+      };
+      fence_sums(acc);
+      wgmma_fence();
+      if constexpr (SWAP) {  // the other half once it has landed
+        product(0, G::OWN);
+        mbar_wait(full, n_full++ & 1);
+        product(G::OWN, G::ATOMS);
+      } else {
+        product(0, G::ATOMS);
       }
-    }
-    // ---- the product's epilogue: y for the next product (not for int8i,
-    // whose sum stays in acc, nor after the last product)
-    if constexpr (MODE == INT8) {
-      if (d + 1 < DEPTH) {
-        __syncthreads();  // every warp is done reading ys
+      wgmma_wait<0>();
+      fence_sums(acc);
+      if constexpr (SWAP) {
+        // the phase of the other block's next copy; this warp's reads of y
+        // are done: the other block may write its half; once its warps are
+        // done too (and so this block's last copy has landed), this block
+        // may write its own half and send it
+        if (wt == 0 && d + 1 < DEPTH) mbar_expect(full, G::OWN * Y_ATOM);
+        __syncwarp();
+        if (lane == 0) mbar_arrive_at(empty, peer);
+        mbar_wait(empty, n_empty++ & 1);
+      }
+      if (d + 1 == DEPTH) break;
+      wg_sync(h);  // every warp's reads of y are done
+      if constexpr (MODE == INT8) {  // y <- s8(acc >> 7), wrapping
 #pragma unroll
-        for (int i = 0; i < NACC; i += 2) {
-          const int off = row_of(i) * G::YS + col_of(i);
-          const uint32_t lo = (uint32_t)(acc[i] >> 7) & 0xffu;
-          const uint32_t hi = (uint32_t)(acc[i + 1] >> 7) & 0xffu;
-          reinterpret_cast<uint16_t*>(ys)[off / 2] = (uint16_t)(lo | (hi << 8));
+        for (int e = 0; e < G::NACC; e += 2) {
+          const int r = row_of(e), c = col_of(e);
+          const uint32_t lo = (uint32_t)(acc[e] >> 7) & 0xffu;
+          const uint32_t hi = (uint32_t)(acc[e + 1] >> 7) & 0xffu;
+          *reinterpret_cast<uint16_t*>(
+              ys + (c / KA) * Y_ATOM + r * KA +
+              ((((c % KA) >> 4) ^ (r & 7)) << 4) + (c & 15)) =
+              (uint16_t)(lo | (hi << 8));
         }
+      } else {
+        fill((uint32_t)(base + d + 1));
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      wg_sync(h);  // y is written before the wgmmas (and the copy) read it
+      if constexpr (SWAP) {
+        if (wt == 0)
+          bulk_copy_s2s(map_rank(y_u32 + own, peer), y_u32 + own,
+                        G::OWN * Y_ATOM, map_rank(full, peer));
       }
     }
-  }
 
-  // ---- the final y values, as the TPU kernel holds them
-  auto final_value = [&](int i) -> int {
-    if constexpr (MODE == INT8)
-      return (int)(int8_t)(uint8_t)((uint32_t)(acc[i] >> 7) & 0xffu);
-    else
-      return acc[i];
-  };
-
-  if (tile == 0) {  // the output: sum(y[0, 0:128]) over the (8, 128) block
-#pragma unroll
-    for (int i = 0; i < NACC; ++i)
-      if (row_of(i) == 0 && col_of(i) < ROW0) row0[col_of(i)] = final_value(i);
-    __syncthreads();
-    if (warp == 0) {
+    if (tile == 0 && rank == 0 && wl == 0) {
+      // the output: sum(y[0, 0:128]) over the (8, 128) block, exactly
       long long v = 0;
-      for (int q = 0; q < 4; ++q) v += row0[4 * lane + q];
+#pragma unroll
+      for (int e = 0; e < 64; ++e)
+        if ((e & 3) < 2 && g == 0) v += final_value(e);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
       const float s = (float)v;
@@ -392,68 +610,135 @@ dot_chain_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
       for (int i = lane; i < XBLOCK / 4; i += 32)
         o4[i] = make_float4(s, s, s, s);
     }
-  }
-
-  if constexpr (!CHECK) {
-    // every final value stays live: one block (a runtime index, -1 for
-    // none) stores their sum, so the compiler cannot drop the rows and
-    // columns of the last product that the output does not read
-    if (step * TILES + tile == sink_at) {
-      float v = 0.f;
+    if constexpr (!CHECK) {
+      // every final value stays live: the warpgroups of item sink_at (a
+      // runtime index, -1 for none) add their sum to sink
+      if (item == sink_at) {
+        float v = 0.f;
 #pragma unroll
-      for (int i = 0; i < NACC; ++i) v += (float)final_value(i);
-      atomicAdd(sink, v);
-    }
-  } else {
-    Mom m0 = 0, m1 = 0, m2 = 0;
+        for (int e = 0; e < G::NACC; ++e) v += (float)final_value(e);
+        atomicAdd(sink, v);
+      }
+    } else {
+      // the moments of the item's final values, int64 modulo 2^64: any
+      // order of the adds gives the same bits
+      Mom m0 = 0, m1 = 0, m2 = 0;
 #pragma unroll
-    for (int i = 0; i < NACC; ++i) {
-      const int idx = (tile * TM + row_of(i)) * K + col_of(i);
-      const Mom u = (Mom)(long long)final_value(i);
-      m0 += u;
-      m1 += u * u;
-      m2 += (Mom)(idx % POS_PERIOD) * u;
-    }
-    m0 = block_sum<Mom>(m0, redm);
-    m1 = block_sum<Mom>(m1, redm);
-    m2 = block_sum<Mom>(m2, redm);
-    if (tid == 0) {
-      Mom* mo = moments + ((size_t)step * TILES + tile) * 3;
-      mo[0] = m0;
-      mo[1] = m1;
-      mo[2] = m2;
+      for (int e = 0; e < G::NACC; ++e) {
+        const int idx = (tile * TM + row_of(e)) * K + col_of(e);
+        const Mom u = (Mom)(long long)final_value(e);
+        m0 += u;
+        m1 += u * u;
+        m2 += (Mom)(idx % POS_PERIOD) * u;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        m0 += __shfl_xor_sync(0xffffffffu, m0, o);
+        m1 += __shfl_xor_sync(0xffffffffu, m1, o);
+        m2 += __shfl_xor_sync(0xffffffffu, m2, o);
+      }
+      if (lane == 0) {
+        Mom* mo = moments + ((size_t)step * TILES + tile) * 3;
+        atomicAdd(mo, m0);
+        atomicAdd(mo + 1, m1);
+        atomicAdd(mo + 2, m2);
+      }
     }
   }
+  if (!w_ready) mbar_wait(wbar, 0);  // no block leaves with W in flight
+  // ... nor while the other block may still copy into it or arrive on it
+  if constexpr (C > 1) cluster_sync();
 }
 
-template <int MODE, int K, bool CHECK>
-int launch8(const void* x, const void* w, void* out, void* moments,
-            int steps, void* sink, int sink_at, cudaStream_t s) {
-  auto kern = dot_chain_kernel<MODE, K, CHECK>;
-  const int smem = Geo8<K>::SMEM;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+using Kernel = void (*)(const uint8_t*, const uint8_t*, float*,
+                        unsigned long long*, float*, int, int);
+
+template <int K>
+Kernel entry_k(int mode, bool check) {
+  if (mode == INT8)
+    return check ? chain_kernel<INT8, K, true> : chain_kernel<INT8, K, false>;
+  return check ? chain_kernel<INT8I, K, true> : chain_kernel<INT8I, K, false>;
+}
+Kernel entry(int K, int mode, bool check) {
+  return K == 384 ? entry_k<384>(mode, check) : entry_k<512>(mode, check);
+}
+
+struct Shape {
+  int cluster, smem, w_bytes;
+};
+template <int K>
+constexpr Shape shape_of() {
+  return {Geo<K>::C, Geo<K>::SMEM, Geo<K>::W_BYTES};
+}
+Shape shape(int K) { return K == 384 ? shape_of<384>() : shape_of<512>(); }
+
+cudaLaunchConfig_t config(int K, int clusters, cudaStream_t stream,
+                          cudaLaunchAttribute* attr) {
+  const Shape sh = shape(K);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(sh.cluster * clusters, 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = sh.smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = sh.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// the clusters the card runs at once at K, asked once a device (the
+// attributes of every instantiation set with it)
+constexpr int kMaxDevices = 64;
+std::atomic<int> g_active[kMaxDevices][2];  // [dev][K]
+
+cudaError_t active_clusters(int K, int* active) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::atomic<int>& slot = g_active[dev][K == 512];
+  if (!slot.load()) {
+    for (int mode : {INT8, INT8I})
+      for (bool check : {false, true}) {
+        e = cudaFuncSetAttribute(entry(K, mode, check),
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 shape(K).smem);
+        if (e != cudaSuccess) return e;
+      }
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = config(K, 1, nullptr, attr);
+    int n = 0;
+    e = cudaOccupancyMaxActiveClusters(&n, entry(K, INT8, false), &cfg);
+    if (e != cudaSuccess) return e;
+    if (n < 1) return cudaErrorInvalidConfiguration;
+    slot.store(n);
+  }
+  *active = slot.load();
+  return cudaSuccess;
+}
+
+int launch(const void* x, const void* w, void* out, void* moments, int steps,
+           int K, int mode, void* sink, int sink_at, cudaStream_t s) {
+  int active = 0;
+  cudaError_t e = active_clusters(K, &active);
   if (e != cudaSuccess) return (int)e;
-  kern<<<dim3(TILES, steps), THREADS, smem, s>>>(
-      static_cast<const uint8_t*>(x), static_cast<const uint8_t*>(w),
-      static_cast<float*>(out), static_cast<unsigned long long*>(moments),
-      static_cast<float*>(sink), sink_at);
-  return (int)cudaGetLastError();
+  const int items = steps * TILES, need = (items + WGS - 1) / WGS;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      config(K, active < need ? active : need, s, attr);
+  e = cudaLaunchKernelEx(&cfg, entry(K, mode, moments != nullptr),
+                         static_cast<const uint8_t*>(x),
+                         static_cast<const uint8_t*>(w),
+                         static_cast<float*>(out),
+                         static_cast<unsigned long long*>(moments),
+                         static_cast<float*>(sink), sink_at, steps);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-template <int MODE>
-int launch_mode8(const void* x, const void* w, void* out, void* moments,
-                 int steps, int K, void* sink, int sink_at, cudaStream_t s) {
-  if (moments)
-    return K == 384 ? launch8<MODE, 384, true>(x, w, out, moments, steps,
-                                               sink, sink_at, s)
-                    : launch8<MODE, 512, true>(x, w, out, moments, steps,
-                                               sink, sink_at, s);
-  return K == 384 ? launch8<MODE, 384, false>(x, w, out, moments, steps,
-                                              sink, sink_at, s)
-                  : launch8<MODE, 512, false>(x, w, out, moments, steps,
-                                              sink, sink_at, s);
-}
+}  // namespace chain8
 
 // ---------------------------------------------------------------- f32
 // The f32 chain on clusters of C = 2 blocks a tile (mode 0; see the notes at
@@ -1318,12 +1603,15 @@ int launch(const void* x, const void* w, void* out, void* moments,
 // x: (steps * 8, 128) uint8; w: for mode 0, W^T split hi / lo, (K / 32)
 // chunks of (2, K, 32) f32 in the 128-byte swizzle (ops/cuda_dot_chain.
 // pack_weights: chunk c, plane, row n, 16-byte unit u of W^T[n, 32 c + 4 u
-// ...] at unit u ^ (n % 8)); W^T (n-major) in s8 for modes 2, 3; for mode
-// 1 W^T in bf16 in chain16's chunk layout (atom a, row n, 16-byte unit u
-// of W^T[n, 64 a + 8 u ...] at unit u ^ (n % 8)); 16-byte aligned; out:
-// (steps, 8, 128) f32; moments: nullptr, or the check instantiation's
-// doubles (modes 0, 1) or int64 (modes 2, 3): (steps, 6, 3), in mode 0
-// (steps, 6, 2, 3), one triple a block of the cluster; trace: the check
+// ...] at unit u ^ (n % 8)); for modes 2, 3 W^T in s8 in chain8's layout
+// (block rank r of the cluster's C, atom a, row n of its K / C, 16-byte
+// unit u of W^T[r K / C + n, 128 a + 16 u ...] at unit u ^ (n % 8)); for
+// mode 1 W^T in bf16 in chain16's chunk layout (atom a, row n, 16-byte
+// unit u of W^T[n, 64 a + 8 u ...] at unit u ^ (n % 8)); 16-byte aligned;
+// out: (steps, 8, 128) f32; moments: nullptr, or the check instantiation's
+// doubles (modes 0, 1) or int64 (modes 2, 3, zeroed by the caller: the
+// kernel adds into them): (steps, 6, 3), in mode 0 (steps, 6, 2, 3), one
+// triple a block of the cluster; trace: the check
 // instantiation's (steps, 6, 14, K) bf16 in mode 1, else unused; sink: one
 // f32 that the timed instantiation's block(s) of item sink_at (step * 6 +
 // tile; -1: none) add the sum of their final values to. mode: 0 f32, 1
@@ -1348,12 +1636,9 @@ extern "C" int dot_chain(const void* x, const void* w, void* out,
     case BF16:
       return chain16::launch(x, w, out, moments, trace, steps, K, variant,
                              sink, sink_at, s);
-    case INT8:
-      return launch_mode8<INT8>(x, w, out, moments, steps, K, sink, sink_at,
-                                s);
     default:
-      return launch_mode8<INT8I>(x, w, out, moments, steps, K, sink, sink_at,
-                                 s);
+      return chain8::launch(x, w, out, moments, steps, K, mode, sink,
+                            sink_at, s);
   }
 }
 
@@ -1372,21 +1657,25 @@ extern "C" int dot_chain_f32_stop(const void* x, const void* w, void* out,
                          static_cast<cudaStream_t>(stream));
 }
 
-// mode 0's or 1's launch at K on the current card, variant as dot_chain
-// takes it; out[0..7]: the cluster size, ring stages (mode 0: units, one
-// plane of a chunk each), dynamic shared memory bytes a block, bytes a
-// stage, threads a block, the clusters of that size the card runs at once,
-// the SMs they cover and the card's SMs. Returns the cudaError_t of the
-// occupancy query.
+// a mode's launch at K on the current card, variant as dot_chain takes
+// it; out[0..7]: the cluster size, ring stages (mode 0: units, one plane of
+// a chunk each; modes 2, 3: 1, W^T's planes resident), dynamic shared
+// memory bytes a block, bytes a stage (modes 2, 3: the block's W^T
+// planes), threads a block, the clusters of that size the card runs at
+// once, the SMs they cover and the card's SMs. Returns the cudaError_t of
+// the occupancy query.
 extern "C" int dot_chain_plan(int K, int mode, int variant, int* out) {
-  if ((K != 384 && K != 512) || (mode != F32 && mode != BF16) ||
-      !(mode == F32 ? variant == 0 : chain16::variant_ok(variant)))
+  if ((K != 384 && K != 512) || mode < F32 || mode > INT8I ||
+      !(mode == BF16 ? chain16::variant_ok(variant) : variant == 0))
     return (int)cudaErrorInvalidValue;
   int C = 0, active = 0, dev = 0, sms = 0;
   cudaError_t e = cudaSuccess;
   if (mode == F32) {
     C = chain32::C;
     e = chain32::active_clusters(K, &active);
+  } else if (mode != BF16) {
+    C = chain8::shape(K).cluster;
+    e = chain8::active_clusters(K, &active);
   } else {
     e = chain16::resolve(K, variant, &C);
     if (e == cudaSuccess) e = chain16::active_clusters(K, C, &active);
@@ -1399,12 +1688,14 @@ extern "C" int dot_chain_plan(int K, int mode, int variant, int* out) {
   chain32::Shape f = {};
   if (mode == F32)
     f = chain32::shape(K);
+  else if (mode != BF16)
+    f = {1, chain8::shape(K).smem, chain8::shape(K).w_bytes};
   else
     f = {k384 ? chain16::Geo<384>::STAGES : chain16::Geo<512>::STAGES,
          chain16::smem_of(K),
          k384 ? chain16::Geo<384>::CHUNK : chain16::Geo<512>::CHUNK};
   const int fields[] = {C,      f.units,    f.smem, f.unit,
-                        mode == F32 ? THREADS : chain16::THREADS,
+                        mode == BF16 ? chain16::THREADS : THREADS,
                         active, active * C, sms};
   for (int i = 0; i < 8; ++i) out[i] = fields[i];
   return 0;

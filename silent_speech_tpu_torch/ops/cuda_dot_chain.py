@@ -66,6 +66,23 @@ choice of cluster size on the card, :func:`bf16_geometry` mirrors its
 shared memory; every cluster size (``cluster`` of :func:`dot_chain`)
 computes the same bits. Its CPU tests (the geometry, the packing) are
 tests/test_torch_dot_chain_bf16.py.
+
+**The s8 kernel** (int8 and int8i; csrc/dot_chain.cu, namespace chain8).
+What bounds it is the s8 multiply-adds (0.205 / 0.365 ms at K=384 / 512
+for 256 steps at 1,979 TOP/s). W^T stays in shared memory for the life of a
+persistent block, brought from L2 once by TMA: packed by
+:func:`pack_weights` in wgmma's 128-byte swizzle (128 k an atom), all of it
+at K=384 and half of its rows in each block of a cluster of 2 at K=512
+(:func:`s8_geometry`). Each of a block's two warpgroups walks its own
+(step, tile) items (slot i, i + slots, ...; :func:`s8_walk`) with its own
+64-row y tile: a product is one group of wgmma m64n192k32 / m64n256k32 s8
+reading y and W^T from shared memory, the sums in registers, then y
+narrowed in place ((acc >> 7) & 0xff, a wrap) or, for int8i, refilled with
+the next constant while the sums go on. At K=512 the two blocks of a pair swap their new halves of y
+by a bulk copy between their shared memories after every int8 product.
+:func:`plan` reads its launch on the card. Its CPU test (a numpy model of
+the index maps through exact integer products, the geometry, the item
+walk) is tests/test_torch_dc_s8_tc.py.
 """
 
 from __future__ import annotations
@@ -186,12 +203,63 @@ def f32_geometry(K: int) -> F32Geometry:
                        BF16_ALIGN + units * unit + y + 16 * units)
 
 
+# the s8 chains' geometry (csrc/dot_chain.cu, namespace chain8), which
+# s8_geometry mirrors: S8_WARPGROUPS warpgroups a block, an item each; W^T
+# in atoms of S8_KA k (one 128-byte swizzle row an n); clusters of 1 block
+# at K=384 and 2 at K=512, each block holding K / cluster of W^T's rows
+S8_WARPGROUPS, S8_KA, S8_THREADS = 2, 128, 256
+
+
+class S8Geometry(NamedTuple):
+    """The s8 chains' launch shape at K (:func:`s8_geometry`): blocks a
+    ``cluster``, each block's ``cols`` of every product, the wgmmas' n
+    (``width``) and their number a k32 step (``parts``), the ``atoms`` of
+    128 k, a block's W^T bytes (``w_bytes``), a warpgroup's ``y`` tile
+    bytes, the block's dynamic ``smem`` bytes and a thread's s32 sums
+    (``sums``)."""
+
+    cluster: int
+    cols: int
+    width: int
+    parts: int
+    atoms: int
+    w_bytes: int
+    y_bytes: int
+    smem: int
+    sums: int
+
+
+def s8_geometry(K: int) -> S8Geometry:
+    """csrc/dot_chain.cu's ``chain8::Geo<K>``."""
+    if K not in KS:
+        raise ValueError(f"the s8 kernel takes K in {KS}, got {K}")
+    cluster = 1 if K == 384 else 2
+    cols, width = K // cluster, K // 2
+    atoms = K // S8_KA
+    w_bytes, y = atoms * cols * S8_KA, TM * K
+    return S8Geometry(cluster, cols, width, cols // width, atoms, w_bytes, y,
+                      BF16_ALIGN + w_bytes + S8_WARPGROUPS * y, cols // 2)
+
+
+def s8_walk(steps: int, active: int) -> list[range]:
+    """The items (step * TILES + tile) each warpgroup slot of the s8
+    chains' launch runs, in order, on a card that runs ``active`` clusters
+    at once (:attr:`Plan.clusters`): min(active, ceil(items / 2)) clusters
+    (csrc/dot_chain.cu's ``chain8::launch``), warpgroup h of cluster i the
+    slot i S8_WARPGROUPS + h, its items slot, slot + slots, ... (every
+    block of the cluster runs them)."""
+    items = steps * TILES
+    slots = min(active, -(-items // S8_WARPGROUPS)) * S8_WARPGROUPS
+    return [range(slot, items, slots) for slot in range(slots)]
+
+
 class Plan(NamedTuple):
-    """The f32 or bf16 chain's launch on the card (csrc/dot_chain.cu's
-    dot_chain_plan): blocks a ``cluster``, ring ``stages``, dynamic
-    ``smem`` bytes a block, ``chunk`` bytes, ``threads`` a block, the
-    ``clusters`` of that size the card runs at once, the SMs they cover
-    (``sms_used``) and the card's ``sms``."""
+    """A chain's launch on the card (csrc/dot_chain.cu's dot_chain_plan):
+    blocks a ``cluster``, ring ``stages``, dynamic ``smem`` bytes a block,
+    ``chunk`` bytes, ``threads`` a block, the ``clusters`` of that size the
+    card runs at once, the SMs they cover (``sms_used``) and the card's
+    ``sms``. The s8 chains hold W^T: one stage, ``chunk`` the block's W^T
+    bytes."""
 
     cluster: int
     stages: int
@@ -235,15 +303,15 @@ def _variant(cluster: int, mode: str = "bf16") -> int:
 
 
 def plan(K: int, cluster: int = 0, device=None, mode: str = "bf16") -> Plan:
-    """The ``mode`` (f32 or bf16) chain's launch at K on a card (the
-    current one by default); bf16's ``cluster`` 0 for the kernel's choice
-    (the largest cluster whose clusters cover at least 15/16 of the SMs at
-    once). For f32, ``stages`` and ``chunk`` are the ring's units and a
-    unit's bytes (:class:`F32Geometry`)."""
+    """The ``mode`` chain's launch at K on a card (the current one by
+    default); bf16's ``cluster`` 0 for the kernel's choice (the largest
+    cluster whose clusters cover at least 15/16 of the SMs at once). For
+    f32, ``stages`` and ``chunk`` are the ring's units and a unit's bytes
+    (:class:`F32Geometry`); for int8 and int8i one stage of the block's W^T
+    (:class:`S8Geometry`)."""
     if K not in KS:
         raise ValueError(f"the kernel takes K in {KS}, got {K}")
-    if mode not in ("f32", "bf16"):
-        raise ValueError(f"plan is the f32 and bf16 chains', not {mode!r}'s")
+    _check_mode(mode, K)
     variant = _variant(cluster, mode)
     device = torch.device("cuda" if device is None else device)
     index = torch.cuda.current_device() if device.index is None \
@@ -276,17 +344,27 @@ def pack_weights(w: torch.Tensor, mode: str) -> torch.Tensor:
     the kernel splits (hi = TF32(w), lo = TF32(w - hi)), (2 K, K) f32 in
     the f32 chain's chunk layout: chunk c (32 k-columns) after chunk, the
     hi plane then the lo plane, each n's 128 bytes in turn, its 16-byte
-    unit u (W^T[n, 32 c + 4 u ... + 3]) stored at unit u ^ (n % 8); W
-    transposed (n-major) in int8 for the int modes, (K, K); for ``bf16`` W
-    transposed in bf16, (K, K), in the chain's chunk layout: atom a (64
-    k-columns) after atom, each n's 128 bytes in turn, its 16-byte unit u
-    (W^T[n, 64 a + 8 u ... + 7]) stored at unit u ^ (n % 8), so that a
-    chunk is one contiguous copy in wgmma's 128-byte swizzle."""
-    if mode.startswith("int8"):
-        return w.t().to(torch.int8).contiguous()
+    unit u (W^T[n, 32 c + 4 u ... + 3]) stored at unit u ^ (n % 8); for
+    the int modes W transposed in int8, (K, K), in the s8 chains' layout:
+    for each block r of the cluster (:func:`s8_geometry`: its rows r cols
+    ... of W^T) atom a (128 k-columns) after atom, each of its n's 128
+    bytes in turn, its 16-byte unit u (W^T[r cols + n, 128 a + 16 u ...
+    + 15]) stored at unit u ^ (n % 8), so that a block's planes are one
+    contiguous run in wgmma's 128-byte swizzle; for ``bf16`` W transposed
+    in bf16, (K, K), in the chain's chunk layout: atom a (64 k-columns)
+    after atom, each n's 128 bytes in turn, its 16-byte unit u (W^T[n, 64
+    a + 8 u ... + 7]) stored at unit u ^ (n % 8), so that a chunk is one
+    contiguous copy in wgmma's 128-byte swizzle."""
     K = w.shape[0]
     n = torch.arange(K, device=w.device)[:, None]
     swizzle = torch.arange(8, device=w.device)[None, :] ^ (n % 8)
+    if mode.startswith("int8"):
+        geo = s8_geometry(K)
+        units = w.t().to(torch.int8).reshape(geo.cluster, geo.cols,
+                                             geo.atoms, 8, 16)
+        units = units.permute(0, 2, 1, 3, 4)[:, :, n[:geo.cols],
+                                             swizzle[:geo.cols]]
+        return units.reshape(K, K).contiguous()
     if mode == "f32":
         wt = w.t().to(torch.float32).contiguous()
         hi = tf32_round(wt)
@@ -410,6 +488,19 @@ def chain_moments(y: torch.Tensor) -> torch.Tensor:
                         (v * idx).sum(dim=1)], dim=1)
 
 
+def tile_moments(y: torch.Tensor) -> torch.Tensor:
+    """(steps, TILES, 3) moments of each 64-row tile of each step's final
+    y, i the row-major index in the step's (384, K) y, as the s8 kernel's
+    check instantiation writes them (integer y: int64 modulo 2^64)."""
+    steps, _, K = y.shape
+    flat = y.reshape(steps, TILES, TM * K)
+    idx = (torch.arange(M * K, device=y.device) % POS_PERIOD).reshape(
+        TILES, TM * K)
+    v = flat.to(torch.int64 if not y.is_floating_point() else torch.float64)
+    return torch.stack([v.sum(dim=2), (v * v).sum(dim=2),
+                        (v * idx).sum(dim=2)], dim=2)
+
+
 def dot_chain(x: torch.Tensor, w: torch.Tensor, mode: str, *,
               impl: str = "auto", packed: Optional[torch.Tensor] = None,
               check: bool = False, cluster: int = 0):
@@ -433,6 +524,18 @@ def dot_chain(x: torch.Tensor, w: torch.Tensor, mode: str, *,
             return out
         return out, chain_moments(y), \
             trace_plain(x, w) if mode == "bf16" else None
+    out, mom, trace = _launch(x, w, mode, packed, check, variant)
+    if not check:
+        return out
+    return out, mom.sum(dim=1), trace
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, mode: str,
+            packed: Optional[torch.Tensor], check: bool, variant: int):
+    """One launch of the kernel: the output and, for the check
+    instantiation, its moments as the kernel writes them ((steps, TILES,
+    3), f32: (steps, 2 TILES, 3)) and bf16's trace."""
+    K, steps = w.shape[0], _steps(x)
     if K not in KS:
         raise ValueError(f"the kernel takes K in {KS}, got {K}")
     if packed is None:
@@ -449,11 +552,13 @@ def dot_chain(x: torch.Tensor, w: torch.Tensor, mode: str, *,
                          "aligned")
     out = torch.empty((steps, 8, 128), dtype=torch.float32, device=x.device)
     mom = None
-    if check:
+    if check and mode.startswith("int8"):  # the kernel adds into them
+        mom = torch.zeros((steps, TILES, 3), dtype=torch.int64,
+                          device=x.device)
+    elif check:
         parts = F32_CLUSTER if mode == "f32" else 1
         mom = torch.empty((steps, TILES * parts, 3), device=x.device,
-                          dtype=torch.int64 if mode.startswith("int8")
-                          else torch.float64)
+                          dtype=torch.float64)
     trace = None
     if check and mode == "bf16":
         trace = torch.empty((steps, TILES, DEPTH, K), dtype=torch.bfloat16,
@@ -466,9 +571,7 @@ def dot_chain(x: torch.Tensor, w: torch.Tensor, mode: str, *,
                       null if trace is None else _kernels.ptr(trace),
                       _kernels.ptr(sink), -1, steps, K, _MODE_CODE[mode],
                       variant, _kernels.stream_ptr(x.device))
-    if not check:
-        return out
-    return out, mom.sum(dim=1), trace
+    return out, mom, trace
 
 
 def dot_chain_f32_stop(x: torch.Tensor, w: torch.Tensor, stop: str, *,
@@ -638,12 +741,19 @@ def check_rounding(trace: torch.Tensor, x: torch.Tensor,
 def check(x: torch.Tensor, w: torch.Tensor, mode: str, *,
           packed: Optional[torch.Tensor] = None) -> dict:
     """The kernel against the plain version on x's device: the check
-    instantiation's output and moments (:func:`compare`) and, in bf16, its
+    instantiation's output and moments (:func:`compare`; the int modes'
+    also tile by tile, :func:`tile_moments`, bitwise) and, in bf16, its
     trace (:func:`check_rounding`); then the timed instantiation's output,
     which must be bitwise the check instantiation's."""
-    out, mom, trace = dot_chain(x, w, mode, impl="kernel", packed=packed,
-                                check=True)
-    r = compare(out, mom, chain_plain(x, w.to(x.device), mode), mode)
+    _check_w(w, mode)
+    if not x.is_cuda:
+        raise ValueError("check holds the kernel: x on the card")
+    out, tiles, trace = _launch(x, w, mode, packed, True, 0)
+    y = chain_plain(x, w.to(x.device), mode)
+    r = compare(out, tiles.sum(dim=1), y, mode)
+    if mode.startswith("int8") and not torch.equal(tiles, tile_moments(y)):
+        raise RuntimeError(f"dot_chain {mode}: a tile's moments are off the "
+                           "plain version's")
     if trace is not None:
         check_rounding(trace, x, w)
     timed = dot_chain(x, w, mode, impl="kernel", packed=packed)

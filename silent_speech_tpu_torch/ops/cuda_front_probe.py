@@ -1,9 +1,19 @@
 """Micro-kernels of the ROI CNN's input front (csrc/roi_front_probe.cu) and
 their plain versions: the port of the Pallas probe kernels of
-scripts/probe_front.py (``_probe_kernel``, built by ``build``), at the
-block geometry of K1's first design (one 288-thread block a frame, one
-16-byte load a thread, a (50 x 98) zero-haloed image in shared memory), not
-the TPU's.
+scripts/probe_front.py (``_probe_kernel``, built by ``build``), not at the
+TPU's block geometry. The ladder (:data:`LADDER`: ``dma_ring``, ``widen``,
+``front``, ``front_std``) runs on K1's persistent geometry, one for every
+rung (:func:`ring_geometry`): one wave of 288-thread blocks (:func:`plan`
+on the card), block b walking frames b, b + blocks, ...
+(:func:`frame_walk`), each frame brought by a TMA bulk copy into a ring of
+:data:`RING_SLOTS` shared-memory slots, a warp's 512 pixels one byte a lane
+and step, a (50 x 98) zero-haloed image double-buffered, its halo zeroed
+once. The /255 is a product and one FMA of its residual, bitwise ``b /
+255.0f``, and so is the standardization's division by the frame's std (a
+correctly rounded quotient). tests/test_torch_front_probe_tc.py models the
+thread maps, the frame walk and the /255 in numpy. ``dma`` (1, 2 or 4
+frames a block) and the overlap pair keep K1's first design (one 288-thread
+block a frame, one 16-byte load a thread).
 
 ``front_widen`` and ``front_classes`` are the port's copies of the JAX
 package's ``ops/pallas_cnn2._front_widen`` and ``_front_classes`` (:348,
@@ -23,6 +33,8 @@ plain versions, so each stage can be held against it.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -35,10 +47,15 @@ THREADS = 288
 CHAIN_ACC, CHAIN_LEN = 8, 1152  # csrc/roi_front_probe.cu: K1's 2,654,208 FMAs
 # stage -> the kernel's code; dma takes 1, 2 or 4 frames a block, the others 1
 STAGES = {"dma": 0, "widen": 1, "front": 2, "front_std": 3, "overlap_a": 4,
-          "overlap_b": 5}
+          "overlap_b": 5, "dma_ring": 6}
 DMA_FRAMES = (1, 2, 4)  # the counterparts of F_TILE 16, 32, 64
-LADDER = ("dma", "widen", "front", "front_std")  # the cumulative rungs
-SCALAR = ("dma", "overlap_b")  # one value a block; the others three moments
+# the cumulative rungs, on the persistent geometry
+LADDER = ("dma_ring", "widen", "front", "front_std")
+SCALAR = ("dma", "dma_ring", "overlap_b")  # one value a block; else moments
+# the ladder's ring, every rung's: frames in flight a block, beside two
+# images (three blocks an SM)
+RING_SLOTS = 7
+XP_W, XP_SIZE = W0 + 2, (H0 + 2) * (W0 + 2)  # K1's haloed image
 
 PROBE = _kernels.Kernel(
     "roi_front_probe", "roi_front_probe",
@@ -46,6 +63,70 @@ PROBE = _kernels.Kernel(
      ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n, stage, frames a block
      ctypes.c_float, ctypes.c_float,     # the chain's runtime 1 and 0
      ctypes.c_void_p])                   # stream
+
+
+class RingGeometry(NamedTuple):
+    """The ladder's block (:func:`ring_geometry`): ring ``slots``,
+    dynamic ``smem`` bytes, ``threads``."""
+
+    slots: int
+    smem: int
+    threads: int
+
+
+class RingPlan(NamedTuple):
+    """The ladder's launch on the card (:func:`plan`), every rung's: the ``blocks``
+    of one wave, the block's ring ``slots``, dynamic ``smem`` bytes and
+    ``threads``, the card's ``sms``."""
+
+    blocks: int
+    slots: int
+    smem: int
+    threads: int
+    sms: int
+
+
+def ring_geometry() -> RingGeometry:
+    """csrc/roi_front_probe.cu's ring, every rung's: RING_SLOTS frames,
+    then two 16-byte aligned images (which dma_ring and widen reserve
+    unused, so that each rung's delta is its work alone)."""
+    image = 16 * -(-XP_SIZE // 4)
+    return RingGeometry(RING_SLOTS, RING_SLOTS * FRAME_BYTES + 2 * image,
+                        THREADS)
+
+
+def frame_walk(n: int, blocks: int) -> list[range]:
+    """The frames each block of the ladder's launch takes, in order, at N=n
+    on a card whose wave is ``blocks``: min(blocks, n) blocks, block b the
+    ``count`` frames b, b + grid, ... (csrc/roi_front_probe.cu's launch
+    and ring_kernel)."""
+    grid = min(blocks, n)
+    return [range(b, b + grid * ((n - b + grid - 1) // grid), grid)
+            for b in range(grid)]
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(device: int) -> RingPlan:
+    lib = _kernels.library()
+    fn = lib.roi_front_probe_plan
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        err = fn(out)
+    if err:
+        raise RuntimeError(f"roi_front_probe_plan: CUDA error {err}: "
+                           f"{lib.sst_cuda_error_string(err).decode()}")
+    return RingPlan(*out)
+
+
+def plan(device=None) -> RingPlan:
+    """The ladder's launch, every rung's, on a card (the current one by
+    default): one wave of blocks, the fewest an SM that any rung fits."""
+    device = torch.device("cuda" if device is None else device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return _plan(index)
 
 
 def front_widen(x: torch.Tensor, front: str = "u8") -> torch.Tensor:
@@ -112,15 +193,16 @@ def _image(stage: str, x: torch.Tensor, blocks: int) -> torch.Tensor:
 
 def probe_plain(stage: str, x: torch.Tensor, F: int = 1) -> torch.Tensor:
     """The plain version of each stage's per-block values: (blocks,) int32
-    for dma (the bits of the wrapping uint32 sum of the block's 32-bit
-    words), (blocks,) f32 for overlap_b (the sum of its chains), else
-    (blocks, 3) f32, the moments of the values the stage built (overlap_a:
-    the chains' sum, equal to the image's, added to the first)."""
+    for dma and dma_ring (the bits of the wrapping uint32 sum of the
+    block's 32-bit words), (blocks,) f32 for overlap_b (the sum of its
+    chains), else (blocks, 3) f32, the moments of the values the stage
+    built (overlap_a: the chains' sum, equal to the image's, added to the
+    first)."""
     blocks = _check(stage, x, F)
     if stage == "overlap_b":  # byte i % 4 + i seeds accumulator i
         return (x.to(torch.float32).sum(dim=1) * (THREADS * CHAIN_ACC // 4)
                 + THREADS * sum(range(CHAIN_ACC)))
-    if stage == "dma":
+    if stage in ("dma", "dma_ring"):
         words = x.reshape(blocks, -1).view(torch.int32).to(torch.int64)
         s = words.sum(dim=1) & 0xFFFFFFFF
         return (s - ((s >> 31) << 32)).to(torch.int32)  # the uint32 bits
@@ -147,14 +229,14 @@ def probe(stage: str, x: torch.Tensor, F: int = 1, *,
         PROBE.launch(_kernels.ptr(x), _kernels.ptr(out), blocks * F,
                      STAGES[stage], F, 1.0, 0.0,
                      _kernels.stream_ptr(x.device))
-    return out.view(torch.int32) if stage == "dma" else out
+    return out.view(torch.int32) if stage in ("dma", "dma_ring") else out
 
 
 def bar(stage: str, x: torch.Tensor, F: int = 1) -> torch.Tensor:
     """The bar of a stage's values against the plain version, shaped as
-    they are: 0 for the integer sums (dma, overlap_b), else 1e-5 of each
-    moment's sum of absolute terms (f32 sums of 4,608 to 4,900 terms in
-    another order than the plain version's float64)."""
+    they are: 0 for the integer sums (dma, dma_ring, overlap_b), else 1e-5
+    of each moment's sum of absolute terms (f32 sums of 4,608 to 4,900
+    terms in another order than the plain version's float64)."""
     blocks = _check(stage, x, F)
     if stage in SCALAR:
         return torch.zeros(blocks)

@@ -4,17 +4,21 @@ scripts/probe_front.py).
     python -m silent_speech_tpu_torch.scripts.probe_front [N] \\
         [device=cuda] [iters=30]
 
-Micro-kernels (csrc/roi_front_probe.cu, ops/cuda_front_probe.py) at the
-block geometry of K1's first design (one 288-thread block a frame, one
-16-byte load a thread, a (50 x 98) haloed image in shared memory), read as a
-cumulative ladder: ``dma`` the load alone; ``widen`` + u8 -> f32 and /255;
-``front`` + the zero-haloed shared-memory store (the live front);
-``front_std`` + K1's per-frame standardization (the training front). Then:
-``dma`` at 1, 2 and 4 frames a block (the counterparts of F_TILE 16, 32,
-64): flat times mean a bandwidth-bound stream, times that grow with the
-block count a per-block latency floor; the overlap pair, A the live front
-then a chain of FMAs as long as K1's arithmetic a frame, B the chain alone:
-A - B is what the front costs beside K1-sized arithmetic. Every stage's
+Micro-kernels (csrc/roi_front_probe.cu, ops/cuda_front_probe.py) read as
+a cumulative ladder on K1's persistent geometry, one for every rung (one
+wave of 288-thread blocks walking the frames, each frame brought into a
+ring of 7 shared-memory slots by a TMA bulk copy, beside two (50 x 98)
+haloed images in shared memory), so that each rung's delta is its work:
+``dma_ring`` the load alone; ``widen`` + u8 -> f32 and /255 (bitwise K1's
+division); ``front`` + the zero-haloed shared-memory store (the live
+front); ``front_std`` + K1's per-frame standardization (the training
+front). Then, at K1's first geometry (one 288-thread block a frame, one
+16-byte load a thread): ``dma`` at 1, 2 and 4 frames a block (the
+counterparts of F_TILE 16, 32, 64): flat times mean a bandwidth-bound
+stream, times that grow with the block count a per-block latency floor; the
+overlap pair, A the live front then a chain of FMAs as long as K1's
+arithmetic a frame, B the chain alone: A - B is what the front costs
+beside K1-sized arithmetic. Every stage's
 per-block values are held against their plain version. The micro-kernels
 run for tens of microseconds, less than the host takes to launch a call,
 so a row's ``ms`` is the device time of a call with the host's launches
@@ -79,12 +83,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         out[name] = r["ms"]
         return r["ms"]
 
-    print(f"== front ladder ({N} frames, {mb:.2f} MB u8 in, K1's block: one "
-          f"frame, 288 threads) ==", flush=True)
+    print(f"== front ladder ({N} frames, {mb:.2f} MB u8 in, K1's persistent "
+          f"blocks of 288 threads, a ring of {fp.RING_SLOTS} frames each) ==",
+          flush=True)
     for stage in fp.LADDER:
         rung(stage, stage, x_in, stream_bytes=x_in.numel())
-    print(f"== dma vs frames a block (the same {mb:.2f} MB stream) ==",
-          flush=True)
+    print(f"== dma vs frames a block (the same {mb:.2f} MB stream; K1's "
+          f"first geometry, a block of 288 threads a frame) ==", flush=True)
     for F in fp.DMA_FRAMES:
         rung(f"dma_f{F}", "dma", x_in, F, stream_bytes=x_in.numel())
     print(f"== overlap A/B (a chain of {fp.CHAIN_ACC} x {fp.CHAIN_LEN} FMAs a "

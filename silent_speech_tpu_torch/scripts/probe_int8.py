@@ -8,8 +8,9 @@ For each K (384, 512), each mode runs ``build(mode, K)``: GRID (256) steps of a 
 chain of 14 (384, K) x (K, K) products, seeded from the step's uint8 block
 (ops/cuda_dot_chain.py, csrc/dot_chain.cu): ``f32`` as 3xTF32 and
 ``bf16`` on wgmma, ``int8`` (s8 x s8 -> s32, re-narrowed by ``>> 7``
-between products) through mma.sync on the tensor cores, ``int8i`` 14 independent
-s8 products summed in s32. W is defined (``cuda_dot_chain.make_weights``),
+between products) and ``int8i`` (14 independent s8 products summed in s32)
+on s8 wgmma with W^T held in shared memory for the life of a persistent
+block (at K=512 half of it in each block of a pair). W is defined (``cuda_dot_chain.make_weights``),
 where the TPU kernel's was never written. On the card each mode's kernel is
 first held against its plain version (``cuda_dot_chain.check``: bitwise
 for the int modes, the timed instantiation bitwise the checked one); then

@@ -311,7 +311,7 @@ def test_probe_stage_values_on_the_cpu(stage):
     if stage in fp.SCALAR:
         want = (ROI.reshape(N, -1).view(np.uint32).astype(np.uint64)
                 .sum(axis=1) % 2 ** 32).astype(np.uint32).view(np.int32) \
-            if stage == "dma" else \
+            if stage in ("dma", "dma_ring") else \
             576.0 * ROI[:, 0, :4].astype(np.float64).sum(axis=1) + 288 * 28
         assert got.shape == (N,)
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-3)

@@ -20,12 +20,14 @@ kernel with one and two weight sets, the dual-chain kernel) in f32 and
 bf16, their launch counts, their independence of the knobs and the inputs
 they refuse; the CNN-front prototypes' kernels (the parity conv1 + pool1
 kernel in both layouts, bitwise on a repeat, its ablation stops, the
-front probe's stages,
+front probe's stages (its ladder on persistent blocks also at N just
+below and above one wave, both /255 routes bitwise equal),
 K1's debug stops) against their plain versions, and the four scripts' main
 at N=64; the forward rate probes' kernels (the matmul-rate kernel at small
 ragged shapes, the chained-dot kernel in every mode at K=384 and 512 (in
 bf16 every cluster size bitwise the check instantiation at
-1, 3 and 256 steps, and its plan), the
+1, 3 and 256 steps, and its plan; int8 and int8i bitwise at a partial last
+sweep of their persistent grid, on repeats, their plan), the
 layout kernel in every body, its moving bodies also at a step
 count that leaves their persistent blocks a partial last sweep, its
 product body also within a float64 bar
@@ -1354,6 +1356,56 @@ def test_front_probe_stage_matches_plain(dev, stage, F):
     err = (got.cpu().double() - want.double()).abs()
     assert (err <= cuda_front_probe.bar(stage, x, F).double()).all(), \
         err.max().item()
+
+
+@pytest.mark.parametrize("stage", list(cuda_front_probe.LADDER))
+def test_front_probe_ladder_at_ragged_n(dev, stage):
+    """The ladder's persistent kernel at N 1 and just below and above one
+    wave of its blocks (multiples of 16): one launch a call, every frame
+    within the bar, a second launch bitwise the first; its plan, every
+    rung's, the mirror's."""
+    pl = cuda_front_probe.plan()
+    assert (pl.slots, pl.smem, pl.threads) == cuda_front_probe.ring_geometry()
+    assert pl.blocks >= pl.sms
+    rng = np.random.default_rng(len(stage))
+    for n in (1, 16 * ((pl.blocks - 1) // 16), 16 * (pl.blocks // 16 + 1)):
+        roi = rng.integers(0, 256, (n, 48, 96), dtype=np.uint8)
+        roi[0, :4] = 255
+        x = torch.from_numpy(roi.reshape(-1, 384))
+        before = cuda_front_probe.PROBE.launches
+        got = cuda_front_probe.probe(stage, x.to(dev))
+        torch.cuda.synchronize()
+        assert cuda_front_probe.PROBE.launches == before + 1
+        want = cuda_front_probe.probe_plain(stage, x)
+        err = (got.cpu().double() - want.double()).abs()
+        assert (err <= cuda_front_probe.bar(stage, x).double()).all(), n
+        assert torch.equal(got, cuda_front_probe.probe(stage, x.to(dev))), n
+
+
+@pytest.mark.parametrize("mode", ["int8", "int8i"])
+@pytest.mark.parametrize("K", cuda_dot_chain.KS)
+def test_dot_chain_s8_bitwise_plain_at_ragged_steps(dev, mode, K):
+    """DC-s8 at 1 step and at one step more than a sweep of its persistent
+    grid holds (a partial last sweep): the check instantiation's output and
+    moments bitwise the plain chain's, the timed one bitwise the checked
+    one (cuda_dot_chain.check), repeats bitwise; its plan the mirror's."""
+    pl = cuda_dot_chain.plan(K, mode=mode)
+    geo = cuda_dot_chain.s8_geometry(K)
+    assert (pl.cluster, pl.stages, pl.smem, pl.chunk, pl.threads) == (
+        geo.cluster, 1, geo.smem, geo.w_bytes, cuda_dot_chain.S8_THREADS)
+    assert pl.sms_used == pl.clusters * pl.cluster <= pl.sms
+    w = cuda_dot_chain.make_weights(mode, K).to(dev)
+    packed = cuda_dot_chain.pack_weights(w, mode)
+    slots = pl.clusters * cuda_dot_chain.S8_WARPGROUPS
+    for steps in (1, slots // cuda_dot_chain.TILES + 1):
+        x = torch.from_numpy(np.random.default_rng(steps).integers(
+            0, 256, (steps * 8, 128), dtype=np.uint8)).to(dev)
+        r = cuda_dot_chain.check(x, w, mode, packed=packed)
+        assert r["share_of_bar"] == 0.0
+        runs = [cuda_dot_chain.dot_chain(x, w, mode, packed=packed,
+                                         check=True) for _ in range(2)]
+        assert torch.equal(runs[0][0], runs[1][0])
+        assert torch.equal(runs[0][1], runs[1][1])
 
 
 @pytest.mark.parametrize("standardize", [False, True])

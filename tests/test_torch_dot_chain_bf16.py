@@ -68,8 +68,12 @@ def test_packed_bf16_weights_are_the_chunk_layout(K):
 
 
 def test_the_other_modes_keep_their_packing():
-    w8 = dc.make_weights("int8", 384)
-    assert torch.equal(dc.pack_weights(w8, "int8"), w8.t().contiguous())
+    w8 = dc.make_weights("int8", 384)  # the s8 chains' swizzled atoms
+    units = dc.pack_weights(w8, "int8").reshape(384 // 128, 384, 8, 16)
+    n = torch.arange(384)[:, None]
+    units = units[:, n, torch.arange(8)[None, :] ^ (n % 8)]
+    assert torch.equal(units.permute(1, 0, 2, 3).reshape(384, 384),
+                       w8.t())
     w32 = dc.make_weights("f32", 384)  # the f32 chain's split planes
     planes = dc.pack_weights(w32, "f32").reshape(384 // 32, 2, 384, 8, 4)
     n = torch.arange(384)[:, None]

@@ -322,7 +322,10 @@ def test_dot_chain_defined_weights():
         q = dc.make_weights("int8", K)
         assert q.dtype == torch.int8 and torch.equal(
             q, dc.make_weights("int8i", K))
-    assert dc.pack_weights(q, "int8").equal(q.t().contiguous())
+    units = dc.pack_weights(q, "int8").reshape(K // 128, K, 8, 16)
+    n = torch.arange(K)[:, None]  # one cluster block at K=384: its atoms
+    units = units[:, n, torch.arange(8)[None, :] ^ (n % 8)]
+    assert units.permute(1, 0, 2, 3).reshape(K, K).equal(q.t())
 
 
 def test_dot_chain_int_moments_wrap_modulo_2_64():
