@@ -153,7 +153,22 @@ prints no result line):
    and plain, score_batch clips/s at B=64 against 10 and 1,000 words, the
    device breakdowns of both and of the lattice alone, and K1, K2's three
    layers (beside torch.nn.GRU's three, TF32 off) and K3 at the CTC path's
-   shapes beside their bounds.
+   shapes beside their bounds;
+13. the variant and legacy families (slice 5, :func:`check_variants`):
+   the reduced BiGRU (H=64, D=83), the GRU-word classifier (H=128, two
+   layers, D=83), the uni-GRU (H=128, D=166 with deltas), the TemporalCNN
+   and the quick MLP, random weights from the seed, each saved in its
+   reference ``.pt`` schema and served by ``load_predictor`` on clips of
+   20-90 frames: the GRU families on K2 (gru_proj and gru_seq launched for
+   each clip) against gru_impl='plain' (logits within 1e-3, the same
+   argmax; GRU outputs within 1e-4, also at B=64), each family's
+   ``predict_features`` p50; the train-reduced, train-unigru and train-mlp
+   CLIs for 20 epochs on a corpus of 7 words x 8 clips (K2 in their
+   validations), then eval-dataset (its accuracy that of an in-process
+   ``evaluate_variant_dataset``) and predict on each checkpoint; K2's
+   bidirectional layer at H=64 / D=83 / T=60 and H=128 / D=83 / T=40, B=1
+   and 64, beside torch.nn.GRU (packed once, TF32 off, median of 7) and
+   torch.addmm.
 
 Then one JSON line with the kernels' results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA device;
@@ -3450,6 +3465,297 @@ def check_ctc(p_cnn, flat, work: Path, labels: list[str], dev, card: str
     return out
 
 
+# ---- phase 13: the variant and legacy families (slice 5)
+# the families at their reference widths, random weights from SEED: family
+# -> (class, init arguments, the clips' feature width, the checkpoint's
+# schema)
+VARIANT_FAMILIES = {
+    "reduced_d83": ("ReducedBiGRU", dict(d_in=83, num_classes=5), 83,
+                    "word5"),
+    "gru_word": ("GRUWordClassifier", dict(d_in=83, num_classes=20), 83,
+                 "word5"),
+    "unigru_d166": ("UniGRUClassifier", dict(d_in=166, num_classes=10), 83,
+                    "1130pm"),
+    "temporal_cnn": ("TemporalCNN", dict(d_in=180, num_classes=10), 180,
+                     "dataset_eval"),
+    "mlp": ("SummaryMLP", dict(in_dim=166, num_classes=5), 83, "quick"),
+}
+VARIANT_GRU = ("reduced_d83", "gru_word", "unigru_d166")
+VARIANT_CLIP_T = (20, 45, 60, 75, 90)
+# the legacy trainers on the card: command -> its overrides
+LEGACY_RUNS = {"train-reduced": ["epochs=20", "batch_size=16"],
+               "train-unigru": ["epochs=20", "batch_size=16"],
+               "train-mlp": ["epochs=20", "batch_size=16"]}
+# K2's bidirectional layer at the variant families' shapes: (H, D, T)
+VARIANT_K2 = ((64, 83, 60), (128, 83, 40))
+VARIANT_K2_B = (1, 64)
+
+
+def variant_checkpoint(model, schema: str, d_clip: int, n: int,
+                       path: str) -> None:
+    """``model`` (``n`` classes, clips ``d_clip`` wide) saved in its
+    reference ``.pt`` schema (the keys load_predictor routes on)."""
+    sd = model.state_dict()
+    words = [f"word{i}" for i in range(n)]
+    if schema == "word5":
+        ckpt = {"model": sd, "id_to_label": dict(enumerate(words)),
+                "label_to_id": {w: i for i, w in enumerate(words)},
+                "input_dim": d_clip, "max_t": 60, "words": words}
+    elif schema == "1130pm":
+        ckpt = {"model_state": sd, "d_in": 2 * d_clip,
+                "id_to_word": dict(enumerate(words)), "t_target": 32,
+                "d_target": d_clip, "use_deltas": True,
+                "trim": {"q": 0.6, "margin": 2, "min_keep": 6}}
+    elif schema == "dataset_eval":
+        ckpt = {"model_state": sd, "d_in": d_clip, "num_classes": n,
+                "id_to_word": dict(enumerate(words))}
+    else:
+        ckpt = {"model_state": sd, "labels": words, "in_dim": 2 * d_clip}
+    torch.save(ckpt, path)
+
+
+def time_variant_k2(dev, card: str) -> dict:
+    """K2 on one bidirectional layer at the variant families' shapes
+    (VARIANT_K2: the reduced model's H=64, T=60 and the GRU-word model's
+    H=128, T=40, both at D=83, every clip at full length) at B=1 and 64:
+    the layer, gru_proj and gru_seq with the host's launches held out
+    (held_ms), torch.nn.GRU on the same inputs (packed once, TF32 off, the
+    median of LIB_REPS readings: :func:`gru_library_median`), torch.addmm
+    for gru_proj's product, the plain versions (CUDA events, TF32 off),
+    the bounds from the shapes (the layer's and gru_proj's at the FMAs and
+    3xTF32 together, gru_seq's at the f32 rate). Fails if a time is under
+    its bound. Returns {"H=.. D=.. T=.. B=..": {key: value}}."""
+    from silent_speech_tpu_torch.infer.predictor import full_f32
+    from silent_speech_tpu_torch.ops import cuda_gru
+    from silent_speech_tpu_torch.ops import gru as gru_ops
+    from silent_speech_tpu_torch.ops.nn import gru_dir_init
+
+    gen = torch.Generator().manual_seed(SEED + 13)
+    out = {}
+    for H, D, T in VARIANT_K2:
+        pf, pb = ({k: v.to(dev) for k, v in gru_dir_init(D, H, gen).items()}
+                  for _ in range(2))
+        pack = cuda_gru.pack_layer([(pf, False), (pb, True)])
+        layer = [{"fwd": pf, "bwd": pb, "packed": pack}]
+        for B in VARIANT_K2_B:
+            x = torch.randn(B, T, D, generator=gen).to(dev)
+            L = torch.full((B,), T, dtype=torch.int32)
+            Ld = L.to(dev)
+            x2 = x.reshape(-1, D)
+            pl = cuda_gru.plan(B, H, 2)
+            pp = cuda_gru.proj_plan(B * T, D, 6 * H)
+            xp = cuda_gru.gru_proj(x, pack.wi, pack.bi, impl="kernel",
+                                   wt=pack.wt)
+            r = {"C": pl.C, "BT": pl.BT, "blocks": pl.blocks,
+                 "proj_route": pp.route, "proj_blocks": pp.blocks}
+            r["layer_ms"] = held_ms(lambda: cuda_gru.bigru_kernel(
+                x, Ld, layer, impl="kernel"), dev)
+            r["proj_ms"] = held_ms(lambda: cuda_gru.gru_proj(
+                x, pack.wi, pack.bi, impl="kernel", wt=pack.wt), dev)
+            r["seq_ms"] = held_ms(lambda: cuda_gru.gru_recurrence(
+                xp, Ld, pack, impl="kernel"), dev)
+            with full_f32():
+                med, lo, hi = gru_library_median(
+                    [{"fwd": pf, "bwd": pb}], x, L)
+                r["layer_library_ms"] = med
+                r["layer_library_range_ms"] = [lo, hi]
+                r["proj_library_ms"] = held_ms(lambda: torch.addmm(
+                    pack.bi, x2, pack.wi), dev)
+                r["layer_plain_ms"] = cuda_ms(lambda: gru_ops.bigru(
+                    x, Ld, layer), 3, warmup=1)
+                r["proj_plain_ms"] = cuda_ms(
+                    lambda: cuda_gru.gru_proj_plain(x, pack.wi, pack.bi), 20)
+                r["seq_plain_ms"] = cuda_ms(lambda: cuda_gru.gru_recurrence(
+                    xp, Ld, pack, impl="plain"), 3, warmup=1)
+            S = B * T
+            r["layer_bound_ms"], r["layer_bound_by"] = tc_bound(
+                2 * 2 * S * (D + H) * 3 * H,
+                4 * (x.numel() + 2 * ((D + H) * 3 * H + 6 * H) + S * 2 * H))
+            r["proj_bound_ms"], r["proj_bound_by"] = proj_bound(S, D, 6 * H)
+            r["seq_bound_ms"], r["seq_bound_by"] = bound_ms(
+                2 * 2 * S * H * 3 * H,
+                4 * (S * 6 * H + 2 * (H * 3 * H + 3 * H) + S * 2 * H + B))
+            print(f"  K2 bidirectional layer H={H} D={D} T={T} B={B} (C="
+                  f"{pl.C}, BT={pl.BT}, {pl.blocks} blocks; gru_proj "
+                  f"{pp.route} route, {pp.blocks} blocks): layer "
+                  f"{r['layer_ms']:.4f} ms (gru_proj {r['proj_ms']:.4f} + "
+                  f"gru_seq {r['seq_ms']:.4f}), torch.nn.GRU (packed once, "
+                  f"TF32 off, median of {LIB_REPS}) {med:.4f} ms ({lo:.4f}-"
+                  f"{hi:.4f}): x{med / r['layer_ms']:.2f}; plain "
+                  f"{r['layer_plain_ms']:.4f} ms; bound "
+                  f"{r['layer_bound_ms']:.4f} ms ({r['layer_bound_by']}) "
+                  f"{card}")
+            print(f"    gru_proj {r['proj_ms']:.4f} ms, torch.addmm "
+                  f"{r['proj_library_ms']:.4f}, plain {r['proj_plain_ms']:.4f}"
+                  f", bound {r['proj_bound_ms']:.4f} ({r['proj_bound_by']}); "
+                  f"gru_seq {r['seq_ms']:.4f} ms, plain "
+                  f"{r['seq_plain_ms']:.4f}, bound {r['seq_bound_ms']:.4f} "
+                  f"({r['seq_bound_by']}) {card}")
+            for key in ("layer_", "proj_", "seq_"):
+                if r[key + "ms"] < r[key + "bound_ms"]:
+                    fail(f"K2 {key[:-1]} H={H} B={B}: {r[key + 'ms']:.4f} "
+                         f"ms is under its bound {r[key + 'bound_ms']:.4f}")
+            out[f"H={H} D={D} T={T} B={B}"] = r
+    return out
+
+
+def check_variants(work: Path, dev, card: str) -> dict:
+    """Phase 13, the variant and legacy families (slice 5) on the card:
+
+    - each family of VARIANT_FAMILIES at its reference widths, random
+      weights from SEED, saved in its reference ``.pt`` schema and loaded
+      by ``load_predictor``; ``predict_features`` on clips of
+      VARIANT_CLIP_T frames; the GRU families' launches of gru_proj and
+      gru_seq over those calls (each must launch), their logits against
+      the same checkpoint with gru_impl='plain' (within BAR_LOGITS, the
+      same argmax) and their GRU outputs, kernel against plain, within
+      BAR_GRU on each clip's input and on a batch of 64; the per-clip
+      p50 of ``predict_features`` for each family;
+    - the train-reduced, train-unigru and train-mlp CLIs on the card
+      (LEGACY_RUNS) on a corpus of write_train_corpus (the five words
+      train-reduced selects and two more, 8 clips each; the families
+      ignore the ROI), K2's launches over each run (its validations);
+      then eval-dataset and predict through the CLI on each checkpoint:
+      the sweep's accuracy equal to an in-process
+      ``evaluate_variant_dataset`` of the same checkpoint, predict's top
+      word ``predict_features``';
+    - K2's bidirectional layer at VARIANT_K2 beside torch.nn.GRU
+      (:func:`time_variant_k2`).
+
+    Returns {"launches": {kernel: count over the phase}, "errs": {...},
+    "p50_ms": {...}, "k2": ...}."""
+    from silent_speech_tpu_torch.core.schema import load_clip
+    from silent_speech_tpu_torch.infer.evaluator import \
+        evaluate_variant_dataset
+    from silent_speech_tpu_torch.infer.predictor import (full_f32,
+                                                         load_predictor)
+    from silent_speech_tpu_torch.infer.variant_predictor import \
+        VariantPredictor
+    from silent_speech_tpu_torch.models import variants as V
+    from silent_speech_tpu_torch.ops import _kernels
+    from silent_speech_tpu_torch.train.legacy_loops import SELECTED_WORDS_5
+
+    rng = np.random.default_rng(SEED + 13)
+    launches = {"gru_proj": 0, "gru_seq": 0}
+    errs = {"gru_out": 0.0, "logits": 0.0}
+    p50 = {}
+    vdir = work / "variants"
+    vdir.mkdir()
+    print(f"variant families, predict_features through load_predictor "
+          f"(kernels vs gru_impl='plain', TF32 off) {card}:")
+    for name, (cls, kw, d_clip, schema) in VARIANT_FAMILIES.items():
+        model = getattr(V, cls).init(
+            torch.Generator().manual_seed(SEED + len(name)), **kw)
+        path = str(vdir / f"{name}.pt")
+        variant_checkpoint(model, schema, d_clip, kw["num_classes"], path)
+        pred = load_predictor(path, device="cuda")
+        plain = load_predictor(path, device="cuda", gru_impl="plain")
+        if not isinstance(pred, VariantPredictor) or \
+                type(pred.model) is not getattr(V, cls):
+            fail(f"{name}: load_predictor gave {type(pred).__name__}")
+        clips = [rng.standard_normal((T, d_clip)).astype(np.float32)
+                 for T in VARIANT_CLIP_T]
+        pred.logits(clips[0])  # the packs and the first launches
+        _kernels.reset_launch_counts()
+        got = [pred.logits(X) for X in clips]
+        counts = _kernels.launch_counts()
+        launched = {k: v for k, v in counts.items() if v}
+        gru = name in VARIANT_GRU
+        layers = pred.model.gru.num_layers if gru else 0
+        if gru and (counts["gru_proj"] != layers * len(clips)
+                    or counts["gru_seq"] != layers * len(clips)):
+            fail(f"{name}: launches {launched}, expected gru_proj and "
+                 f"gru_seq {layers} a clip")
+        if not gru and launched:
+            fail(f"{name}: launches {launched}: the family has no kernel")
+        for k in launches:
+            launches[k] += counts[k]
+        for X, g in zip(clips, got):
+            want = plain.logits(X)
+            errs["logits"] = max(errs["logits"], check_close(
+                f"{name} logits T={len(X)}", torch.from_numpy(g),
+                torch.from_numpy(want), BAR_LOGITS))
+            if g.argmax() != want.argmax():
+                fail(f"{name} T={len(X)}: argmax differs from the plain "
+                     "route")
+        if gru:
+            xb = torch.from_numpy(np.stack([pred.preprocess(
+                rng.standard_normal((int(t), d_clip)).astype(np.float32))
+                for t in rng.integers(20, 91, 64)])).to(dev)
+            x1 = torch.from_numpy(pred.preprocess(clips[-1])[None]).to(dev)
+            with torch.inference_mode(), full_f32():
+                for label, x in (("B=1", x1), ("B=64", xb)):
+                    k = pred.model.run_gru(x, gru_impl="kernel")
+                    p = pred.model.run_gru(x, gru_impl="plain")
+                    errs["gru_out"] = max(errs["gru_out"], check_close(
+                        f"{name} GRU outputs {label} {tuple(x.shape)}", k,
+                        p, BAR_GRU))
+        times = []
+        for X in clips * 6:  # each call ends with its logits on the host
+            t0 = time.perf_counter()
+            pred.predict_features(X)
+            times.append((time.perf_counter() - t0) * 1e3)
+        p50[name] = statistics.median(times)
+        print(f"  {name} ({cls}, {schema} schema): predict_features p50 "
+              f"{p50[name]:.4f} ms a clip over {len(times)} clips of "
+              f"{min(VARIANT_CLIP_T)}-{max(VARIANT_CLIP_T)} frames "
+              f"(host clock); launches over the {len(clips)} checked "
+              f"clips {launched} {card}")
+
+    corpus = work / "variant_clips"
+    write_train_corpus(corpus, SELECTED_WORDS_5 + ["yes", "no"], 8,
+                       seed=SEED + 13)
+    print(f"legacy trainers on the card ({corpus.name}: 7 words x 8 clips, "
+          f"20-90 frames):")
+    for cmd, over in LEGACY_RUNS.items():
+        ckpt = str(work / f"{cmd}.ckpt")
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        text = run_cli([cmd, f"clip_dir={corpus}", f"out_path={ckpt}",
+                        "device=cuda"] + over)
+        wall = time.perf_counter() - t0
+        counts = _kernels.launch_counts()
+        launched = {k: v for k, v in counts.items() if v}
+        print(f"  {cmd}: {wall:.1f} s, launches {launched} {card}")
+        if not Path(ckpt).exists():
+            fail(f"{cmd} wrote no checkpoint:\n{text}")
+        if cmd != "train-mlp" and (counts["gru_seq"] <= 0
+                                   or counts["gru_proj"] != counts["gru_seq"]):
+            fail(f"{cmd}: its validations did not run K2: {launched}")
+        for k in launches:
+            launches[k] += counts[k]
+        pred = load_predictor(ckpt, device="cuda")
+        want = evaluate_variant_dataset(pred, str(corpus), verbose=False)
+        _kernels.reset_launch_counts()
+        text = run_cli(["eval-dataset", f"ckpt_path={ckpt}",
+                        f"clip_dir={corpus}", "device=cuda"])
+        counts = _kernels.launch_counts()
+        acc = float(re.search(r"^dataset acc: (\S+)", text, re.M).group(1))
+        if acc != want["accuracy"]:
+            fail(f"{cmd}: eval-dataset acc {acc}, in-process "
+                 f"evaluate_variant_dataset {want['accuracy']}")
+        if cmd != "train-mlp" and counts["gru_seq"] != want["n"] * \
+                pred.model.gru.num_layers:
+            fail(f"{cmd}: eval-dataset launched gru_seq {counts['gru_seq']} "
+                 f"times for {want['n']} clips")
+        for k in launches:
+            launches[k] += counts[k]
+        clip = sorted(str(p) for p in corpus.glob("*.npz"))[0]
+        line = run_cli(["predict", f"ckpt_path={ckpt}", f"clip={clip}",
+                        "device=cuda", "k=2"]).strip()
+        top = pred.predict_features(load_clip(clip).X.astype(np.float32),
+                                    k=2)
+        if ast.literal_eval(line[len(clip) + 2:])[0][0] != top[0][0]:
+            fail(f"{cmd}: predict printed {line!r}, in-process {top}")
+        print(f"  {cmd}: eval-dataset acc {acc:.4f} over {want['n']} clips "
+              f"(in-process the same), predict {top[0][0]!r}")
+
+    print(f"K2 at the variant families' shapes {card}:")
+    k2 = time_variant_k2(dev, card)
+    print(f"  phase 13 launches: {launches}")
+    return {"launches": launches, "errs": errs, "p50_ms": p50, "k2": k2}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device; this script runs only on a GPU")
@@ -3842,6 +4148,11 @@ def main() -> int:
           "CLIs, the trainer's options):")
     ctc = check_ctc(p_cnn, flat, work, labels, dev, card)
 
+    # ---- 13. the variant and legacy families (slice 5)
+    print("the variant and legacy families (kernels vs plain with TF32 off, "
+          "the CLIs):")
+    variants = check_variants(work, dev, card)
+
     def k1_row(kname, launches, err):
         by_n = {str(Nk): r for (name, Nk), r in k1.items() if name == kname}
         return {"name": kname, "route": "cuda",
@@ -3937,6 +4248,15 @@ def main() -> int:
     for row in result["kernels"]:
         if row["name"] in ctc:
             row["ctc_path"] = ctc[row["name"]]
+        if row["name"] in variants["launches"]:
+            part = "seq_" if row["name"] == "gru_seq" else "proj_"
+            row["variant_path"] = {
+                "launches": variants["launches"][row["name"]],
+                "max_abs_err_gru_outputs": variants["errs"]["gru_out"],
+                "max_abs_err_logits": variants["errs"]["logits"],
+                "by_shape": {shape: {k: v for k, v in r.items()
+                                     if k.startswith((part, "layer_"))}
+                             for shape, r in variants["k2"].items()}}
     print(json.dumps(result))
     print(smi)
     print(json.dumps({"ok": True, "device": {

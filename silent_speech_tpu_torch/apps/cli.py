@@ -15,6 +15,9 @@
         [clip_dir=clips_npz] [chunk_words=0] [batch_size=64] [device=cuda] \\
         [roi_impl=auto] [gru_impl=auto] [roi_variant=tiled3] \\
         [compute_dtype=float32] [matmul_precision=parity]
+    python -m silent_speech_tpu_torch train-reduced|train-unigru|train-mlp \\
+        clip_dir=<dir> out_path=<ckpt> [<ReducedConfig | UniGRUConfig |
+        MLPQuickConfig field>=...] [device=cuda]
 
 ``train`` is the official trainer (train_model_official.py) with the JAX
 CLI's ``TrainConfig`` overrides; ``device`` defaults to 'cuda' (the CPU
@@ -24,20 +27,28 @@ implement raise (train/loop.py).
 ``eval-dataset`` is the offline corpus sweep (inactive/dataset_eval.py):
 accuracy, average confidence and top confusions over every clip of
 ``clip_dir``, in batches of ``batch_size``, with the JAX CLI's
-``EvalConfig`` fields; ``device`` defaults to 'cuda'.
+``EvalConfig`` fields; ``device`` defaults to 'cuda'. A variant family's
+checkpoint (``load_predictor`` gives a ``VariantPredictor``) sweeps clip
+by clip (``evaluate_variant_dataset``): ``batch_size`` does not apply.
 
-``predict`` is the offline single-clip prediction: for the official family
-the live predict block (live_infer_official.py:338-359) on recorded
-``.npz`` clips, through ``load_predictor``; for a CTC checkpoint (its
-metadata has ``vocab``) the dictionary-scored decode of each clip with a
-ROI (``CTCDecoder.score_clip``), its top ``k`` (word, score) pairs.
-``device`` defaults to 'cuda'.
+``predict`` is the offline single-clip prediction, through
+``load_predictor``: for the official family the live predict block
+(live_infer_official.py:338-359) on recorded ``.npz`` clips; for a variant
+family ``VariantPredictor.predict_features`` on each clip's features; for
+a CTC checkpoint (its metadata has ``vocab``) the dictionary-scored decode
+of each clip with a ROI (``CTCDecoder.score_clip``), its top ``k`` (word,
+score) pairs. ``device`` defaults to 'cuda'.
 
 ``train-ctc`` is the CTC trainer (inactive/train_model.py) with the JAX
 CLI's ``CTCTrainConfig`` overrides; ``eval-ctc`` its dictionary-scored
 corpus sweep (accuracy and top confusions) on a CTC checkpoint of either
 package, with the JAX CLI's keys; ``mesh_shape`` raises there (not
 ported). ``device`` defaults to 'cuda' for both.
+
+``train-reduced``, ``train-unigru`` and ``train-mlp`` are the legacy
+trainers (inactive/train_reduced.py, train_model_1130pm.py,
+train_5_quick.py; train/legacy_loops.py) with the JAX CLI's config
+overrides; ``device`` defaults to 'cuda'.
 
 The serving knobs of eval-dataset, eval-ctc and predict: ``roi_impl`` /
 ``gru_impl`` take 'auto', 'kernel' or 'plain'; ``roi_variant`` 'tiled3',
@@ -53,13 +64,19 @@ import glob
 import sys
 from typing import Optional, Sequence
 
+import numpy as np
+
 # commands of the JAX CLI that the port does not have yet
 _NOT_PORTED = (
-    "record", "record-timed", "train-reduced",
-    "train-unigru", "train-mlp", "infer-live", "infer-gated", "infer-stream",
+    "record", "record-timed", "infer-live", "infer-gated", "infer-stream",
     "landmarks-view", "important-landmarks",
     "infer-ctc", "debug-npz", "export-torch", "status", "doctor", "bench",
 )
+# the legacy trainers: command -> (config class, trainer) in
+# train/legacy_loops.py
+_LEGACY = {"train-reduced": ("ReducedConfig", "train_reduced"),
+           "train-unigru": ("UniGRUConfig", "train_unigru"),
+           "train-mlp": ("MLPQuickConfig", "train_mlp_quick")}
 _KNOBS = ("roi_impl", "gru_impl", "roi_variant", "compute_dtype")
 _PREDICT_KEYS = ("ckpt_path", "clip", "k", "device", "matmul_precision"
                  ) + _KNOBS
@@ -83,8 +100,11 @@ _EVAL_CTC_USAGE = ("usage: python -m silent_speech_tpu_torch eval-ctc "
 _EVAL_USAGE = ("usage: python -m silent_speech_tpu_torch eval-dataset "
                "ckpt_path=<ckpt> clip_dir=<dir> [<EvalConfig field>=...] "
                "[device=cuda|cpu]")
+_LEGACY_USAGE = ("usage: python -m silent_speech_tpu_torch {} clip_dir=<dir> "
+                 "out_path=<ckpt> [<{} field>=...] [device=cuda|cpu]")
 _USAGE = ("usage: python -m silent_speech_tpu_torch predict "
-          "ckpt_path=<official or CTC checkpoint> clip=<clip.npz|glob> "
+          "ckpt_path=<official, variant or CTC checkpoint> "
+          "clip=<clip.npz|glob> "
           "[k=3] [device=cuda] "
           "[roi_impl=auto|kernel|plain] [gru_impl=auto|kernel|plain] "
           "[roi_variant=tiled3|tiled3_q8|im2col] "
@@ -96,6 +116,7 @@ def _predict(kv: dict) -> int:
     from ..core.schema import load_clip
     from ..infer.ctc_decode import CTCDecoder
     from ..infer.predictor import load_predictor
+    from ..infer.variant_predictor import VariantPredictor
     from ..train.checkpoint import load_checkpoint
 
     if "ckpt_path" not in kv or "clip" not in kv:
@@ -124,7 +145,12 @@ def _predict(kv: dict) -> int:
         return 0
     pred = load_predictor(path, device=device, **knobs)
     for p in paths:
-        print(f"{p}: {pred.predict_clip(load_clip(p), k=k)}")
+        c = load_clip(p)
+        if isinstance(pred, VariantPredictor):
+            top = pred.predict_features(c.X.astype(np.float32), k=k)
+        else:
+            top = pred.predict_clip(c, k=k)
+        print(f"{p}: {top}")
     return 0
 
 
@@ -169,6 +195,28 @@ def _train_ctc(rest: list[str]) -> int:
     return 0
 
 
+def _train_legacy(cmd: str, rest: list[str]) -> int:
+    import dataclasses
+
+    from ..core.config import apply_overrides
+    from ..train import legacy_loops
+
+    cfg_name, fn_name = _LEGACY[cmd]
+    cfg_cls = getattr(legacy_loops, cfg_name)
+    fields = {f.name for f in dataclasses.fields(cfg_cls)}
+    bad = [a for a in rest if "=" not in a or a.partition("=")[0] not in
+           fields | {"device"}]
+    if bad:
+        print(f"unknown arguments {bad}\n"
+              + _LEGACY_USAGE.format(cmd, cfg_name))
+        return 2
+    kv = dict(a.split("=", 1) for a in rest)
+    device = kv.pop("device", "cuda")
+    cfg = apply_overrides(cfg_cls(), [f"{k}={v}" for k, v in kv.items()])
+    getattr(legacy_loops, fn_name)(cfg, device=device)
+    return 0
+
+
 def _eval_ctc(rest: list[str]) -> int:
     from ..core.config import _parse_dict_override
     from ..infer.evaluator import evaluate_ctc_dataset
@@ -199,8 +247,9 @@ def _eval_dataset(rest: list[str]) -> int:
     import dataclasses
 
     from ..core.config import EvalConfig, apply_overrides, serving_kwargs
-    from ..infer.evaluator import evaluate_dataset
+    from ..infer.evaluator import evaluate_dataset, evaluate_variant_dataset
     from ..infer.predictor import load_predictor
+    from ..infer.variant_predictor import VariantPredictor
 
     fields = {f.name for f in dataclasses.fields(EvalConfig)}
     bad = [a for a in rest if "=" not in a or a.partition("=")[0] not in
@@ -212,8 +261,14 @@ def _eval_dataset(rest: list[str]) -> int:
     device = kv.pop("device", "cuda")
     cfg = apply_overrides(EvalConfig(), [f"{k}={v}" for k, v in kv.items()])
     pred = load_predictor(cfg.ckpt_path, device=device, **serving_kwargs(cfg))
-    evaluate_dataset(pred, cfg.clip_dir, batch_size=cfg.batch_size,
-                     top_confusions=cfg.top_confusions)
+    if isinstance(pred, VariantPredictor):
+        # the variant families predict clip by clip: batch_size does not
+        # apply
+        evaluate_variant_dataset(pred, cfg.clip_dir,
+                                 top_confusions=cfg.top_confusions)
+    else:
+        evaluate_dataset(pred, cfg.clip_dir, batch_size=cfg.batch_size,
+                         top_confusions=cfg.top_confusions)
     return 0
 
 
@@ -233,6 +288,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return _eval_dataset(rest)
     if cmd == "train-ctc":
         return _train_ctc(rest)
+    if cmd in _LEGACY:
+        return _train_legacy(cmd, rest)
     if cmd == "eval-ctc":
         return _eval_ctc(rest)
     if cmd != "predict":

@@ -167,6 +167,35 @@ def split_by_label(
     return train, val
 
 
+def stratified_split_3way(
+    files: list[str],
+    labels: list[str],
+    seed: int = 42,
+    train_frac: float = 0.70,
+    val_frac: float = 0.15,
+) -> tuple[list[str], list[str], list[str]]:
+    """70/15/15 train/val/test split (inactive/train_5_quick.py:52-79):
+    each label's files shuffled, round(n * frac) to train and to val, the
+    rest to test, then the three lists shuffled."""
+    rng = random.Random(seed)
+    by_lab = defaultdict(list)
+    for f, lab in zip(files, labels):
+        by_lab[lab].append(f)
+    train, val, test = [], [], []
+    for fs in by_lab.values():
+        rng.shuffle(fs)
+        n = len(fs)
+        n_train = int(round(n * train_frac))
+        n_val = int(round(n * val_frac))
+        train += fs[:n_train]
+        val += fs[n_train:n_train + n_val]
+        test += fs[n_train + n_val:]
+    rng.shuffle(train)
+    rng.shuffle(val)
+    rng.shuffle(test)
+    return train, val, test
+
+
 def inverse_frequency_weights(labels: list[str]) -> np.ndarray:
     """Per-sample weights 1/count[label] (train_model_official.py:385-389)."""
     counts = Counter(labels)

@@ -7,8 +7,9 @@ average confidence and the top-10 confusion pairs, with labels parsed from
 the filenames. Here the sweep is batched and streamed: clips load in
 bounded chunks (data/loader.py), so host memory stays O(chunk_size) whatever
 the corpus size, and each batch goes through the Predictor in its serving
-mode. ``evaluate_ctc_dataset`` is the CTC family's sweep (``eval-ctc``),
-scored against the checkpoint's dictionary.
+mode. ``evaluate_variant_dataset`` and ``evaluate_temporal_cnn`` sweep the
+feature-only families clip by clip; ``evaluate_ctc_dataset`` is the CTC
+family's sweep (``eval-ctc``), scored against the checkpoint's dictionary.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from ..core.schema import load_clip, parse_filename_label, sanitize_field
+from ..core.schema import (fix_dim, load_clip, parse_filename_label,
+                           sanitize_field)
 from ..data.corpus import scan_corpus
 from ..data.loader import load_corpus_arrays
 from .predictor import Predictor
@@ -81,9 +83,20 @@ def evaluate_dataset(predictor: Predictor, clip_dir: str, *,
                 conf_sum += float(probs[i, pid])
                 total += 1
 
+    return _report(correct, total, conf_sum, cm, top_confusions, verbose)
+
+
+def zscore(X: np.ndarray) -> np.ndarray:
+    """Per-clip feature z-scoring of the legacy eval pipelines
+    (inactive/dataset_eval.py:18-19)."""
+    return (X - X.mean(0, keepdims=True)) / (X.std(0, keepdims=True) + 1e-6)
+
+
+def _report(correct: int, total: int, conf_sum: float, cm: Counter,
+            top: int, verbose: bool) -> dict:
     acc = correct / total if total else 0.0
     avg_conf = conf_sum / total if total else 0.0
-    confusions = list(cm.most_common(top_confusions))
+    confusions = list(cm.most_common(top))
     if verbose:
         print("dataset acc:", acc)
         print("avg conf:", avg_conf)
@@ -92,16 +105,61 @@ def evaluate_dataset(predictor: Predictor, clip_dir: str, *,
                 n=total)
 
 
-def evaluate_variant_dataset(*args, **kwargs):
-    """The feature-only model families' sweep: not ported yet."""
-    raise NotImplementedError("evaluate_variant_dataset " + _ROADMAP.format(
-        "slice 5, variants and legacy"))
+def evaluate_variant_dataset(predictor, clip_dir: str, *,
+                             label_from_filename: bool = True,
+                             verbose: bool = True,
+                             top_confusions: int = 10) -> dict:
+    """The corpus sweep of the feature-only variant families (a
+    ``VariantPredictor``): each clip predicted alone with the family's own
+    preprocessing (fix_dim / z-score / deltas / trim), the reference report
+    (inactive/dataset_eval.py:44-73)."""
+    index = scan_corpus(clip_dir, verbose=False)
+    correct = total = 0
+    conf_sum = 0.0
+    cm: Counter = Counter()
+    for f in index.files:
+        c = load_clip(f)
+        pred_word, conf = predictor.predict_features(
+            c.X.astype(np.float32), k=1)[0]
+        if label_from_filename:
+            pred_word = sanitize_field(pred_word)
+        true_word = parse_filename_label(f) if label_from_filename \
+            else c.label
+        cm[(true_word, pred_word)] += 1
+        correct += int(pred_word == true_word)
+        conf_sum += float(conf)
+        total += 1
+    return _report(correct, total, conf_sum, cm, top_confusions, verbose)
 
 
-def evaluate_temporal_cnn(*args, **kwargs):
-    """The legacy TemporalCNN sweep: not ported yet."""
-    raise NotImplementedError("evaluate_temporal_cnn " + _ROADMAP.format(
-        "slice 5, variants and legacy"))
+def evaluate_temporal_cnn(model, d_in: int, id_to_word: dict[int, str],
+                          clip_dir: str, *, verbose: bool = True) -> dict:
+    """The legacy TemporalCNN sweep (inactive/dataset_eval.py:44-73): each
+    z-scored, dim-fixed clip at its own length through ``model`` (a
+    ``models.variants.TemporalCNN``) on its device, TF32 off."""
+    from .predictor import full_f32
+
+    device = next(model.parameters()).device
+    index = scan_corpus(clip_dir, verbose=False)
+    correct = total = 0
+    conf_sum = 0.0
+    cm: Counter = Counter()
+    for f in index.files:
+        X = zscore(fix_dim(load_clip(f).X.astype(np.float32), d_in))
+        with torch.inference_mode(), full_f32():
+            logits = model(torch.as_tensor(X[None], device=device))
+        probs = _softmax(logits.cpu().numpy())[0]
+        pid = int(probs.argmax())
+        pred_word = sanitize_field(id_to_word.get(pid, str(pid)))
+        true_word = parse_filename_label(f)
+        cm[(true_word, pred_word)] += 1
+        correct += int(pred_word == true_word)
+        conf_sum += float(probs[pid])
+        total += 1
+    out = _report(correct, total, conf_sum, cm, 10, verbose)
+    if verbose:
+        print("model d_in:", d_in)
+    return out
 
 
 def evaluate_ctc_dataset(ckpt_path: str, clip_dir: str, *,

@@ -237,13 +237,39 @@ class Predictor:
         return self._forward(X, lengths, roi).cpu().numpy()
 
 
-def load_predictor(path: str, **kw) -> Predictor:
-    """Route a checkpoint to its predictor. The port serves the official
-    family: reference ``.pt`` checkpoints with ``x_dim`` and npz
-    checkpoints of the official model. A CTC checkpoint raises, as in the
-    JAX package: it serves through ``infer.ctc_decode.CTCDecoder``
-    (``eval-ctc``, ``predict``). The variant families raise (not ported
-    yet)."""
+# the serving knobs a variant family takes; the others (the ROI CNN's and
+# compute_dtype) are checked and do not apply to a feature-only model
+_VARIANT_KW = ("device", "gru_impl", "matmul_precision")
+
+
+def load_predictor(path: str, **kw):
+    """Route any checkpoint to its predictor, as the JAX package does.
+
+    Reference PyTorch checkpoints of every generation's schema: official
+    (``x_dim``, live_infer_official.py:198-221); reduced word_model_5.pt
+    (``input_dim`` / ``max_t``, inactive/train_reduced.py:250-257) or the
+    GRUWordClassifier with the same keys, told apart by
+    ``gru.weight_ih_l1``; the uni-GRU word_model.pt (``t_target``,
+    inactive/train_model_1130pm.py:230-241) and the TemporalCNN one
+    (``model_state`` + ``d_in``, inactive/dataset_eval.py:34-42); the
+    quick MLP (``in_dim`` + ``labels``). And npz checkpoints of either
+    package: the variant families by their ``model`` tag, else the
+    official model. A CTC checkpoint raises: it serves through
+    ``infer.ctc_decode.CTCDecoder`` (``eval-ctc``, ``predict``).
+
+    ``kw``: the official Predictor's serving knobs. A variant family takes
+    ``device``, ``gru_impl`` and ``matmul_precision``; the others are
+    checked and ignored, as the JAX package ignores them there."""
+    from .variant_predictor import VariantPredictor
+
+    def variant(loader, *args, **extra):
+        _check_knobs(kw.get("roi_impl", "auto"), kw.get("gru_impl", "auto"),
+                     kw.get("roi_variant", "tiled3"),
+                     kw.get("compute_dtype", "float32"),
+                     kw.get("matmul_precision", "parity"))
+        return loader(path, *args, **extra,
+                      **{k: kw[k] for k in _VARIANT_KW if k in kw})
+
     if path.endswith(".pt"):
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
         if not isinstance(ckpt, dict):
@@ -253,15 +279,25 @@ def load_predictor(path: str, **kw) -> Predictor:
                              "predict, which decodes it with CTCDecoder")
         if "x_dim" in ckpt:
             return Predictor.from_torch_checkpoint(path, _ckpt=ckpt, **kw)
-        raise NotImplementedError(
-            f"{path}: only the official checkpoint family is ported so far; "
-            f"this one (keys: {sorted(ckpt)}) is not yet ported")
+        if "input_dim" in ckpt:
+            if "gru.weight_ih_l1" in ckpt.get("model", {}):
+                return variant(VariantPredictor.from_torch_gru_word,
+                               _ckpt=ckpt)
+            return variant(VariantPredictor.from_torch_reduced, _ckpt=ckpt)
+        if "t_target" in ckpt:
+            return variant(VariantPredictor.from_torch_unigru, _ckpt=ckpt)
+        if "model_state" in ckpt and "d_in" in ckpt:
+            return variant(VariantPredictor.from_torch_temporal_cnn,
+                           _ckpt=ckpt)
+        if "in_dim" in ckpt and "labels" in ckpt:
+            return variant(VariantPredictor.from_torch_mlp, _ckpt=ckpt)
+        raise ValueError(f"{path}: unrecognized torch checkpoint schema "
+                         f"(keys: {sorted(ckpt)})")
     loaded = load_checkpoint(path)
     meta = loaded[1]
     if meta.get("vocab"):
         raise ValueError(f"{path} is a CTC checkpoint: use eval-ctc, or "
                          "predict, which decodes it with CTCDecoder")
     if meta.get("model"):
-        raise NotImplementedError(
-            f"{path}: the {meta['model']} family is not yet ported")
+        return variant(VariantPredictor.from_checkpoint, _loaded=loaded)
     return Predictor.from_checkpoint(path, _loaded=loaded, **kw)

@@ -170,9 +170,11 @@ def roi_cnn_tree(named: Mapping[str, torch.Tensor], prefix: str) -> dict:
     return tree
 
 
-def gru_tree(named: Mapping[str, torch.Tensor], gru_layers: int) -> list:
-    """The bidirectional GRU part of :func:`jax_tree` ((D, 3H) / (H, 3H)
-    views), from tensors named ``gru.weight_ih_l{k}[_reverse]`` ..."""
+def gru_tree(named: Mapping[str, torch.Tensor], gru_layers: int,
+             bidirectional: bool = True) -> list:
+    """The GRU part of :func:`jax_tree` ((D, 3H) / (H, 3H) views), from
+    tensors named ``gru.weight_ih_l{k}[_reverse]`` ...: a layer's 'fwd'
+    and, when bidirectional, its 'bwd' direction."""
     def direction(sfx):
         return {"wi": named[f"gru.weight_ih_{sfx}"].t(),
                 "wh": named[f"gru.weight_hh_{sfx}"].t(),
@@ -180,7 +182,22 @@ def gru_tree(named: Mapping[str, torch.Tensor], gru_layers: int) -> list:
                 "bh": named[f"gru.bias_hh_{sfx}"]}
 
     return [{"fwd": direction(f"l{k}"), "bwd": direction(f"l{k}_reverse")}
+            if bidirectional else {"fwd": direction(f"l{k}")}
             for k in range(gru_layers)]
+
+
+def kernel_gru_layers(layers: list) -> list:
+    """GRU layers ({'fwd': ..., 'bwd': ...} or {'fwd': ...}) as K2 reads
+    them: contiguous (D, 3H) / (H, 3H) matrices and each layer's
+    ``'packed'`` layout for the two kernels (``cuda_gru.pack_layer``)."""
+    with torch.no_grad():
+        out = [{d: {k: v.contiguous() for k, v in lp[d].items()}
+                for d in lp} for lp in layers]
+        for lp in out:
+            lp["packed"] = cuda_gru.pack_layer(
+                [(lp["fwd"], False)]
+                + ([(lp["bwd"], True)] if "bwd" in lp else []))
+    return out
 
 
 def jax_tree(named: Mapping[str, torch.Tensor], cfg: BiGRUConfig) -> dict:
@@ -232,23 +249,25 @@ class TinyROICNN(nn.Module):
 
 
 class BiGRUWeights(nn.Module):
-    """The parameters of a bidirectional ``nn.GRU`` under its names
-    (``weight_ih_l{k}[_reverse]`` ...); the scan runs in ops.gru and
-    ops.cuda_gru on :func:`jax_tree`'s views of them."""
+    """The parameters of a bidirectional (or, with ``bidirectional=False``,
+    a forward) ``nn.GRU`` under its names (``weight_ih_l{k}[_reverse]``
+    ...); the scan runs in ops.gru and ops.cuda_gru on :func:`jax_tree`'s
+    views of them."""
 
-    def __init__(self, in_dim: int, hidden: int, num_layers: int):
+    def __init__(self, in_dim: int, hidden: int, num_layers: int,
+                 bidirectional: bool = True):
         super().__init__()
         self.num_layers = num_layers
         d = in_dim
         for k in range(num_layers):
-            for sfx in (f"l{k}", f"l{k}_reverse"):
+            for sfx in (f"l{k}", f"l{k}_reverse")[:1 + bidirectional]:
                 for name, shape in ((f"weight_ih_{sfx}", (3 * hidden, d)),
                                     (f"weight_hh_{sfx}", (3 * hidden, hidden)),
                                     (f"bias_ih_{sfx}", (3 * hidden,)),
                                     (f"bias_hh_{sfx}", (3 * hidden,))):
                     self.register_parameter(
                         name, nn.Parameter(torch.empty(shape)))
-            d = 2 * hidden
+            d = (1 + bidirectional) * hidden
 
 
 class AttnPool(nn.Module):
@@ -283,13 +302,8 @@ class SequenceModel(nn.Module):
         key = tuple((p.device, p.data_ptr(), p._version)
                     for p in self.parameters())
         if key != self._kernel_weights_key:
-            with torch.no_grad():
-                layers = [{d: {k: v.contiguous() for k, v in lp[d].items()}
-                           for d in lp} for lp in self.params_tree()["gru"]]
-                for lp in layers:
-                    lp["packed"] = cuda_gru.pack_layer(
-                        [(lp["fwd"], False), (lp["bwd"], True)])
-                self._kernel_weights = {"gru": layers}
+            self._kernel_weights = {
+                "gru": kernel_gru_layers(self.params_tree()["gru"])}
             self._kernel_weights_key = key
         kw = self._kernel_weights
         if roi_pack not in kw:

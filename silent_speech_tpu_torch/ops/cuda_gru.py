@@ -540,10 +540,10 @@ def bigru_kernel(x: torch.Tensor, lengths: torch.Tensor, layers: list[dict],
                  ) -> torch.Tensor:
     """Stacked (bi)GRU (inference). Two launches a layer, gru_proj and
     gru_seq, both directions sharing each and writing the two halves of
-    the (B, T, 2H) layer output. A layer dict's ``'packed'`` entry (the
-    bidirectional :func:`pack_layer`, as ``BiGRUClassifier.kernel_weights``
-    keeps it) is used as it is; otherwise the layer's pack is
-    :func:`layer_pack`'s."""
+    the (B, T, 2H) layer output (one direction: (B, T, H)). A layer dict's
+    ``'packed'`` entry (its :func:`pack_layer` of as many directions, as
+    ``BiGRUClassifier.kernel_weights`` keeps it) is used as it is;
+    otherwise the layer's pack is :func:`layer_pack`'s."""
     if not _kernels.use_kernel(impl, x):
         return gru_ops.bigru(x, lengths, layers,
                              bidirectional=bidirectional)[0]
@@ -552,8 +552,8 @@ def bigru_kernel(x: torch.Tensor, lengths: torch.Tensor, layers: list[dict],
     lens = lengths.to(device=x.device, dtype=torch.int32)
     out = x
     for lp in layers:
-        pack = lp.get("packed") if bidirectional else None
-        if pack is None:
+        pack = lp.get("packed")
+        if pack is None or len(pack.reverse) != 1 + bidirectional:
             dirs = [(lp["fwd"], False)] + ([(lp["bwd"], True)]
                                            if bidirectional else [])
             pack = layer_pack(dirs)

@@ -1,9 +1,10 @@
 """Small neural-net building blocks on tensors (port of the JAX ops/nn.py).
 
 The public functions keep the JAX package's layouts, so the tests can feed
-both the same parameter dicts: NHWC activations with HWIO conv kernels, and
-dense weights stored (in, out). Inside, the convolution and pool run as
-``F.conv2d`` / ``F.max_pool2d`` on channels-last views, which costs no copy.
+both the same parameter dicts: NHWC activations with HWIO conv kernels, NWC
+activations with WIO 1-D conv kernels, and dense weights stored (in, out).
+Inside, the convolutions and pool run as ``F.conv2d`` / ``F.conv1d`` /
+``F.max_pool2d`` on channels-last views, which costs no copy.
 
 Initializers reproduce PyTorch's defaults (uniform +-1/sqrt(fan_in)) and
 draw from an explicit ``torch.Generator``.
@@ -40,6 +41,14 @@ def conv_init(kh: int, kw: int, c_in: int, c_out: int,
     """nn.Conv2d default init, HWIO layout."""
     bound = 1.0 / math.sqrt(c_in * kh * kw)
     return {"w": uniform_init((kh, kw, c_in, c_out), bound, generator),
+            "b": uniform_init((c_out,), bound, generator)}
+
+
+def conv1d_init(kw: int, c_in: int, c_out: int,
+                generator: torch.Generator) -> dict:
+    """nn.Conv1d default init, WIO layout."""
+    bound = 1.0 / math.sqrt(c_in * kw)
+    return {"w": uniform_init((kw, c_in, c_out), bound, generator),
             "b": uniform_init((c_out,), bound, generator)}
 
 
@@ -81,6 +90,14 @@ def conv2d_nhwc(x: torch.Tensor, p: dict) -> torch.Tensor:
     y = F.conv2d(x.permute(0, 3, 1, 2), p["w"].permute(3, 2, 0, 1),
                  p.get("b"), padding=(kh // 2, kw // 2))
     return y.permute(0, 2, 3, 1)
+
+
+def conv1d_nwc(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """SAME 1-D conv, stride 1. x: (N, W, C); kernel WIO (kw, C, C_out).
+    An even kw pads one more position after than before, as XLA's SAME."""
+    y = F.conv1d(x.transpose(1, 2), p["w"].permute(2, 1, 0),
+                 p["b"].to(x.dtype), padding="same")
+    return y.transpose(1, 2)
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Training (ported: the official trainer, the CTC trainer, steps,
-npz checkpoints, metrics).
+"""Training (ported: the official trainer, the CTC trainer, the legacy
+trainers of train/legacy_loops.py, steps, npz checkpoints, metrics).
 
 ``train_ctc`` loads at first use: its validation decodes through
 infer.ctc_decode, whose predictor imports this package's checkpoint module.

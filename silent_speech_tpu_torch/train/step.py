@@ -53,15 +53,23 @@ class Optimizer:
     are scaled by max_norm / g_norm only when g_norm >= max_norm (optax's
     rule; ``torch.nn.utils.clip_grad_norm_`` differs), then
     ``torch.optim.Adam`` with optax's defaults (betas 0.9, 0.999, eps 1e-8)
-    steps."""
+    steps. With ``weight_decay`` it is ``optax.adamw(lr, weight_decay)``
+    after the clip: ``torch.optim.AdamW``, the decay decoupled from the
+    moments and scaled by the learning rate, as optax's."""
 
     def __init__(self, model: torch.nn.Module, lr: float,
-                 grad_clip_norm: float = 1.0):
+                 grad_clip_norm: float = 1.0, weight_decay: float = 0.0):
         self.model = model
         self.params = list(model.parameters())
         self.max_norm = grad_clip_norm
-        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999),
-                                     eps=1e-8)
+        kind = torch.optim.AdamW if weight_decay else torch.optim.Adam
+        self.adam = kind(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                         weight_decay=weight_decay)
+
+    def set_lr(self, lr: float) -> None:
+        """The learning rate of the next steps (a host-side schedule)."""
+        for group in self.adam.param_groups:
+            group["lr"] = lr
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)

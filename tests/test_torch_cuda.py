@@ -5,10 +5,11 @@ rows, ragged batch tiles, zero lengths, constant frames under
 standardization, odd widths; the ROI CNN backward (K3) on tie frames, its
 determinism and the inputs it refuses, its plan, N at the edges of its
 wave, emb 1-64, and its recomputed conv3 means bitwise K1's; K2's two kernels (gru_proj,
-gru_seq) each against its plain version at B 1-256, D 180-384, H 16-1024
-(clusters of 1, 4 and 8, Wh from device memory at H 512 and 1024), both
+gru_seq) each against its plain version at B 1-256, D 83-384, H 16-1024
+(clusters of 1, 2, 4 and 8, Wh from device memory at H 512 and 1024), both
 directions, lengths 0, 1 and T, bitwise repeatable, on a side stream, and
-refusing autograd; gru_proj on both routes at ragged M, K and N, bitwise
+refusing autograd; the variant families' GRU predictors (reduced, GRU-word,
+uni-GRU at their full widths) through K2 against gru_impl='plain'; gru_proj on both routes at ragged M, K and N, bitwise
 repeatable, its plan the Python mirror's;
 a train step through the kernels against the plain path; the serving
 modes' CNN kernels (K1-bf16, K4 int8, K5 im2col) on ragged and single
@@ -259,7 +260,8 @@ def test_roi_cnn_kernels_rows_do_not_depend_on_the_launch(dev, build,
 
 
 @pytest.mark.parametrize("B,T,D,H", [(1, 1, 4, 8), (9, 5, 13, 40),
-                                     (17, 33, 212, 192)])
+                                     (17, 33, 212, 192), (1, 32, 166, 128),
+                                     (64, 32, 360, 128)])
 @pytest.mark.parametrize("reverse", [False, True])
 def test_gru_kernel_matches_plain(dev, B, T, D, H, reverse):
     g = torch.Generator().manual_seed(B * 100 + T)
@@ -293,11 +295,14 @@ def test_bigru_kernel_one_launch_per_layer(dev):
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
 
 
-# K2's two kernels, each against its own plain version: H=16 runs clusters
-# of 1, 192 of 4, 200 of 8 (U=25, not whole warps); 512 and 1024 read Wh
-# from device memory (the kernel's plan, cuda_gru.plan)
-GRU_B, GRU_D, GRU_H = (1, 3, 17, 256), (180, 212, 384), (16, 192, 200, 512,
-                                                        1024)
+# K2's two kernels, each against its own plain version: H=16 and 64 run
+# clusters of 1, 128 of 2, 192 of 4, 200 of 8 (U=25, not whole warps); 512
+# and 1024 read Wh from device memory (the kernel's plan, cuda_gru.plan)
+# D=83 and 166 (the variant families' lip83 features and their deltas, not
+# multiples of 4: gru_proj's 4-byte copies), H=64 and 128 (the variants'
+# hidden sizes: clusters of 1 and 2)
+GRU_B, GRU_D = (1, 3, 17, 256), (83, 166, 180, 212, 384)
+GRU_H = (16, 64, 128, 192, 200, 512, 1024)
 
 
 def _gru_lengths(g, B, T):
@@ -1022,6 +1027,51 @@ def test_predictor_serving_mode_kernels_match_plain(dev, knobs, kernel):
                     **knobs).predict_batch(X, L, R)
     np.testing.assert_allclose(got, ref, atol=1e-3, rtol=0)
     assert (got.argmax(-1) == ref.argmax(-1)).all()
+
+
+# the variant families at their full widths: family, init arguments, T
+_VARIANTS = [("ReducedBiGRU", dict(d_in=83, num_classes=5), 60),
+             ("ReducedBiGRU", dict(d_in=180, num_classes=5), 60),
+             ("GRUWordClassifier", dict(d_in=83, num_classes=20), 60),
+             ("UniGRUClassifier", dict(d_in=166, num_classes=10), 32),
+             ("UniGRUClassifier", dict(d_in=360, num_classes=10), 32)]
+
+
+@pytest.mark.parametrize("cls,kw,T", _VARIANTS,
+                         ids=[f"{c}-{k['d_in']}" for c, k, _ in _VARIANTS])
+def test_variant_predictor_kernels_match_plain(dev, cls, kw, T):
+    """A variant family's VariantPredictor on K2 (gru_proj and gru_seq, one
+    launch each a layer and clip) against gru_impl='plain' on the card at
+    chip_smoke.py's bars: logits within 1e-3 with the same argmax, the
+    GRU's outputs within 1e-4 at B=1 and at the validation's B=64."""
+    from silent_speech_tpu_torch.infer.variant_predictor import \
+        VariantPredictor
+    from silent_speech_tpu_torch.models import variants as V
+
+    model = getattr(V, cls).init(torch.Generator().manual_seed(T), **kw)
+    labels = {i: f"w{i}" for i in range(kw["num_classes"])}
+    pred = VariantPredictor(model, labels, kw["d_in"], T, device="cuda")
+    plain = VariantPredictor(model, labels, kw["d_in"], T, device="cuda",
+                             gru_impl="plain")
+    rng = np.random.default_rng(T)
+    layers = model.gru.num_layers
+    for n in (5, T, 90):
+        X = rng.standard_normal((n, kw["d_in"])).astype(np.float32)
+        _kernels.reset_launch_counts()
+        got = pred.logits(X)
+        counts = _kernels.launch_counts()
+        assert counts["gru_proj"] == counts["gru_seq"] == layers
+        assert sum(counts.values()) == 2 * layers
+        want = plain.logits(X)
+        np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
+        assert got.argmax() == want.argmax()
+    for B in (1, 64):
+        x = torch.from_numpy(rng.standard_normal(
+            (B, T, kw["d_in"])).astype(np.float32)).to(dev)
+        with torch.inference_mode():
+            torch.testing.assert_close(
+                model.run_gru(x, gru_impl="kernel"),
+                model.run_gru(x, gru_impl="plain"), atol=1e-4, rtol=0)
 
 
 # ----------------------------------------------- the GRU probes' kernels

@@ -210,10 +210,6 @@ def test_eval_config_serving_kwargs_and_unported(trained, capsys):
                   "roi_impl=pallas", "device=cpu"])
     assert cli.main(["eval-dataset", "no_such_key=1"]) == 2
     assert "unknown arguments" in capsys.readouterr().out
-    for fn in (evaluator.evaluate_variant_dataset,
-               evaluator.evaluate_temporal_cnn):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn()
     with pytest.raises(NotImplementedError, match="slice 7"):
         evaluator.evaluate_ctc_dataset(ckpt, corpus, mesh_shape={"data": 2},
                                        device="cpu")
