@@ -168,7 +168,23 @@ prints no result line):
    ``evaluate_variant_dataset``) and predict on each checkpoint; K2's
    bidirectional layer at H=64 / D=83 / T=60 and H=128 / D=83 / T=40, B=1
    and 64, beside torch.nn.GRU (packed once, TF32 off, median of 7) and
-   torch.addmm.
+   torch.addmm;
+14. the live camera path (slice 6a, :func:`check_live`): ``infer-live``,
+   ``infer-gated`` (sequential, and threaded through the native ring) and
+   ``infer-ctc`` at full width (the official ``BiGRUConfig()``, the CTC
+   ``CTCTrainConfig()`` width), ``infer-stream`` with the window engine
+   (GRU-word, H=128, 2 layers, D=83) and the carry engine (uni-GRU,
+   H=128, d_target 180), random weights from the seed, each through the
+   CLI with ``sim=240`` (640x480 fake frames, a fake face track) on the
+   kernels route and on the plain one: the kernels launched (K1 and K2;
+   K2 alone for the window; none for the carry engine), the same labels
+   on every clip, logits within 1e-3; the carry engine's per-frame logits
+   within 1e-5 of the full scan over the same frames; the batched
+   features and ROI crop at B=64, T=32 (2,048 frames) against the host
+   frame paths (the crop bitwise but on pixels within 1e-4 of a rounding
+   boundary, their count printed); the gated clip's host p50, each
+   command's sim frames/s, the batched crop's ms and the host crop's ms a
+   frame.
 
 Then one JSON line with the kernels' results, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA device;
@@ -3756,6 +3772,382 @@ def check_variants(work: Path, dev, card: str) -> dict:
     return {"launches": launches, "errs": errs, "p50_ms": p50, "k2": k2}
 
 
+# ---- phase 14: the live camera path (slice 6a)
+LIVE_SIM = 240  # frames of each command's sim run, 640x480 (the fake camera)
+LIVE_B, LIVE_T = 64, 32  # the batched ops: 2,048 frames, 1.9 GB of uint8
+# the batched crop against the host crop: a pixel whose f32 value lies
+# within this of k + 0.5 may round apart (two sum orders), by one level
+NEAR_ROUND = 1e-4
+# the carry engine against the full scan over the same frames, and the
+# batched features against the host frame path (tests/test_features.py)
+BAR_CARRY, BAR_FEAT, REL_FEAT = 1e-5, 2e-4, 1e-4
+
+
+def live_cli(args: list[str]) -> dict:
+    """One camera command through the port's CLI in process, the fake
+    camera's session included (``sim=``): its output, wall seconds, the
+    kernels' launches over it, the logits of every ``predict_batch``, the
+    host ms of every ``predict_arrays``, the rings it made, the logits
+    each streaming engine handed to ``stream_probs``, the dictionary
+    scores of every ``CTCDecoder.score_batch`` with its clips' lengths, and
+    the per-frame log-probabilities of every ``CTCDecoder.logprobs`` (each
+    clip's valid frames)."""
+    from silent_speech_tpu_torch.apps import live
+    from silent_speech_tpu_torch.infer import streaming
+    from silent_speech_tpu_torch.infer.ctc_decode import CTCDecoder
+    from silent_speech_tpu_torch.infer.predictor import Predictor
+    from silent_speech_tpu_torch.ops import _kernels
+    from silent_speech_tpu_torch.runtime import pipeline
+
+    rec = {"logits": [], "ms": [], "rings": [], "stream": [], "scores": [],
+           "lp": [], "audio": 0}
+    saved = (Predictor.predict_batch, Predictor.predict_arrays,
+             pipeline.FrameRing, streaming.stream_probs, live.play_audio,
+             CTCDecoder.score_batch, CTCDecoder.logprobs)
+
+    def batch(self, *a, **k):
+        out = saved[0](self, *a, **k)
+        rec["logits"].append(out.copy())
+        return out
+
+    def arrays(self, *a, **k):
+        t0 = time.perf_counter()
+        out = saved[1](self, *a, **k)
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def ring(*a, **k):
+        rec["rings"].append(saved[2](*a, **k))
+        return rec["rings"][-1]
+
+    def probs(logits):
+        rec["stream"].append(np.array(logits, np.float32))
+        return saved[3](logits)
+
+    def audio(path):  # the easter eggs' player: counted, no process
+        rec["audio"] += 1
+
+    def scores(self, X, roi, lengths):
+        out = saved[5](self, X, roi, lengths)
+        rec["scores"].append((np.array(out), np.array(lengths)))
+        return out
+
+    def logprobs(self, X, roi, lengths):
+        out = saved[6](self, X, roi, lengths)
+        rec["lp"].extend(out[b, :int(n)].float().cpu().numpy()
+                         for b, n in enumerate(np.asarray(lengths)))
+        return out
+
+    Predictor.predict_batch, Predictor.predict_arrays = batch, arrays
+    pipeline.FrameRing, streaming.stream_probs, live.play_audio = (
+        ring, probs, audio)
+    CTCDecoder.score_batch, CTCDecoder.logprobs = scores, logprobs
+    try:
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rec["text"] = run_cli(args)
+        torch.cuda.synchronize()
+        rec["wall"] = time.perf_counter() - t0
+        rec["counts"] = {k: v for k, v in _kernels.launch_counts().items()
+                         if v}
+    finally:
+        (Predictor.predict_batch, Predictor.predict_arrays,
+         pipeline.FrameRing, streaming.stream_probs, live.play_audio,
+         CTCDecoder.score_batch, CTCDecoder.logprobs) = saved
+    return rec
+
+
+def live_pair(label: str, args: list[str], plain_args: list[str],
+              kernels: tuple, card: str) -> dict:
+    """A command on the kernels route and on the plain one: the kernels
+    route must launch each of ``kernels`` and no other kernel, the plain
+    route none; the same printed labels and argmaxes, logits (predict or
+    stream) within BAR_LOGITS. Returns the kernels run's record."""
+    got, want = live_cli(args), live_cli(args + plain_args)
+    if sorted(got["counts"]) != sorted(kernels) or want["counts"]:
+        fail(f"{label}: launches {got['counts']} (kernels route) and "
+             f"{want['counts']} (plain route); expected {kernels} and none")
+    for key in ("logits", "stream"):
+        if len(got[key]) != len(want[key]):
+            fail(f"{label}: {len(got[key])} {key} on the kernels route, "
+                 f"{len(want[key])} on the plain one")
+        if got[key]:
+            g, w = np.concatenate(got[key]), np.concatenate(want[key])
+            check_close(f"{label} {key} ({len(got[key])} calls) vs plain",
+                        torch.from_numpy(g), torch.from_numpy(w), BAR_LOGITS)
+            if not (g.argmax(-1) == w.argmax(-1)).all():
+                fail(f"{label}: an argmax differs from the plain route")
+    if len(got["lp"]) != len(want["lp"]) or any(
+            g.shape != w.shape for g, w in zip(got["lp"], want["lp"])):
+        fail(f"{label}: the CTC forwards' clips differ from the plain route")
+    if got["lp"]:
+        check_close(f"{label} CTC log-probs ({len(got['lp'])} clips, "
+                    f"{sum(len(g) for g in got['lp'])} frames) vs plain",
+                    torch.from_numpy(np.concatenate(got["lp"])),
+                    torch.from_numpy(np.concatenate(want["lp"])), BAR_LOGITS)
+    if len(got["scores"]) != len(want["scores"]):
+        fail(f"{label}: {len(got['scores'])} dictionary sweeps on the "
+             f"kernels route, {len(want['scores'])} on the plain one")
+    for (g, n), (w, m) in zip(got["scores"], want["scores"]):
+        # a word's score sums its lattice over the clip's frames: log-probs
+        # within BAR_LOGITS a frame move it by at most BAR_LOGITS * T (the
+        # length prior is the same on both routes)
+        bar = BAR_LOGITS * n.astype(np.float64)[:, None]
+        d = np.abs(g.astype(np.float64) - w)
+        print(f"  {label}: dictionary sweep of {g.shape[1]} words, clips of "
+              f"{n.tolist()} frames: max |d score| {d.max():.3e} (bar "
+              f"{BAR_LOGITS:g} a frame, {bar.max():g})")
+        if not (n == m).all() or not np.isfinite(g).all() or (d > bar).any():
+            fail(f"{label}: dictionary scores off the plain route's beyond "
+                 f"{BAR_LOGITS:g} a frame (lengths {n.tolist()} vs "
+                 f"{m.tolist()})")
+        if g.argmax(-1).tolist() != w.argmax(-1).tolist():
+            fail(f"{label}: the dictionary argmax differs from the plain "
+                 "route")
+    lines = lambda r: re.findall(r"(?:Top3|Prediction): (\S+)", r["text"])
+    if lines(got) != lines(want) or not (lines(got) or got["stream"]):
+        fail(f"{label}: printed {lines(got)}, plain {lines(want)}")
+    got["fps"] = LIVE_SIM / got["wall"]
+    print(f"  {label}: {LIVE_SIM} sim frames in {got['wall']:.3f} s, "
+          f"{got['fps']:.1f} frames/s (plain route "
+          f"{LIVE_SIM / want['wall']:.1f}), "
+          f"{len(got['logits'] + got['stream'] + got['scores'])} "
+          "predictions, "
+          f"launches {got['counts']} {card}")
+    return got
+
+
+def check_batched_ops(dev, card: str) -> dict:
+    """The batched features and ROI crop on the card at LIVE_B x LIVE_T
+    frames of 640x480x3 uint8 (random frames, fake faces of varied
+    width, opening and place) against the host frame paths: the features
+    at BAR_FEAT / REL_FEAT; the crop bitwise except on pixels within
+    NEAR_ROUND of a rounding boundary, there by one level (their count
+    printed). Times the batched crop (held-stream timer) and the host crop
+    (a frame, host clock)."""
+    from silent_speech_tpu_torch.ops import features as F
+    from silent_speech_tpu_torch.ops import roi as R
+    from silent_speech_tpu_torch.runtime.fakes import make_face
+
+    rng = np.random.default_rng(SEED + 14)
+    N = LIVE_B * LIVE_T
+    faces = np.stack([make_face(
+        float(rng.uniform(60, 150)), float(rng.uniform(2, 30)),
+        center=(float(rng.uniform(0.3, 0.7)), float(rng.uniform(0.3, 0.7))),
+        seed=i) for i in range(N)]).reshape(LIVE_B, LIVE_T, 468, 3)
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    frames = torch.randint(0, 256, (LIVE_B, LIVE_T, 480, 640, 3),
+                           generator=g, device=dev, dtype=torch.uint8)
+    feats, centers, mws = F.extract_features_batched(
+        torch.from_numpy(faces).to(dev), 640, 480)
+    host_feats, host_c, host_mw = [], [], []
+    for b in range(LIVE_B):
+        prev = None
+        for t in range(LIVE_T):
+            f, prev, c, mw = F.extract_features_frame(faces[b, t], 640, 480,
+                                                      prev)
+            host_feats.append(f)
+            host_c.append(c)
+            host_mw.append(mw)
+    host_feats = np.stack(host_feats).reshape(LIVE_B, LIVE_T, -1)
+    got = feats.cpu().numpy()
+    err = float(np.abs(got - host_feats).max())
+    if not np.allclose(got, host_feats, atol=BAR_FEAT, rtol=REL_FEAT):
+        fail(f"batched features vs host: max |d| {err:.3e}")
+    print(f"  batched features {tuple(got.shape)} vs the host frame path: "
+          f"max |d| {err:.3e} (bars {BAR_FEAT:g} / rel {REL_FEAT:g})")
+    host_c = np.asarray(host_c, np.float32).reshape(LIVE_B, LIVE_T, 2)
+    host_mw = np.asarray(host_mw, np.float32).reshape(LIVE_B, LIVE_T)
+    crop = lambda: R.crop_resize_gray_batched(
+        frames, torch.from_numpy(host_c), torch.from_numpy(host_mw),
+        input_layout="bgr")
+    roi, ok = crop()
+    vals = R.crop_resize_gray_values(frames, torch.from_numpy(host_c),
+                                     torch.from_numpy(host_mw),
+                                     input_layout="bgr")[0].cpu().numpy()
+    roi, ok = roi.cpu().numpy(), ok.cpu().numpy()
+    frames_h = frames.cpu().numpy()
+    near = np.abs(vals - np.floor(vals) - 0.5) < NEAR_ROUND
+    apart, host_ms = 0, []
+    for b in range(LIVE_B):
+        for t in range(LIVE_T):
+            t0 = time.perf_counter()
+            h = R.crop_resize_gray_frame_host(frames_h[b, t], host_c[b, t],
+                                              float(host_mw[b, t]))
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            if h is None:
+                if ok[b, t] or roi[b, t].any():
+                    fail(f"crop ({b}, {t}): the host skips, batched ok")
+                continue
+            d = roi[b, t] != h
+            if d.any() and (not near[b, t][d].all() or np.abs(
+                    roi[b, t].astype(int) - h)[d].max() > 1):
+                fail(f"batched crop ({b}, {t}) differs from the host crop "
+                     "off a rounding boundary")
+            apart += int(d.sum())
+    del frames_h
+    crop_ms = held_ms(crop, dev, iters=5)
+    print(f"  batched crop {tuple(roi.shape)} vs the host crop: bitwise "
+          f"but {apart} pixels, each within {NEAR_ROUND:g} of a rounding "
+          f"boundary ({int(near.sum())} pixels lie there), by one level; "
+          f"{int(ok.sum())}/{N} boxes ok")
+    out = {"crop_ms": crop_ms, "host_crop_ms": statistics.median(host_ms),
+           "crop_apart_px": apart, "crop_near_px": int(near.sum()),
+           "feat_err": err}
+    print(f"  batched crop: {crop_ms:.4f} ms for {N} frames (held-stream "
+          f"timer, TF32 off) {card}")
+    print(f"  host crop: {out['host_crop_ms']:.4f} ms a frame (p50 of {N}, "
+          f"host clock) {card}")
+    return out
+
+
+def check_live(work: Path, dev, card: str) -> dict:
+    """Phase 14, the live camera path (slice 6a), through the port's CLI in
+    process with ``sim=LIVE_SIM`` (the fakes of runtime/fakes.py: 640x480
+    frames, a face track with openness bursts, 'r' on frames 3 and
+    LIVE_SIM - 8), each command on the kernels route and with
+    roi_impl=plain gru_impl=plain (:func:`live_pair`):
+
+    - ``infer-live`` and ``infer-gated`` (sequential and threaded) on the
+      official model at full width (``BiGRUConfig()``, random weights from
+      SEED): K1 and K2 launched, the same labels on every clip, logits
+      within BAR_LOGITS; the threaded run through the native ring;
+    - ``infer-stream engine=window`` on a GRU-word checkpoint at reference
+      width (H=128, 2 layers, D=83): K2, against plain;
+    - ``infer-stream engine=carry`` on a uni-GRU checkpoint (H=128,
+      d_target 180, deltas): no kernel; its per-frame logits within
+      BAR_CARRY of the full scan over the same frames;
+    - ``infer-ctc`` at ``CTCTrainConfig()`` width (hidden 192, 3 layers,
+      27 classes): K1 and K2; every clip's per-frame log-probs within
+      BAR_LOGITS of plain, each word's score within BAR_LOGITS times the
+      clip's frames, the same top word;
+    - the batched features and crop (:func:`check_batched_ops`).
+
+    Returns {"launches": {kernel: count over the kernels runs}, "p50_ms",
+    "fps": {command: frames/s}, "ops": ...}."""
+    from silent_speech_tpu_torch.infer.predictor import full_f32
+    from silent_speech_tpu_torch.infer.streaming import CarryStreamingGRU
+    from silent_speech_tpu_torch.models import ctc_model
+    from silent_speech_tpu_torch.models import variants as V
+    from silent_speech_tpu_torch.models.bigru import BiGRUConfig, init_params
+    from silent_speech_tpu_torch.ops import gru as gru_ops
+    from silent_speech_tpu_torch.ops.nn import dense
+    from silent_speech_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                          reference_meta,
+                                                          save_checkpoint)
+
+    t_phase = time.perf_counter()
+    live_dir = work / "live"
+    live_dir.mkdir(parents=True)
+    gen = torch.Generator().manual_seed(SEED + 14)
+    words = ["yes", "no", "hello", "thanks", "please", "fahhh", "six",
+             "seven", "lebron", "aura"]
+    i2l = dict(enumerate(words))
+    cfg = BiGRUConfig()
+    ckpt = {k: str(live_dir / f"{k}.ckpt") for k in ("official", "window",
+                                                     "carry", "ctc")}
+    save_checkpoint(ckpt["official"], init_params(cfg, gen), reference_meta(
+        x_dim=cfg.x_dim, max_t=90, use_roi=True, roi_w=cfg.roi_w,
+        roi_h=cfg.roi_h, labels=words,
+        label_to_id={w: i for i, w in i2l.items()}, id_to_label=i2l,
+        seed=SEED))
+    save_checkpoint(ckpt["window"], V.GRUWordClassifier.init(
+        gen, 83, 10, hidden=128, num_layers=2).params_tree(),
+        {"input_dim": 83, "max_t": 90, "id_to_label": i2l})
+    save_checkpoint(ckpt["carry"], V.UniGRUClassifier.init(
+        gen, 360, 10, hidden=128).params_tree(),
+        {"model": "unigru", "d_in": 360, "t_target": 32, "d_target": 180,
+         "use_deltas": True, "id_to_word": i2l,
+         "trim": {"margin": 2, "q": 0.6, "min_keep": 6}})
+    save_checkpoint(ckpt["ctc"], ctc_model.init_params(
+        180, gen, hidden=192, gru_layers=3, roi_emb=32),
+        {"max_t": 80, "uniq_labels": words, "len_lambda": 0.02,
+         "exp_len": 5})
+    sim = [f"sim={LIVE_SIM}", "device=cuda"]
+    plain = ["roi_impl=plain", "gru_impl=plain"]
+    k12 = ("roi_cnn", "gru_proj", "gru_seq")
+    runs = {}
+    print(f"the live camera path, {LIVE_SIM} sim frames of 640x480 a "
+          "command (kernels vs roi_impl=plain gru_impl=plain, TF32 off):")
+    for label, args in (
+            ("infer-live", ["infer-live"]),
+            ("infer-gated", ["infer-gated"]),
+            ("infer-gated threaded", ["infer-gated", "pipeline=threaded"])):
+        runs[label] = live_pair(label, args + [
+            f"ckpt_path={ckpt['official']}"] + sim, plain, k12, card)
+    ring = runs["infer-gated threaded"]["rings"]
+    if len(ring) != 1 or not ring[0].native or "pipeline: produced=" \
+            f"{LIVE_SIM} consumed={LIVE_SIM}" not in \
+            runs["infer-gated threaded"]["text"]:
+        fail("the threaded gated run did not stream every frame through "
+             "one native ring")
+    if runs["infer-gated threaded"]["logits"] and [
+            x.argmax() for x in runs["infer-gated threaded"]["logits"]] != [
+            x.argmax() for x in runs["infer-gated"]["logits"]]:
+        fail("infer-gated threaded predicted other clips than sequential")
+    runs["infer-stream window"] = live_pair(
+        "infer-stream window", ["infer-stream", f"ckpt_path={ckpt['window']}",
+                                "engine=window"] + sim, ["gru_impl=plain"],
+        ("gru_proj", "gru_seq"), card)
+    runs["infer-ctc"] = live_pair(
+        "infer-ctc", ["infer-ctc", f"ckpt_path={ckpt['ctc']}"] + sim, plain,
+        k12, card)
+    if not (runs["infer-ctc"]["scores"] and runs["infer-ctc"]["lp"]):
+        fail("infer-ctc: no dictionary sweep to hold against plain")
+
+    seen = []
+    push = CarryStreamingGRU.push
+
+    def spy(self, feat):
+        out = push(self, feat)
+        seen.append((np.array(feat, np.float32), out.copy()))
+        return out
+
+    CarryStreamingGRU.push = spy
+    try:
+        carry = live_cli(["infer-stream", f"ckpt_path={ckpt['carry']}",
+                          "engine=carry"] + sim)
+    finally:
+        CarryStreamingGRU.push = push
+    if carry["counts"] or len(seen) != LIVE_SIM or not carry["stream"]:
+        fail(f"infer-stream carry: launches {carry['counts']}, {len(seen)} "
+             f"steps for {LIVE_SIM} frames, {len(carry['stream'])} "
+             "predictions")
+    carry["fps"] = LIVE_SIM / carry["wall"]
+    runs["infer-stream carry"] = carry
+    tree = V.UniGRUClassifier.from_jax_params(
+        load_checkpoint(ckpt["carry"])[0]).to(dev).params_tree()
+    X = torch.from_numpy(np.stack([f for f, _ in seen])[None]).to(dev)
+    with torch.inference_mode(), full_f32():
+        top, _ = gru_ops.unidirectional_gru_chunked(
+            X, torch.tensor([LIVE_SIM]), tree["gru"], chunk_size=LIVE_SIM)
+        full = dense(top[0], tree["head"]).cpu()
+    print(f"  infer-stream carry: {LIVE_SIM} sim frames in "
+          f"{carry['wall']:.3f} s, {carry['fps']:.1f} frames/s, one GRU "
+          f"step a frame (plain PyTorch, no kernel) {card}")
+    check_close(f"infer-stream carry: per-frame logits ({LIVE_SIM} steps) "
+                "vs the full scan over the same frames",
+                torch.from_numpy(np.stack([lg for _, lg in seen])), full,
+                BAR_CARRY)
+
+    gated = runs["infer-gated"]["ms"]
+    p50 = statistics.median(gated)
+    print(f"  infer-gated: host p50 of one clip's prediction {p50:.4f} ms "
+          f"(predict_arrays over {len(gated)} clips, host clock, kernels "
+          f"route) {card}")
+    print(f"batched live ops at B={LIVE_B}, T={LIVE_T} (640x480x3 uint8 "
+          "frames on the card) against the host frame paths:")
+    ops = check_batched_ops(dev, card)
+    launches = {}
+    for r in runs.values():
+        for k, v in r["counts"].items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"  phase 14 launches: {launches}; phase 14 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "p50_ms": p50,
+            "fps": {k: r["fps"] for k, r in runs.items()}, "ops": ops}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device; this script runs only on a GPU")
@@ -4153,6 +4545,9 @@ def main() -> int:
           "the CLIs):")
     variants = check_variants(work, dev, card)
 
+    # ---- 14. the live camera path (slice 6a)
+    live = check_live(work, dev, card)
+
     def k1_row(kname, launches, err):
         by_n = {str(Nk): r for (name, Nk), r in k1.items() if name == kname}
         return {"name": kname, "route": "cuda",
@@ -4257,6 +4652,11 @@ def main() -> int:
                 "by_shape": {shape: {k: v for k, v in r.items()
                                      if k.startswith((part, "layer_"))}
                              for shape, r in variants["k2"].items()}}
+        if row["name"] in ("roi_cnn", "gru_proj", "gru_seq"):
+            row["live_path"] = {
+                "launches": live["launches"].get(row["name"], 0),
+                "gated_clip_p50_ms": live["p50_ms"],
+                "sim_frames_s": live["fps"]}
     print(json.dumps(result))
     print(smi)
     print(json.dumps({"ok": True, "device": {

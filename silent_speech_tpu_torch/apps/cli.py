@@ -18,6 +18,15 @@
     python -m silent_speech_tpu_torch train-reduced|train-unigru|train-mlp \\
         clip_dir=<dir> out_path=<ckpt> [<ReducedConfig | UniGRUConfig |
         MLPQuickConfig field>=...] [device=cuda]
+    python -m silent_speech_tpu_torch record [<RecorderConfig field>=...]
+    python -m silent_speech_tpu_torch infer-live ckpt_path=<ckpt> \\
+        [<InferConfig field>=...]
+    python -m silent_speech_tpu_torch infer-gated ckpt_path=<ckpt> \\
+        [<InferConfig or StreamConfig field>=...]
+    python -m silent_speech_tpu_torch infer-stream ckpt_path=<ckpt> \\
+        [cam_index=0] [gru_impl=auto] [<StreamConfig field>=...]
+    python -m silent_speech_tpu_torch infer-ctc ckpt_path=<ckpt> \\
+        [cam_index=0] [chunk_words=0] [predict_async=false] [serving knobs]
 
 ``train`` is the official trainer (train_model_official.py) with the JAX
 CLI's ``TrainConfig`` overrides; ``device`` defaults to 'cuda' (the CPU
@@ -50,16 +59,32 @@ trainers (inactive/train_reduced.py, train_model_1130pm.py,
 train_5_quick.py; train/legacy_loops.py) with the JAX CLI's config
 overrides; ``device`` defaults to 'cuda'.
 
-The serving knobs of eval-dataset, eval-ctc and predict: ``roi_impl`` /
+The camera commands (slice 6, apps/record.py and apps/live.py): ``record``
+the official recorder (record_landmarks_official.py), ``infer-live``
+manual-toggle clips (live_infer_official.py), ``infer-gated``
+openness-gated clips (inactive/live_lower_half.py), ``infer-stream`` the
+sliding window or one GRU step a frame (inactive/live_feed.py),
+``infer-ctc`` dictionary-scored CTC clips
+(inactive/facial_landmark_detection.py). Each takes the JAX CLI's keys,
+``model_path=<face_landmarker.task>``, ``device`` ('cuda' by default) and
+``sim=N``: N frames of the headless harness (runtime/fakes.py: a synthetic
+face track, openness bursts and 'r' pressed on frames 3 and N-8) instead
+of a camera and mediapipe.
+
+The serving knobs of eval-dataset, eval-ctc, predict and the camera
+commands: ``roi_impl`` /
 ``gru_impl`` take 'auto', 'kernel' or 'plain'; ``roi_variant`` 'tiled3',
 'tiled3_q8' (int8) or 'im2col'; ``compute_dtype`` 'float32' or
 'bfloat16'; ``matmul_precision`` 'parity', 'highest' or 'none'. Other
-values raise. Every other command of the JAX CLI (``infer-ctc``, the
-camera app, among them) prints "not yet ported" and exits 2.
+values raise. Every other command of the JAX CLI (``record-timed``,
+``status``, ``landmarks-view`` among them) prints "not yet ported" and
+exits 2.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import glob
 import sys
 from typing import Optional, Sequence
@@ -68,9 +93,8 @@ import numpy as np
 
 # commands of the JAX CLI that the port does not have yet
 _NOT_PORTED = (
-    "record", "record-timed", "infer-live", "infer-gated", "infer-stream",
-    "landmarks-view", "important-landmarks",
-    "infer-ctc", "debug-npz", "export-torch", "status", "doctor", "bench",
+    "record-timed", "landmarks-view", "important-landmarks", "debug-npz",
+    "export-torch", "status", "doctor", "bench",
 )
 # the legacy trainers: command -> (config class, trainer) in
 # train/legacy_loops.py
@@ -78,6 +102,15 @@ _LEGACY = {"train-reduced": ("ReducedConfig", "train_reduced"),
            "train-unigru": ("UniGRUConfig", "train_unigru"),
            "train-mlp": ("MLPQuickConfig", "train_mlp_quick")}
 _KNOBS = ("roi_impl", "gru_impl", "roi_variant", "compute_dtype")
+# the camera commands (apps/record.py, apps/live.py): command -> (the
+# configs whose fields it takes, its other keys)
+_CAMERA = {"record": (("RecorderConfig",), ()),
+           "infer-live": (("InferConfig",), ()),
+           "infer-gated": (("InferConfig", "StreamConfig"), ()),
+           "infer-stream": (("StreamConfig",),
+                            ("ckpt_path", "cam_index", "gru_impl")),
+           "infer-ctc": ((), ("ckpt_path", "cam_index", "chunk_words",
+                              "predict_async", "matmul_precision") + _KNOBS)}
 _PREDICT_KEYS = ("ckpt_path", "clip", "k", "device", "matmul_precision"
                  ) + _KNOBS
 _TRAIN_EXTRA = ("device", "resume_from", "metrics_path")
@@ -272,6 +305,72 @@ def _eval_dataset(rest: list[str]) -> int:
     return 0
 
 
+def _sim_context(sim_n: int):
+    """The default simulation scenario of the JAX CLI: the face in range,
+    openness bursts of 12 frames, 'r' pressed on frames 3 and sim_n - 8."""
+    from ..runtime.fakes import NO_KEY, face_track, sim_session
+
+    keys = [NO_KEY] * sim_n
+    if sim_n >= 16:
+        keys[3] = ord("r")
+        keys[sim_n - 8] = ord("r")
+    # openness square wave: speaking bursts for the gated and stream modes
+    open_seq = [20.0 if (i // 12) % 2 == 1 else 6.0 for i in range(sim_n)]
+    return sim_session(keys=keys, n_frames=sim_n,
+                       faces=face_track(sim_n, open_seq=open_seq))
+
+
+def _camera(cmd: str, rest: list[str]) -> int:
+    from ..core import config
+    from . import live, record
+
+    classes, extra = _CAMERA[cmd]
+    fields = {c: {f.name for f in dataclasses.fields(getattr(config, c))}
+              for c in classes}
+    kv = dict(a.split("=", 1) for a in rest if "=" in a)
+    sim_n = int(kv.pop("sim", 0))
+    run_kw = {"device": kv.pop("device", "cuda")}
+    if "model_path" in kv:
+        run_kw["model_path"] = kv.pop("model_path")
+    allowed = set(extra).union(*fields.values())
+    bad = [a for a in rest if "=" not in a] + [k for k in kv
+                                               if k not in allowed]
+    if bad or ("ckpt_path" in extra and "ckpt_path" not in kv):
+        keys = " | ".join([f"<{c} field>" for c in classes] + list(extra))
+        print((f"unknown arguments {bad}\n" if bad else "")
+              + f"usage: python -m silent_speech_tpu_torch {cmd} [{keys}=...]"
+              " [model_path=<face_landmarker.task>] [device=cuda|cpu] "
+              "[sim=N]" + (" (ckpt_path is required)" if "ckpt_path" in
+                           extra else ""))
+        return 2
+    # the gated command's thresholds and pipeline knobs are StreamConfig
+    # fields (live_lower_half.py:143-151), the rest InferConfig's
+    cfg = {c: config.apply_overrides(getattr(config, c)(), [
+        f"{k}={v}" for k, v in kv.items() if k in fields[c]])
+        for c in classes}
+    with _sim_context(sim_n) if sim_n else contextlib.nullcontext():
+        if cmd == "record":
+            record.main(cfg["RecorderConfig"], **run_kw)
+        elif cmd == "infer-live":
+            live.infer_live(cfg["InferConfig"], **run_kw)
+        elif cmd == "infer-gated":
+            live.infer_gated(cfg["InferConfig"], cfg["StreamConfig"],
+                             **run_kw)
+        elif cmd == "infer-stream":
+            live.infer_stream(kv["ckpt_path"], cfg["StreamConfig"],
+                              cam_index=int(kv.get("cam_index", 0)),
+                              gru_impl=kv.get("gru_impl", "auto"), **run_kw)
+        else:
+            live.infer_ctc(
+                kv["ckpt_path"], cam_index=int(kv.get("cam_index", 0)),
+                chunk_words=int(kv.get("chunk_words", 0)),
+                predict_async=config.parse_bool(
+                    "predict_async", kv.get("predict_async", "false")),
+                matmul_precision=kv.get("matmul_precision", ""),
+                **{k: kv[k] for k in _KNOBS if k in kv}, **run_kw)
+    return 0
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = list(sys.argv[1:] if argv is None else argv)
     if not args or args[0] in ("-h", "--help"):
@@ -292,6 +391,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return _train_legacy(cmd, rest)
     if cmd == "eval-ctc":
         return _eval_ctc(rest)
+    if cmd in _CAMERA:
+        return _camera(cmd, rest)
     if cmd != "predict":
         print(f"unknown command {cmd!r}\n{_TRAIN_USAGE}\n{_EVAL_USAGE}\n"
               f"{_USAGE}\n{_TRAIN_CTC_USAGE}\n{_EVAL_CTC_USAGE}")

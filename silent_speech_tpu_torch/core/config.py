@@ -1,8 +1,9 @@
-"""The official and CTC trainers' and the dataset evaluator's settings and
-the CLI's ``key=value`` overrides (copy of ``TrainConfig``,
-``CTCTrainConfig``, ``EvalConfig``, ``serving_kwargs`` and
-``apply_overrides`` from the JAX package's core/config.py, which the port
-does not import).
+"""The recorder's, the official and CTC trainers', the live apps', the
+streaming engines' and the dataset evaluator's settings and the CLI's
+``key=value`` overrides (copy of ``RecorderConfig``, ``TrainConfig``,
+``InferConfig``, ``CTCTrainConfig``, ``StreamConfig``, ``EvalConfig``,
+``serving_kwargs`` and ``apply_overrides`` from the JAX package's
+core/config.py, which the port does not import).
 
 Field names and defaults are the reference's CONSTANTS block
 (train_model_official.py:20-47), so a JAX-package command line runs the port
@@ -16,6 +17,32 @@ from __future__ import annotations
 import dataclasses
 import json
 from typing import Optional, Sequence
+
+
+@dataclasses.dataclass
+class RecorderConfig:
+    """Official recorder settings (record_landmarks_official.py:5-25): the
+    ``record`` command."""
+
+    out_dir: str = "clips_npz"
+    # labeled .mp4s of the timed recorder (record_training_data.py:13-19)
+    videos_dir: str = "videos_labeled"
+    speaker: str = "me"
+    cam_index: int = 1
+    roi_w: int = 96
+    roi_h: int = 48
+    save_roi: bool = True
+    draw_points: bool = True
+    mouth_w_min_px: float = 60.0
+    mouth_w_max_px: float = 150.0
+    min_frames: int = 5
+    # EMA stabilization of the ROI center/scale, 0 = off
+    # (inactive/record_landmarks_v2.py:70-73,231-242)
+    roi_ema_alpha: float = 0.0
+    # landmark selection: "fixed" = the official 88-point set; "dynamic" =
+    # per-clip lower-face selection locked on the first in-range frame
+    # (inactive/lower_face_record.py:66-85, span-norm features)
+    idxs_mode: str = "fixed"
 
 
 @dataclasses.dataclass
@@ -64,6 +91,36 @@ class TrainConfig:
 
 
 @dataclasses.dataclass
+class InferConfig:
+    """Live inference settings (live_infer_official.py:17-43): the
+    ``infer-live`` and ``infer-gated`` commands."""
+
+    ckpt_path: str = "word_model_points_roi.ckpt"
+    cam_index: int = 1
+    roi_w: int = 96
+    roi_h: int = 48
+    mouth_w_min_px: float = 60.0
+    mouth_w_max_px: float = 150.0
+    draw_points: bool = True
+    min_frames: int = 5
+    topk: int = 3
+    # serving knobs (no reference counterpart), the port's values as in
+    # EvalConfig; the Predictor raises on the others
+    compute_dtype: str = "float32"
+    roi_impl: str = "auto"
+    roi_variant: str = "tiled3"
+    gru_impl: str = "auto"
+    matmul_precision: str = ""
+    # run every (bucket, B=1) shape once at startup (Predictor.warmup), so
+    # the first clip does not pay the kernels' build
+    warmup: bool = False
+    # predict a finished clip on a worker thread, so the camera loop keeps
+    # running (the reference blocks the feed, live_infer_official.py:
+    # 338-359); False = the reference's blocking predict
+    predict_async: bool = False
+
+
+@dataclasses.dataclass
 class CTCTrainConfig:
     """CTC trainer settings (inactive/train_model.py:10-29): the
     ``train-ctc`` command."""
@@ -100,6 +157,33 @@ class CTCTrainConfig:
 
 
 @dataclasses.dataclass
+class StreamConfig:
+    """Streaming and auto-clip settings: the ``infer-gated`` and
+    ``infer-stream`` commands. Sliding-window knobs from
+    inactive/live_feed.py:161-163; openness gating from
+    inactive/live_lower_half.py:143-151."""
+
+    max_t: int = 90
+    pred_every: int = 2
+    warmup_min: int = 10
+    # openness-gated auto-clip segmentation
+    open_thresh: float = 0.15
+    start_n: int = 2
+    end_n: int = 4
+    max_clip: int = 80
+    hold_frames: int = 20
+    conf_thresh: float = 0.45
+    # (no reference counterpart) 'sequential' = the reference's one-thread
+    # loop; 'threaded' = capture and landmarker on a producer thread ->
+    # the native SPSC ring -> a dispatch thread (runtime/pipeline.py)
+    pipeline: str = "sequential"
+    # 'window' = sliding-window re-score (live_feed.py); 'carry' = one GRU
+    # step a frame for uni-GRU checkpoints
+    engine: str = "window"
+    ring_capacity: int = 256
+
+
+@dataclasses.dataclass
 class EvalConfig:
     """Offline dataset evaluation (inactive/dataset_eval.py): the
     ``eval-dataset`` command."""
@@ -123,7 +207,7 @@ class EvalConfig:
 
 
 def serving_kwargs(cfg) -> dict:
-    """Predictor serving kwargs from an EvalConfig.
+    """Predictor serving kwargs from an InferConfig or EvalConfig.
 
     ``matmul_precision``: empty string defers to the Predictor default
     ('parity'); 'default'/'none' leave the caller's matmul settings;

@@ -1,5 +1,6 @@
-"""The landmark constants of the clip format that the port needs (copy of
-the JAX package's core/landmarks.py, which the port does not import).
+"""The landmark constants of the clip format and of the live feature
+families (copy of the JAX package's core/landmarks.py, which the port does
+not import).
 
 The index sets are part of the data contract with recorded `.npz` clips
 (stored in each clip's ``idxs``), so they match the reference recorder
@@ -7,6 +8,13 @@ exactly (record_landmarks_official.py:30-44).
 """
 
 from __future__ import annotations
+
+# Mouth anchor points (reference: record_landmarks_official.py:24-25,
+# live_infer_official.py:34-37).
+LEFT_CORNER = 61
+RIGHT_CORNER = 291
+UPPER_INNER = 13
+LOWER_INNER = 14
 
 # The four regional sets whose union is the official 88-point selection
 # (reference: record_landmarks_official.py:30-40).
@@ -40,3 +48,11 @@ FEATURE_DIM = 2 * N_POINTS + N_SCALARS  # 180
 
 # The official 10-word vocabulary (reference: record_landmarks_official.py:137).
 WORDS = ["yes", "no", "hello", "thanks", "please", "fahhh", "six", "seven", "lebron", "aura"]
+
+# Ordered 40-point lip ring used by the streaming (83-D) feature family
+# (reference: inactive/live_feed.py:16-23 — order matters there).
+LIP_ORDER = MOUTH_UPPER + MOUTH_LOWER
+assert len(LIP_ORDER) == 40
+
+# Total points in the MediaPipe face mesh.
+MESH_POINTS = 468

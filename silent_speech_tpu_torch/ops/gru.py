@@ -122,3 +122,30 @@ def bigru(x: torch.Tensor, lengths: torch.Tensor, layers: list[dict], *,
         if li < len(layers) - 1:
             out = dropout(out, dropout_rate, generator, train)
     return out, torch.cat(finals, dim=-1)
+
+
+def unidirectional_gru_chunked(x: torch.Tensor, lengths: torch.Tensor,
+                               layers: list[dict], *, chunk_size: int):
+    """A stacked forward GRU over a long (B, T, D) stream in chunks of
+    ``chunk_size`` frames, each layer's carry handed from one chunk to the
+    next: the same outputs as one full-length scan, with the live memory
+    of a chunk.
+
+    ``layers``: per-layer dicts {'fwd': {...}}. Returns (outputs (B, T,
+    H_top), final carries [per layer (B, H)])."""
+    B, T, _ = x.shape
+    carries = [x.new_zeros((B, lp["fwd"]["wh"].shape[0])) for lp in layers]
+    L = lengths.to(x.device)
+    outs = []
+    for s in range(0, T, chunk_size):
+        inp = x[:, s:s + chunk_size]
+        # lengths relative to this chunk, clamped to [0, chunk]
+        lc = (L - s).clamp(0, inp.shape[1])
+        new_carries = []
+        for lp, h0 in zip(layers, carries):
+            inp, h_last = gru_layer_single_direction(inp, lc, lp["fwd"],
+                                                     h0=h0)
+            new_carries.append(h_last)
+        carries = new_carries
+        outs.append(inp)
+    return torch.cat(outs, dim=1)[:, :T], carries

@@ -1,6 +1,7 @@
-"""Metrics logging and trace capture (port of the JAX train/metrics.py
-``MetricsLogger`` and ``profiler_trace``; the JAX package's trace is
-``jax.profiler``'s, the port's torch.profiler's)."""
+"""Metrics logging, stage timers and trace capture (port of the JAX
+train/metrics.py: ``MetricsLogger``, ``StageTimer``, ``profiler_trace`` and
+``annotate``; the JAX package's trace is ``jax.profiler``'s, the port's
+torch.profiler's)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import contextlib
 import json
 import os
 import time
+from collections import defaultdict
 from typing import Optional
 
 import torch
@@ -66,3 +68,40 @@ class MetricsLogger:
         if self._f:
             self._f.close()
             self._f = None
+
+
+class StageTimer:
+    """Accumulating per-stage host timers (capture / landmark / pack /
+    sink): ``with timer.stage("landmark"): ...``, then ``summary()`` ->
+    n, mean, p50 and p95 in ms per stage."""
+
+    def __init__(self):
+        self.samples = defaultdict(list)
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.samples[name].append(time.perf_counter() - t0)
+
+    def summary(self) -> dict:
+        out = {}
+        for name, xs in self.samples.items():
+            xs_sorted = sorted(xs)
+            n = len(xs_sorted)
+            out[name] = {
+                "n": n,
+                "mean_ms": 1e3 * sum(xs_sorted) / n,
+                "p50_ms": 1e3 * xs_sorted[n // 2],
+                "p95_ms": 1e3 * xs_sorted[min(n - 1, int(0.95 * n))],
+            }
+        return out
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """A named range in torch.profiler traces (``record_function``)."""
+    with torch.profiler.record_function(name):
+        yield

@@ -106,7 +106,7 @@ def test_load_predictor_warmup_and_cli(ckpt, tmp_path, rng, capsys):
                      "device=cpu", "k=3"]) == 0
     out = capsys.readouterr().out.strip()
     assert out == f"{cpath}: {want}"
-    assert cli.main(["infer-live", "ckpt_path=x"]) == 2
+    assert cli.main(["record-timed", "out_dir=x"]) == 2
     assert "not yet ported" in capsys.readouterr().out
     assert cli.main(["predict", f"ckpt_path={path}"]) == 2
 

@@ -20,3 +20,14 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_blas_thread():
+    """One BLAS thread for numpy in a test file's tests: the live path's
+    host crops are numpy products, and eight OpenBLAS threads a worker
+    would spin on the cores the other workers need."""
+    from threadpoolctl import threadpool_limits
+
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
